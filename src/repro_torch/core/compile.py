@@ -1,0 +1,275 @@
+"""Compiled QonnxGraph executor: fused segments over the Hopper kernels.
+
+Counterpart of ``repro.core.compile``.  ``executor.execute`` is the §V
+oracle; this module is the performance tier above it:
+
+  1. **Partition** a cleaned graph into fused segments by iterating the
+     declarative lowering-rule registry (``core/lowering``) in priority
+     order.  The rules ported so far cover
+
+     * ``Quant|BipolarQuant|QCDQ(w) -> MatMul/Gemm [-> Mul] [-> Add]`` —
+       onto ``kernels.quant_matmul`` (int8, B1) / ``quant_matmul_int4``
+       (packed int4, B2) with offline integer weight packing;
+     * activation ``Quant`` nodes and ``QuantizeLinear -> Clip ->
+       DequantizeLinear`` chains — onto ``kernels.quant_dequant`` (B4);
+     * everything else runs on the interpreted op registry.
+
+  2. **Fold** the static subgraphs no rule covers once, at compile time,
+     and prune the constants to what the plan reads.
+
+  3. **Emit** a ``CompiledPlan`` whose constants (packed carriers, scales)
+     live on the plan's device and whose segments run eagerly there, in
+     topological order; a call enqueues its kernels on the current CUDA
+     stream and returns without synchronizing.
+
+This slice compiles the fp32-epilogue tier only, the reference's
+``use_analysis=False, use_fusion=False`` configuration; the flags of the
+tiers still to port raise ``NotImplementedError`` naming the ROADMAP.md
+item that brings them.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from . import lowering
+from .executor import op_output, resolve_device, to_tensor
+from .graph import Node, QonnxGraph
+from .lowering import LoweringContext, LoweringRule, Segment
+
+# operand positions whose *values* the op reads on the host (shapes, axes,
+# pads): such initializers stay numpy constants instead of device tensors,
+# so an interpreted Reshape never waits on the device for its target
+_STATIC_OPERANDS = {"Reshape": (1,), "Pad": (1, 2), "Squeeze": (1,),
+                    "Unsqueeze": (1,)}
+
+
+@dataclass
+class CompiledPlan:
+    """A partitioned QonnxGraph execution plan on one device."""
+    graph: QonnxGraph
+    segments: list[Segment]
+    consts: dict
+    device: torch.device
+
+    def __call__(self, inputs: dict) -> dict:
+        """Run the plan.  Inputs (numpy arrays or tensors) are moved to the
+        plan's device; results are device tensors returned **without a
+        synchronize** — on CUDA their kernels may still be in flight, which
+        is what lets the serving tier enqueue every slot before one
+        trailing sync."""
+        env = {k: to_tensor(v, self.device) for k, v in inputs.items()}
+        for t in self.graph.inputs:
+            if t.name not in env:
+                raise ValueError(f"missing graph input {t.name!r}")
+        for seg in self.segments:
+            seg.run(self.consts, env)
+        # graph outputs may be compile-time constants (folded subgraphs)
+        return {name: env.get(name, self.consts.get(name))
+                for name in self.graph.output_names}
+
+    # ------------------------------------------------------------- stats
+    @property
+    def fused_counts(self) -> dict:
+        out: dict[str, int] = {}
+        for s in self.segments:
+            out[s.kind] = out.get(s.kind, 0) + 1
+        return out
+
+    @property
+    def n_fused_nodes(self) -> int:
+        return sum(len(s.nodes) for s in self.segments if s.kind != "interp")
+
+    def interp_op_counts(self) -> dict:
+        """op_type -> count over nodes left on the interpreted fallback."""
+        out: dict[str, int] = {}
+        for s in self.segments:
+            if s.kind != "interp":
+                continue
+            for n in s.nodes:
+                out[n.op_type] = out.get(n.op_type, 0) + 1
+        return out
+
+    def describe(self) -> str:
+        head = (f"CompiledPlan({self.graph.name}) on {self.device}: "
+                f"{len(self.segments)} segments over {len(self.graph.nodes)} "
+                f"nodes {self.fused_counts}")
+        return "\n".join([head] + ["  " + s.describe() for s in self.segments])
+
+
+# --------------------------------------------------- interpreted fallback
+
+def _make_interp_segment(nodes: list[Node], static_consts: dict) -> Segment:
+    ins = sorted({i for n in nodes for i in n.inputs if i})
+    outs = [o for n in nodes for o in n.outputs]
+
+    def run(consts, env):
+        for node in nodes:
+            static_pos = _STATIC_OPERANDS.get(node.op_type, ())
+            args = []
+            for pos, i in enumerate(node.inputs):
+                if not i:
+                    args.append(None)
+                elif pos in static_pos and i in static_consts:
+                    args.append(static_consts[i])     # host value
+                else:
+                    args.append(env.get(i, consts.get(i)))
+            for name, val in zip(node.outputs, op_output(node, args)):
+                env[name] = val
+
+    return Segment("interp", nodes, ins, outs, run)
+
+
+def _unported(use_analysis, use_integer_requant, use_fusion, tune, mesh,
+              interpret) -> None:
+    for flag, on, item in (
+            ("use_analysis", use_analysis, "A7 (analysis)"),
+            ("use_integer_requant", use_integer_requant,
+             "A8 (integer requant, kernel B3)"),
+            ("use_fusion", use_fusion, "A11 (fusion)")):
+        if on:
+            raise NotImplementedError(
+                f"{flag}=True is not ported yet: ROADMAP.md {item}")
+    if tune != "off":
+        raise NotImplementedError(
+            f"tune={tune!r} is not ported yet: ROADMAP.md A15 (tuning)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= is not ported yet: ROADMAP.md A16 (multi-device)")
+    if interpret is not None:
+        raise ValueError(
+            "the port has no interpret mode: kernels launch on CUDA tensors "
+            "and their plain twins run on CPU tensors; pass device='cpu'")
+
+
+# ------------------------------------------------------------- compiler
+
+def compile_graph(graph: QonnxGraph, *, run_cleanup: bool = True,
+                  use_kernels: bool = True, use_int4: bool = True,
+                  use_analysis: bool = False,
+                  interpret: Optional[bool] = None,
+                  use_integer_requant: bool = False, tune: str = "off",
+                  tune_cache_dir: Optional[str] = None,
+                  tune_repeats: int = 3,
+                  use_fusion: bool = False,
+                  mesh=None, device=None) -> CompiledPlan:
+    """Partition ``graph`` into fused segments and emit a plan on ``device``.
+
+    run_cleanup  — run the declarative "compile_prep" pipeline first
+                   (cleanup that keeps weight-quant nodes unfolded; shape
+                   inference is what lets the channelwise matchers fire)
+    use_kernels  — False disables fusion entirely (pure interpreter plan)
+    use_int4     — pack <=4-bit signed weights two per byte and dispatch
+                   the in-kernel-unpack variant (B2)
+    device       — where the plan runs: None means CUDA (raising without a
+                   GPU); "cpu" runs every kernel's plain twin
+    use_analysis, use_integer_requant, use_fusion, tune (with
+    tune_cache_dir / tune_repeats), mesh — the reference's later tiers;
+                   anything but their defaults raises NotImplementedError
+    interpret    — must stay None (see ``_unported``)
+    """
+    del tune_cache_dir, tune_repeats           # meaningful only with tune
+    _unported(use_analysis, use_integer_requant, use_fusion, tune, mesh,
+              interpret)
+    dev = resolve_device(device)
+    if run_cleanup:
+        from . import passes
+        graph = passes.run_pipeline(graph, "compile_prep")
+    g = graph.copy()
+    g.nodes = g.toposort()
+    ctx = LoweringContext(use_int4=use_int4, device=dev)
+
+    # constants start on the host: folding happens there once, and only
+    # what the plan reads moves to the device
+    consts: dict = {k: to_tensor(v) for k, v in g.initializers.items()}
+
+    # pass 1 — match the registered lowering rules at their anchor nodes;
+    # covered satellites (weight chains above, epilogues below) are
+    # recorded so pass 2 skips them
+    anchor_match: dict[int, tuple[LoweringRule, lowering.Match]] = {}
+    covered: set[int] = set()
+    rules_by_op: dict[str, list[LoweringRule]] = {}
+    if use_kernels:
+        for node in g.nodes:
+            if id(node) in covered:
+                continue
+            if node.op_type not in rules_by_op:
+                rules_by_op[node.op_type] = lowering.rules_for(node.op_type)
+            for rule in rules_by_op[node.op_type]:
+                m = rule.match(g, node, ctx)
+                if m is None:
+                    continue
+                if any(id(n) in covered or id(n) in anchor_match
+                       for n in m.nodes):
+                    continue               # overlaps an earlier match
+                anchor_match[id(node)] = (rule, m)
+                covered.update(id(n) for n in m.nodes)
+                break
+
+    # pass 1.5 — compile-time folding of the *unmatched* static subgraphs
+    folded: set[int] = set()
+    changed = True
+    while changed:
+        changed = False
+        for node in g.nodes:
+            if id(node) in covered or id(node) in folded:
+                continue
+            if not all((not i) or i in consts for i in node.inputs):
+                continue
+            out = op_output(node, [consts[i] if i else None
+                                   for i in node.inputs])
+            for name, val in zip(node.outputs, out):
+                consts[name] = to_tensor(val)
+            folded.add(id(node))
+            changed = True
+
+    # pass 2 — emit segments in topo order; a fused segment runs at its
+    # anchor's position, consecutive unfused nodes coalesce into one
+    # interpreted segment
+    static_consts = {
+        i: consts[i].numpy()
+        for node in g.nodes if node.op_type in _STATIC_OPERANDS
+        for pos in _STATIC_OPERANDS[node.op_type]
+        if pos < len(node.inputs) and (i := node.inputs[pos]) in consts}
+
+    segments: list[Segment] = []
+    pending_interp: list[Node] = []
+    staged: dict = {}                      # kernel constants, on the device
+
+    def flush_interp():
+        if pending_interp:
+            segments.append(
+                _make_interp_segment(list(pending_interp), static_consts))
+            pending_interp.clear()
+
+    for node in g.nodes:
+        if id(node) in anchor_match:
+            flush_interp()
+            rule, m = anchor_match[id(node)]
+            segments.append(rule.emit(len(segments), m, staged, ctx))
+        elif id(node) in covered or id(node) in folded:
+            continue                  # satellite of a fused segment / folded
+        else:
+            pending_interp.append(node)
+    flush_interp()
+
+    # prune consts to what the plan reads: float weights whose int8/int4
+    # carriers were packed offline (and fold intermediates) stay behind
+    used: set[str] = set(g.output_names)
+    for seg in segments:
+        if seg.kind == "interp":
+            for node in seg.nodes:
+                static_pos = _STATIC_OPERANDS.get(node.op_type, ())
+                used.update(i for pos, i in enumerate(node.inputs)
+                            if i and pos not in static_pos)
+        else:
+            used.update(seg.inputs)
+    consts = {k: v.to(dev) for k, v in consts.items() if k in used}
+    consts.update(staged)
+
+    return CompiledPlan(g, segments, consts, dev)
+
+
+__all__ = ["CompiledPlan", "compile_graph"]

@@ -1,0 +1,182 @@
+"""Shared quantized-weight resolution for kernel-backed lowering rules.
+
+Counterpart of ``repro.core.lowering.weights``.  Three weight producers
+turn into an integer carrier + dequant scale:
+
+  * ``Quant``          — QONNX high-level weight quantizer (symmetric only:
+                         any nonzero zero point keeps the node interpreted);
+  * ``BipolarQuant``   — 1-bit {-1, +1} weights, exact in int8;
+  * ``QuantizeLinear [-> Clip] -> DequantizeLinear`` — QCDQ-format weight
+    chains, evaluated offline with the registered ops so the packed
+    carrier is bit-identical to what the oracle would produce.
+
+Carrier selection is syntactic: the declared bit-width bounds decide the
+int8 / int4 fit.  (The reference's analysis-driven selection from the
+actual values arrives with the analysis tier, ROADMAP.md A7.)
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import quant_ops
+from ..executor import op_output, to_tensor
+from ..graph import Node, QonnxGraph
+from .base import Match, scalar, sole_consumer, static_value
+
+
+@dataclass
+class KernelMatch(Match):
+    """Shared payload of matches that lower onto the integer matmul kernels."""
+    x: str                       # activation tensor
+    out: str                     # tensor the fused segment produces
+    w_int: np.ndarray            # integer weight carrier, kernel layout
+    scale: np.ndarray            # () or per-output-column dequant scale
+    bias: Optional[np.ndarray]   # per-output-column bias or None
+    int4_ok: bool                # packed-int4 dispatch is sound
+
+
+def stage_kernel_carriers(idx: int, m: KernelMatch, consts: dict, ctx,
+                          kinds: tuple[str, str]):
+    """Stage a KernelMatch's constants into the plan's consts dict.
+
+    Packs the int4 carrier when the context allows it (on the host, once),
+    then moves the carrier, the dequant scale and the optional bias to the
+    plan's device under the segment's ``__seg{idx}_*`` keys.
+
+    Returns ``(kind, use_int4, w_key, s_key, b_key_or_None, meta)`` where
+    ``kinds`` is the (int8, int4) segment-kind pair.
+    """
+    from repro_torch.kernels.ops import pack_int4
+
+    use_int4 = ctx.use_int4 and m.int4_ok
+    kind = kinds[1] if use_int4 else kinds[0]
+    w_key, s_key, b_key = f"__seg{idx}_w", f"__seg{idx}_s", f"__seg{idx}_b"
+    w = torch.from_numpy(np.ascontiguousarray(m.w_int, np.int8))
+    consts[w_key] = (pack_int4(w) if use_int4 else w).to(ctx.device)
+    consts[s_key] = to_tensor(np.asarray(m.scale, np.float32), ctx.device)
+    if m.bias is not None:
+        consts[b_key] = to_tensor(np.asarray(m.bias, np.float32), ctx.device)
+    meta = {"acc": "float32", "requant_path": "fp32"}
+    return (kind, use_int4, w_key, s_key,
+            b_key if m.bias is not None else None, meta)
+
+
+@dataclass
+class QuantWeight:
+    """A weight tensor resolved to its integer carrier, pre-shape-checks."""
+    chain: list[Node]            # producer chain, topo order (last feeds use)
+    w_int: np.ndarray            # int8 carrier in the *original* weight shape
+    scale: np.ndarray            # raw scale array (granularity rule-checked)
+    int4_values: bool            # value range fits the int4 carrier
+
+
+def _broadcasts_over(w_shape: tuple, *params: np.ndarray) -> bool:
+    """True iff every quant param broadcasts onto the weight shape without
+    changing it — the precondition for evaluating the chain offline."""
+    try:
+        return np.broadcast_shapes(
+            w_shape, *(np.asarray(p).shape for p in params)) == tuple(w_shape)
+    except ValueError:
+        return False
+
+
+def resolve_quant_weight(g: QonnxGraph, w_name: str) -> Optional[QuantWeight]:
+    """Resolve ``w_name``'s producer into a ``QuantWeight`` or None."""
+    wq = g.producer(w_name)
+    if wq is None:
+        return None
+    if wq.op_type == "DequantizeLinear":
+        return _resolve_qcdq_chain(g, wq)
+    if wq.op_type == "BipolarQuant":
+        w = static_value(g, wq.inputs[0])
+        s = static_value(g, wq.inputs[1])
+        if w is None or s is None:
+            return None
+        # w_q = s * (+1 if w >= 0 else -1)  — exact in int8
+        w_int = np.where(w >= 0, 1, -1).astype(np.int8)
+        return QuantWeight([wq], w_int, np.asarray(s, np.float32), True)
+    if wq.op_type != "Quant":
+        return None
+    w = static_value(g, wq.inputs[0])
+    if w is None:
+        return None
+    s, z, bw = (static_value(g, i) for i in wq.inputs[1:4])
+    if s is None or z is None or bw is None:
+        return None
+    if np.any(z != 0):
+        return None                       # asymmetric weights: keep interp
+    nb = scalar(bw)
+    if nb is None:
+        return None
+    signed = bool(wq.attrs.get("signed", 1))
+    narrow = bool(wq.attrs.get("narrow", 0))
+    rmode = str(wq.attrs.get("rounding_mode", "ROUND")).upper()
+    if rmode not in quant_ops.ROUNDING_MODES:
+        return None                       # unknown mode: keep interp
+    if not _broadcasts_over(w.shape, s, z):
+        return None    # params the oracle can't broadcast: decline, not raise
+    w_q = quant_ops.quantize_int(
+        to_tensor(np.asarray(w, np.float32)), to_tensor(s), to_tensor(z),
+        to_tensor(bw), signed=signed, narrow=narrow,
+        rounding_mode=rmode).numpy()
+    # declared bit-width bounds decide the carrier
+    w_hi = float(quant_ops.max_int(signed, narrow, nb))
+    w_lo = float(quant_ops.min_int(signed, narrow, nb))
+    if w_lo < -128 or w_hi > 127:
+        return None                       # must fit the int8 carrier
+    return QuantWeight([wq], w_q.astype(np.int8), np.asarray(s, np.float32),
+                       -8.0 <= w_lo and w_hi <= 7.0)
+
+
+def _resolve_qcdq_chain(g: QonnxGraph, dq: Node) -> Optional[QuantWeight]:
+    """QCDQ-format weights: QuantizeLinear(w) [-> Clip] -> DequantizeLinear.
+    The integer weights are computed offline by evaluating the Q(C) chain on
+    the constant with the registered ops."""
+    chain = [dq]
+    cur = g.producer(dq.inputs[0])
+    if cur is not None and cur.op_type == "Clip":
+        chain.insert(0, cur)
+        cur = g.producer(cur.inputs[0])
+    if cur is None or cur.op_type != "QuantizeLinear":
+        return None
+    ql = cur
+    chain.insert(0, ql)
+    w = static_value(g, ql.inputs[0])
+    if w is None:
+        return None
+    if ql.inputs[1] != dq.inputs[1]:
+        return None
+    s = static_value(g, ql.inputs[1])
+    zp = static_value(g, ql.inputs[2]) if len(ql.inputs) > 2 else None
+    if s is None or (zp is not None and np.any(zp != 0)):
+        return None
+    if not _broadcasts_over(w.shape, s,
+                            *(() if zp is None else (zp,))):
+        return None    # params the oracle can't broadcast: decline, not raise
+    # evaluate QL [+ Clip] on the constant weight, offline
+    val = to_tensor(np.asarray(w, np.float32))
+    for cn in chain[:-1]:
+        args = [val] + [to_tensor(g.initializers[i])
+                        for i in cn.inputs[1:] if i]
+        (val,) = op_output(cn, args)
+    w_int = val.numpy()
+    if w_int.min() < -128 or w_int.max() > 127:
+        return None
+    return QuantWeight(chain, w_int.astype(np.int8),
+                       np.asarray(s, np.float32),
+                       bool(w_int.min() >= -8 and w_int.max() <= 7))
+
+
+def chain_absorbable(g: QonnxGraph, chain: list[Node], consumer: Node) -> bool:
+    """May ``chain`` be covered by ``consumer``'s segment?  Only when the
+    consumer is the chain tail's sole reader and every interior link is
+    sole-consumed (otherwise another node still needs the chain's output,
+    so it must stay in the graph and the segment reads its result)."""
+    if sole_consumer(g, chain[-1].outputs[0]) is not consumer:
+        return False
+    return all(sole_consumer(g, c.outputs[0]) is not None
+               for c in chain[:-1])

@@ -1,0 +1,56 @@
+"""The port stands alone: importing it (every module) never imports JAX,
+and no source file under ``src/repro_torch`` imports JAX or the reference
+package."""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+PKG = SRC / "repro_torch"
+
+
+def _modules():
+    import repro_torch
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+
+
+def test_importing_every_port_module_leaves_jax_out():
+    mods = _modules()
+    assert "repro_torch.kernels.quant_matmul" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or "
+            "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_no_source_imports_jax_or_the_reference():
+    pat = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_torch)|"
+                     r"from\s+(jax|repro)(\.|\s)(?!_torch))", re.M)
+    offenders = [str(p.relative_to(SRC)) for p in PKG.rglob("*.py")
+                 if pat.search(p.read_text())]
+    assert offenders == []
+    assert not list(PKG.rglob("*.so"))        # nothing built is committed
+
+
+def test_kernel_sources_are_cuda_cpp_for_sm90a():
+    from repro_torch.kernels import _build
+    srcs = sorted(p.name for p in (PKG / "kernels" / "csrc").glob("*.cu"))
+    assert srcs == ["quant_dequant.cu", "quant_matmul.cu"]
+    assert "arch=compute_90a,code=sm_90a" in _build.ARCH
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
+    assert set(_build.SIGNATURES) == {"qdq_launch", "qmm_launch"}
