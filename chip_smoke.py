@@ -14,22 +14,45 @@ printing a result:
    exact on dyadic inputs and within the summation-order bound
    ``2·K·2^-24·(|x|@|w|)·|s|`` on randn inputs; B4 (quant_dequant) bit-exact
    over every rounding mode, signedness, width, granularity and output kind;
-3. the main path: TFC-w2a2 (packed int4: B2 + B4) and TFC-w1a1 with
-   ``use_int4=False`` (B1 + B4) are built by the port's zoo, compiled on
-   CUDA and held bit-exact against the port's oracle on the CPU, with the
-   reference's segment census;
-4. serving: a ``CompiledGraphEngine`` answers 64 submitted requests and one
-   40-row batch in 16-row slots, each row bit-exact against the oracle on
-   the CPU;
-5. timings at the TFC shapes with M = 256 beside each kernel's bound, its
-   twin and one library call computing the same function (CUDA events,
-   median of 30 samples of 10 calls after warm-up; device time from a
-   replayed CUDA graph of the 10 calls, call time from eager calls), and
-   the engine's requests per second.
+   B5 (quant_grouped_matmul, int8 and int4, per-tensor and per-channel
+   scale, with and without bias, ragged M / Kg / Ng, and through the conv
+   wrapper's strided view) exact on dyadic inputs and within the order
+   bound on randn; B6 (quant_depthwise_conv2d) bit-exact on randn inputs
+   (its twin sums the taps in the kernel's order) with no epilogue, ReLU
+   only, bias, per-channel scale, act bits {2, 4, 8} in every rounding
+   mode, stride 2, asymmetric pads, dilation 2 and channel counts off the
+   block, at MobileNet-224 shapes among others;
+3. the main path, each graph built by the port's zoo, compiled on CUDA and
+   held against the port's oracle on the CPU with the reference's segment
+   census: TFC-w2a2 (packed int4: B2 + B4) and TFC-w1a1 with
+   ``use_int4=False`` (B1 + B4), CNV-w1a1 and CNV-w2a2 (B1, B2, B4), and
+   MobileNet-w4a4 at img 224 with 8 rows (B1, B2, B4, B6), all bit-exact.
+   The zoo's random weights let MobileNet's activations quantize to 0
+   after its fourth conv, so the same graph with its conv gains raised by
+   powers of two (``zoo.rescale_conv_gains``: same integer weights) runs
+   too, 2 x 8 rows: bit-exact through the global average pool, and its
+   final MatMul, whose inputs (sums x float32(1/49)) are not dyadic,
+   within the order bound.  Last a grouped conv (group 8, 64 -> 64
+   channels, 3x3, 56x56: B5 + B4), bit-exact;
+4. serving: a ``CompiledGraphEngine`` answers 64 submitted TFC requests and
+   one 40-row batch in 16-row slots, each row bit-exact against the oracle
+   on the CPU; a second one serves the rescaled MobileNet-w4a4 at img 224
+   in 8-row slots, 16 submitted requests and one ragged 5-row batch, each
+   row bit-exact against the compiled plan's rows and within the order
+   bound of the CPU oracle;
+5. timings beside each kernel's bound, its twin and one library call
+   computing the same function (CUDA events, median of 30 samples of 10
+   calls after warm-up; device time from a replayed CUDA graph of the 10
+   calls, call time from eager calls): at the TFC shapes with M = 256, and
+   at the shapes of one MobileNet-w4a4 forward at img 224 with 8 rows
+   (B5 at the grouped conv's shape); one MobileNet plan call's device time
+   by kernel name (torch.profiler) and the device's busy share; then each
+   engine's requests per second.
 
 Launch counts are reset just before phase 3 and read just after phase 4;
 every kernel of the path must have launched there.  The last lines are the
-card, a JSON line of per-kernel numbers, and the JSON result line.
+card, a JSON line of per-kernel numbers (summed over one MobileNet-224
+forward of 8 rows; B5 over the grouped conv) and the JSON result line.
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
@@ -48,16 +71,38 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 TFC_LAYERS = [(784, 64), (64, 64), (64, 64), (64, 10)]
 M_TIMED = 256
+SLOT = 8                       # MobileNet-224 rows per plan call / slot
 REPLACES = {
     "quant_matmul": "src/repro/kernels/quant_matmul.py:139",
     "quant_matmul_int4": "src/repro/kernels/quant_matmul.py:184",
     "quant_dequant": "src/repro/kernels/quant_dequant.py:126",
+    "quant_grouped_matmul": "src/repro/kernels/quant_grouped_conv.py:218",
+    "quant_depthwise_conv2d": "src/repro/kernels/quant_grouped_conv.py:392",
 }
 SOURCES = {
     "quant_matmul": "src/repro_torch/kernels/csrc/quant_matmul.cu",
     "quant_matmul_int4": "src/repro_torch/kernels/csrc/quant_matmul.cu",
     "quant_dequant": "src/repro_torch/kernels/csrc/quant_dequant.cu",
+    "quant_grouped_matmul": "src/repro_torch/kernels/csrc/quant_grouped_conv.cu",
+    "quant_depthwise_conv2d": "src/repro_torch/kernels/csrc/quant_grouped_conv.cu",
 }
+# the reference's census (use_analysis=False, use_fusion=False)
+CENSUS = {
+    ("TFC-w2a2", True): {"quant_dequant": 4, "quant_matmul_int4": 4, "interp": 3},
+    ("TFC-w1a1", False): {"quant_dequant": 1, "quant_matmul": 4, "interp": 3},
+    ("CNV-w1a1", True): {"quant_dequant": 1, "quant_conv": 1, "quant_conv_int4": 5,
+                         "quant_matmul_int4": 3, "interp": 8},
+    ("CNV-w2a2", True): {"quant_dequant": 3, "quant_conv": 1, "quant_conv_int4": 5,
+                         "quant_matmul_int4": 3, "interp": 5},
+    ("MobileNet-w4a4", True): {"quant_dequant": 1, "quant_conv": 1, "quant_conv_dw": 13,
+                               "quant_conv_int4": 13, "quant_matmul_int4": 1,
+                               "interp": 1},
+}
+MOBILENET_224_STATS = {"grouped_segments": 13, "block_diagonal_grouped": 0,
+                       "reclaimed_macs": 4_260_017_664,
+                       "carrier_bytes_saved": 12_512_160}
+# the synthetic grouped conv that puts B5 on the compiled path
+GCONV = dict(n=SLOT, c=64, img=56, groups=8)
 MODES = ("ROUND", "CEIL", "FLOOR", "UP", "DOWN", "HALF_UP", "HALF_DOWN",
          "ROUND_TO_ZERO")
 
@@ -199,67 +244,324 @@ def check_quant_dequant(ops, torch, np, dev, err):
     return n_cases
 
 
+def check_grouped_matmul(ops, torch, np, dev, err):
+    """B5 against its twin; returns the number of cases."""
+    rng = np.random.RandomState(6)
+    g8, m8 = GCONV["groups"], GCONV["n"] * GCONV["img"] ** 2
+    kg8, ng8 = GCONV["c"] // g8 * 9, GCONV["c"] // g8
+    shapes = [(g8, m8, kg8, ng8), (2, 13, 10, 5), (3, 65, 18, 33), (4, 100, 36, 17),
+              (1, 33, 130, 70), (64, 40, 2, 1)]
+    n_cases = 0
+    for g, m, kg, ng in shapes:
+        for int4 in (False, True):
+            lo, hi = (-8, 7) if int4 else (-127, 127)
+            w = torch.from_numpy(rng.randint(lo, hi + 1, (g, kg, ng)).astype(np.int8))
+            wk = (ops.pack_int4_grouped(w) if int4 else w).to(dev)
+            for per_ch in (False, True):
+                for with_bias in (False, True):
+                    s = torch.from_numpy((2.0 ** -rng.randint(2, 6, g * ng if per_ch else 1))
+                                         .astype(np.float32)).reshape(-1 if per_ch else ())
+                    b = torch.from_numpy((rng.randint(-64, 64, g * ng) / 16.0)
+                                         .astype(np.float32)) if with_bias else None
+                    s, b = s.to(dev), None if b is None else b.to(dev)
+                    x = torch.from_numpy((rng.randint(-128, 129, (g, m, kg)) / 128.0)
+                                         .astype(np.float32)).to(dev)
+                    got = ops.quant_grouped_matmul(x, wk, s, b, packed=int4)
+                    want = ops.quant_grouped_matmul_plain(x, wk, s, b, packed=int4)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"B5 {g}x{m}x{kg}x{ng} int4={int4} differs "
+                                             "on dyadic x")
+                    xr = torch.randn(g, m, kg, generator=torch.Generator().manual_seed(
+                        g * m + kg)).to(dev)
+                    got = ops.quant_grouped_matmul(xr, wk, s, b, packed=int4)
+                    want = ops.quant_grouped_matmul_plain(xr, wk, s, b, packed=int4)
+                    mag = torch.matmul(xr.abs(), w.to(dev).float().abs()) * s.abs().reshape(
+                        (g, 1, ng) if per_ch else ())
+                    bound = 2 * kg * 2.0 ** -24 * mag + 2.0 ** -23 * want.abs()
+                    diff = (got - want).abs()
+                    if bool((diff > bound).any()):
+                        raise AssertionError(f"B5 {g}x{m}x{kg}x{ng} beyond the order bound")
+                    err["quant_grouped_matmul"] = max(err["quant_grouped_matmul"],
+                                                      float(diff.max()))
+                    n_cases += 2
+    # through the conv wrapper: a strided view of the im2col matrix in,
+    # the (M, O) matrix out
+    x = torch.from_numpy((rng.randint(-64, 65, (2, 24, 13, 11)) / 64.0)
+                         .astype(np.float32)).to(dev)
+    wg = torch.from_numpy(rng.randint(-7, 8, (6, 4 * 9, 5)).astype(np.int8)).to(dev)
+    for int4 in (False, True):
+        wk = ops.pack_int4_grouped(wg) if int4 else wg
+        kw = dict(groups=6, kernel_shape=(3, 3), strides=(2, 1), pads=(1, 0, 2, 1),
+                  dilations=(1, 2), packed=int4)
+        got = ops.quant_grouped_conv2d(x, wk, 0.125, **kw)
+        xg = ops.extract_patches(x, (3, 3), (2, 1), (1, 0, 2, 1), (1, 2))[0]
+        want = ops.quant_grouped_matmul_plain(
+            xg.view(xg.shape[0], 6, 36).permute(1, 0, 2), wk, 0.125, packed=int4)
+        want = want.permute(1, 0, 2).reshape(2, got.shape[2], got.shape[3], 30) \
+            .permute(0, 3, 1, 2)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"B5 through quant_grouped_conv2d differs (int4={int4})")
+        n_cases += 1
+    return n_cases
+
+
+def _mobilenet_layers(img=224):
+    """(kind, cin, cout, stride, input H) of each MobileNet-V1 conv."""
+    from repro_torch.models import zoo
+    out, h = [], img
+    for kind, cin, cout, stride in zoo.MOBILENET_V1:
+        out.append((kind, cin, cout, stride, h))
+        h = (h - 1) // stride + 1
+    return out
+
+
+def check_depthwise(ops, torch, np, dev, err):
+    """B6 against its twin, bit-exact on randn inputs; returns the number of
+    cases."""
+    rng = np.random.RandomState(7)
+    geos = [dict(strides=(1, 1), pads=(1, 1, 1, 1), dilations=(1, 1)),
+            dict(strides=(2, 2), pads=(1, 1, 1, 1), dilations=(1, 1)),
+            dict(strides=(2, 1), pads=(2, 0, 1, 1), dilations=(1, 1)),
+            dict(strides=(1, 1), pads=(2, 2, 2, 2), dilations=(2, 2))]
+    epis = [dict(relu=False, act_bits=None), dict(relu=True, act_bits=None)]
+    epis += [dict(relu=True, act_bits=bits, act_signed=signed, act_rounding=mode)
+             for bits, signed in ((2, False), (4, False), (8, True)) for mode in MODES]
+    n_cases = 0
+
+    def case(x, c, geo, epi, per_ch, with_bias, zp):
+        taps = torch.from_numpy(rng.randint(-7, 8, (9, c)).astype(np.int8)).to(dev)
+        s = torch.from_numpy((rng.rand(c if per_ch else 1) * 0.1 + 0.01)
+                             .astype(np.float32)).to(dev).reshape(-1 if per_ch else ())
+        b = torch.from_numpy(rng.randn(c).astype(np.float32)).to(dev) if with_bias else None
+        qs, qz = torch.tensor(0.173, device=dev), torch.tensor(zp, device=dev)
+        kw = dict(kernel_shape=(3, 3), **geo, **epi)
+        got = ops.quant_depthwise_conv2d(x, taps, s, b, qs, qz, **kw)
+        want = ops.quant_depthwise_conv2d_plain(x, taps, s, b, qs, qz, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"B6 {tuple(x.shape)} {kw} per_ch={per_ch} "
+                                 f"bias={with_bias} differs")
+
+    for c in (32, 37, 130):
+        x = (torch.randn(2, c, 15, 14, generator=torch.Generator().manual_seed(c)) * 2).to(dev)
+        for geo in geos:
+            for i, epi in enumerate(epis):
+                case(x, c, geo, epi, per_ch=bool(i % 2), with_bias=bool(i % 3),
+                     zp=float(i % 2))
+                n_cases += 1
+    # every MobileNet-224 depthwise layer at 8 rows, with its own epilogue
+    for kind, cin, _, stride, h in _mobilenet_layers():
+        if kind != "dw":
+            continue
+        x = torch.randn(SLOT, cin, h, h, generator=torch.Generator().manual_seed(h)).to(dev)
+        case(x, cin, dict(strides=(stride, stride), pads=(1, 1, 1, 1), dilations=(1, 1)),
+             dict(relu=True, act_bits=4, act_signed=False), per_ch=False, with_bias=False,
+             zp=0.0)
+        n_cases += 1
+    err["quant_depthwise_conv2d"] = 0.0
+    return n_cases
+
+
 # ------------------------------------------------------------ phases 3 + 4
 
+def _oracle(g, x, return_all=False):
+    from repro_torch.core import execute, transforms
+    return execute(transforms.cleanup(g), {g.input_names[0]: x}, device="cpu",
+                   return_all=return_all)
+
+
+def _check_plan(plan, key, int4, ops, before, needs):
+    if plan.fused_counts != CENSUS[(key, int4)]:
+        raise AssertionError(f"{key}: census {plan.fused_counts} != {CENSUS[(key, int4)]}")
+    after = ops.launch_counts()
+    for k in needs:
+        if after[k] <= before[k]:
+            raise AssertionError(f"{key}: kernel {k} was not launched")
+    return {k: after[k] - before[k] for k in after}
+
+
+def grouped_conv_graph():
+    """Quant -> Conv(group 8, 64 -> 64, 3x3, pads 1, 4-bit weights) -> Relu
+    -> Quant on 56x56 maps: no zoo model has a grouped conv with a channel
+    multiplier, so this one puts B5 on the compiled path."""
+    import numpy as np
+    from repro_torch.core import GraphBuilder
+    c, img, g = GCONV["c"], GCONV["img"], GCONV["groups"]
+    b = GraphBuilder("GroupedConv-g8")
+    x = b.add_input("x", (GCONV["n"], c, img, img))
+    h = b.quant(x, 1.0 / 64, 0.0, 8)
+    w = np.random.RandomState(9).randn(c, c // g, 3, 3).astype(np.float32) * 0.3
+    qw = b.quant(b.add_initializer("w", w), 1.0 / 16, 0.0, 4, narrow=True)
+    (h,) = b.add_node("Conv", [h, qw], 1, {"kernel_shape": [3, 3], "strides": [1, 1],
+                                          "pads": [1, 1, 1, 1], "group": g})
+    (h,) = b.add_node("Relu", [h], 1)
+    h = b.quant(h, 1.0 / 8, 0.0, 4, signed=False)
+    b.mark_output(h)
+    return b.build()
+
+
+def _final_matmul(graph):
+    """The (activation, dequantized weight) input names of the last MatMul."""
+    node = [n for n in graph.toposort() if n.op_type == "MatMul"][-1]
+    return node.inputs[0], node.inputs[1]
+
+
+def order_bound(xf, wf, ref):
+    """Summation-order bound of a float32 product (K terms) plus one
+    rounding of the result, elementwise."""
+    k = xf.shape[-1]
+    return 2 * k * 2.0 ** -24 * (xf.abs() @ wf.abs()) + 2.0 ** -23 * ref.abs()
+
+
 def run_main_path(torch, np, dev):
-    from repro_torch.core import compile_graph, execute, transforms
+    from repro_torch.core import compile_graph
+    from repro_torch.core.executor import to_tensor
     from repro_torch.kernels import ops
     from repro_torch.models import zoo
     from repro_torch.serve import CompiledGraphEngine
 
-    census = {
-        ("TFC-w2a2", True): {"quant_dequant": 4, "quant_matmul_int4": 4, "interp": 3},
-        ("TFC-w1a1", False): {"quant_dequant": 1, "quant_matmul": 4, "interp": 3},
-    }
-    needs = {("TFC-w2a2", True): ("quant_matmul_int4", "quant_dequant"),
-             ("TFC-w1a1", False): ("quant_matmul", "quant_dequant")}
-    x = np.random.RandomState(2).randn(64, 784).astype(np.float32)
-    for (key, int4), want_counts in census.items():
+    needs = {"TFC-w2a2": ("quant_matmul_int4", "quant_dequant"),
+             "TFC-w1a1": ("quant_matmul", "quant_dequant"),
+             "CNV-w1a1": ("quant_matmul", "quant_matmul_int4", "quant_dequant"),
+             "CNV-w2a2": ("quant_matmul", "quant_matmul_int4", "quant_dequant"),
+             "MobileNet-w4a4": ("quant_matmul", "quant_matmul_int4", "quant_dequant",
+                                "quant_depthwise_conv2d")}
+    xs = {"TFC": np.random.RandomState(2).randn(64, 784).astype(np.float32),
+          "CNV": np.random.RandomState(12).randn(SLOT, 3, 32, 32).astype(np.float32)}
+    for key, int4 in [k for k in CENSUS if not k[0].startswith("MobileNet")]:
         g = zoo.ZOO[key]()
+        x = xs[key[:3]]
         before = ops.launch_counts()
         plan = compile_graph(g, device=dev, use_int4=int4)
         out = plan({"x": x})[plan.graph.output_names[0]]
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        after = ops.launch_counts()
-        ref = execute(transforms.cleanup(g), {"x": x}, device="cpu")[g.output_names[0]]
-        if tuple(out.shape) != (64, 10) or not bool(torch.isfinite(out).all()):
+        torch.cuda.synchronize()
+        ref = _oracle(g, x)[g.output_names[0]]
+        if tuple(out.shape) != (x.shape[0], 10) or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"{key}: bad output {tuple(out.shape)}")
         if not torch.equal(out.cpu(), ref):
             raise AssertionError(f"{key}: compiled CUDA plan differs from the oracle "
                                  f"by {float((out.cpu() - ref).abs().max())}")
-        if plan.fused_counts != want_counts:
-            raise AssertionError(f"{key}: census {plan.fused_counts} != {want_counts}")
-        for k in needs[(key, int4)]:
-            if after[k] <= before[k]:
-                raise AssertionError(f"{key}: kernel {k} was not launched")
+        launched = _check_plan(plan, key, int4, ops, before, needs[key])
         print(f"main path {key} use_int4={int4}: bit-exact vs oracle, "
-              f"fused_counts={plan.fused_counts}, launches="
-              f"{ {k: after[k] - before[k] for k in after} }")
+              f"fused_counts={plan.fused_counts}, launches={launched}", flush=True)
 
-    # phase 4: serving, in 16-row slots, held against the oracle on the CPU
-    g = zoo.build_tfc(2, 2)
-    eng = CompiledGraphEngine(g, max_batch=16, device=dev)
-    clean = transforms.cleanup(g)
+    # MobileNet-w4a4 at img 224 as the zoo builds it: its random weights
+    # let every activation after the fourth conv quantize to 0, so it is
+    # held bit-exact but says little past that point; the same graph with
+    # its conv gains raised (zoo.rescale_conv_gains: same integer weights,
+    # dyadic scales) keeps the activations live and carries the real check
+    x16 = np.random.RandomState(13).randn(2 * SLOT, 3, 224, 224).astype(np.float32)
+    g = zoo.build_mobilenet(4, 4, img=224)
+    before = ops.launch_counts()
+    plan = compile_graph(g, device=dev)
+    out = plan({"x": x16[:SLOT]})[g.output_names[0]]
+    torch.cuda.synchronize()
+    if not torch.equal(out.cpu(), _oracle(g, x16[:SLOT])[g.output_names[0]]):
+        raise AssertionError("MobileNet-224 (zoo): compiled CUDA plan differs from the oracle")
+    launched = _check_plan(plan, "MobileNet-w4a4", True, ops, before,
+                           needs["MobileNet-w4a4"])
+    if plan.grouped_conv_stats() != MOBILENET_224_STATS:
+        raise AssertionError(f"MobileNet-224 stats {plan.grouped_conv_stats()}")
+    print(f"main path MobileNet-w4a4 img 224 (zoo weights), {SLOT} rows: bit-exact vs the "
+          f"CPU oracle; fused_counts={plan.fused_counts}, "
+          f"grouped_conv_stats={plan.grouped_conv_stats()}, launches={launched}", flush=True)
 
-    def oracle(rows):
-        return execute(clean, {"x": rows}, device="cpu")[g.output_names[0]].numpy()
+    t0 = time.perf_counter()
+    live = zoo.rescale_conv_gains(zoo.build_mobilenet(4, 4, img=224))
+    oracle = _oracle(live, x16, return_all=True)
+    ref = oracle[live.output_names[0]]
+    t_oracle = time.perf_counter() - t0
+    before = ops.launch_counts()
+    lplan = compile_graph(live, device=dev)
+    pre, w_name = _final_matmul(lplan.graph)
+    rows = []
+    for i in (0, SLOT):
+        env = {"x": to_tensor(x16[i:i + SLOT], dev)}
+        for seg in lplan.segments:          # the plan's own loop, keeping env
+            seg.run(lplan.consts, env)
+        torch.cuda.synchronize()
+        if not torch.equal(env[pre].cpu(), oracle[pre][i:i + SLOT]):
+            raise AssertionError("MobileNet-224: the plan differs from the oracle "
+                                 f"before the final MatMul ({pre})")
+        rows.append(env[lplan.graph.output_names[0]].cpu())
+    out = torch.cat(rows)
+    if tuple(out.shape) != (2 * SLOT, 1000) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"MobileNet-224: bad output {tuple(out.shape)}")
+    live_share = float((oracle[pre] != 0).float().mean())
+    if live_share < 0.5:
+        raise AssertionError(f"MobileNet-224 (rescaled): pooled features {live_share:.3f} "
+                             "nonzero; the check would be vacuous")
+    bound = order_bound(oracle[pre], oracle[w_name], ref)
+    diff = (out - ref).abs()
+    if bool((diff > bound).any()):
+        raise AssertionError("MobileNet-224: final MatMul beyond the order bound "
+                             f"({float(diff.max())})")
+    launched = _check_plan(lplan, "MobileNet-w4a4", True, ops, before,
+                           needs["MobileNet-w4a4"])
+    print(f"main path MobileNet-w4a4 img 224 (conv gains rescaled), 2 x {SLOT} rows: "
+          f"bit-exact vs the CPU oracle through the global average pool ({pre}, "
+          f"{live_share:.3f} of it nonzero); final MatMul within the order bound, max diff "
+          f"{float(diff.max())}, {int((diff == 0).sum())} of {diff.numel()} outputs "
+          f"bit-exact; launches={launched}; CPU oracle {t_oracle:.1f} s", flush=True)
 
-    xs = np.random.RandomState(3).randn(64, 784).astype(np.float32)
-    reqs = [eng.submit(r) for r in xs]
+    # the grouped conv: B5 (int4) + B4, bit-exact
+    gg = grouped_conv_graph()
+    xg = np.random.RandomState(14).randn(*gg.inputs[0].shape).astype(np.float32)
+    before = ops.launch_counts()
+    gplan = compile_graph(gg, device=dev)
+    gout = gplan({"x": xg})[gg.output_names[0]]
+    torch.cuda.synchronize()
+    want = {"quant_dequant": 1, "quant_conv_grouped_int4": 1}
+    if gplan.fused_counts != want:
+        raise AssertionError(f"grouped conv census {gplan.fused_counts} != {want}")
+    if not torch.equal(gout.cpu(), _oracle(gg, xg)[gg.output_names[0]]):
+        raise AssertionError("grouped conv: compiled CUDA plan differs from the oracle")
+    after = ops.launch_counts()
+    if after["quant_grouped_matmul"] <= before["quant_grouped_matmul"]:
+        raise AssertionError("grouped conv: B5 was not launched")
+    print(f"main path {gg.name} {tuple(xg.shape)}: bit-exact vs oracle, fused_counts="
+          f"{gplan.fused_counts}, grouped_conv_stats={gplan.grouped_conv_stats()}",
+          flush=True)
+
+    # phase 4: serving TFC in 16-row slots, held against the oracle on the CPU
+    tfc = zoo.build_tfc(2, 2)
+    eng = CompiledGraphEngine(tfc, max_batch=16, device=dev)
+    xt = np.random.RandomState(3).randn(64, 784).astype(np.float32)
+    reqs = [eng.submit(r) for r in xt]
     if eng.run_pending() != 64:
         raise AssertionError("run_pending did not run 64 requests")
     got = np.stack([r.wait() for r in reqs])
-    if not np.array_equal(got, oracle(xs)):
+    if not np.array_equal(got, _oracle(tfc, xt)[tfc.output_names[0]].numpy()):
         raise AssertionError("served rows differ from the oracle")
-    x40 = xs[:40] * 0.5
-    if not np.array_equal(eng(x40), oracle(x40)):
+    x40 = xt[:40] * 0.5
+    if not np.array_equal(eng(x40), _oracle(tfc, x40)[tfc.output_names[0]].numpy()):
         raise AssertionError("engine(x) differs from the oracle")
     if eng.n_completed != 64:
         raise AssertionError(f"engine completed {eng.n_completed}, not 64")
-    print(f"serving: 64 requests via run_pending + one 40-row call, all rows "
-          f"bit-exact vs the CPU oracle; completed={eng.n_completed}")
-    return eng, xs
+    print(f"serving TFC-w2a2: 64 requests via run_pending + one 40-row call, all rows "
+          f"bit-exact vs the CPU oracle; completed={eng.n_completed}", flush=True)
+
+    # serving MobileNet-224 (rescaled) in 8-row slots: rows equal the
+    # plan's, which phase 3 held against the oracle
+    meng = CompiledGraphEngine(live, max_batch=SLOT, device=dev)
+    if meng.conv_segments_fused != 27 or meng.grouped_conv_stats != MOBILENET_224_STATS:
+        raise AssertionError("MobileNet engine: conv telemetry differs")
+    reqs = [meng.submit(r) for r in x16]
+    if meng.run_pending() != 2 * SLOT:
+        raise AssertionError(f"run_pending did not run {2 * SLOT} requests")
+    served = torch.from_numpy(np.stack([r.wait() for r in reqs]))
+    ragged = torch.from_numpy(meng(x16[3:8]))
+    if not torch.equal(served, out) or not torch.equal(ragged, out[3:8]):
+        raise AssertionError("served MobileNet rows differ from the compiled plan's")
+    if bool(((served - ref).abs() > bound).any()):
+        raise AssertionError("served MobileNet rows beyond the oracle's order bound")
+    print(f"serving MobileNet-w4a4 img 224 (rescaled): {2 * SLOT} requests via run_pending in "
+          f"{SLOT}-row slots + one ragged 5-row call, every row bit-exact vs the "
+          f"compiled plan and within the CPU oracle's order bound; "
+          f"completed={meng.n_completed}", flush=True)
+    return (eng, xt), (meng, np.concatenate([x16] * 4)), (lplan, x16[:SLOT])
 
 
 def requests_per_s(eng, xs) -> float:
@@ -285,47 +587,177 @@ def _timed(**fns) -> dict:
     return out
 
 
+def _matmul_row(ops, torch, dev, g, m, k, n, int4, shape):
+    x = torch.randn(m, k, generator=g).to(dev)
+    w = torch.randint(-8 if int4 else -127, 8 if int4 else 128, (k, n), generator=g,
+                      dtype=torch.int8)
+    wk = (ops.pack_int4(w) if int4 else w).to(dev)
+    wf = w.float().to(dev)
+    s = torch.full((n,), 2.0 ** -6, device=dev)
+    fn = ops.quant_matmul_int4 if int4 else ops.quant_matmul
+    plain = ops.quant_matmul_int4_plain if int4 else ops.quant_matmul_plain
+    nbytes = 4 * m * k + (k * n // 2 if int4 else k * n) + 4 * n + 4 * m * n
+    return dict(shape=shape, **_timed(ms=lambda: fn(x, wk, s),
+                                      plain_ms=lambda: plain(x, wk, s),
+                                      library_ms=lambda: torch.matmul(x, wf) * s),
+                bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                ops_ms=2 * m * k * n / FP32_FLOPS * 1e3)
+
+
+def _qdq_row(ops, torch, dev, g, rows, cols, bits, signed, scale, shape):
+    x = (torch.randn(rows, cols, generator=g) * 2).to(dev)
+    s, z = torch.tensor(scale, device=dev), torch.tensor(0.0, device=dev)
+    kw = dict(bit_width=bits, signed=signed)
+    qmin, qmax = (-(2 ** (bits - 1)), 2 ** (bits - 1) - 1) if signed else (0, 2 ** bits - 1)
+    return dict(shape=shape, **_timed(
+        ms=lambda: ops.quant_dequant(x, s, z, **kw),
+        plain_ms=lambda: ops.quant_dequant_plain(x, s, z, **kw),
+        library_ms=lambda: torch.fake_quantize_per_tensor_affine(x, scale, 0, qmin, qmax)),
+        bytes_ms=(8 * rows * cols + 8) / HBM_BYTES_PER_S * 1e3,
+        ops_ms=6 * rows * cols / FP32_FLOPS * 1e3)
+
+
 def timings(ops, torch, dev):
-    """Per kernel: (rows of per-shape numbers, summed entry)."""
+    """Per kernel, the rows of one TFC forward at M = M_TIMED."""
     g = torch.Generator().manual_seed(5)
     rows = {k: [] for k in REPLACES}
     for k, n in TFC_LAYERS:
-        x = torch.randn(M_TIMED, k, generator=g).to(dev)
-        w = torch.randint(-8, 8, (k, n), generator=g, dtype=torch.int8)
-        wp = ops.pack_int4(w).to(dev)
-        w = w.to(dev)
-        s = torch.full((n,), 0.125, device=dev)
-        for name, wk in (("quant_matmul", w), ("quant_matmul_int4", wp)):
-            fn = ops.quant_matmul_int4 if name.endswith("int4") else ops.quant_matmul
-            plain = ops.quant_matmul_int4_plain if name.endswith("int4") \
-                else ops.quant_matmul_plain
-            wbytes = k * n // 2 if name.endswith("int4") else k * n
-            nbytes = 4 * M_TIMED * k + wbytes + 4 * n + 4 * M_TIMED * n
-            flops = 2 * M_TIMED * k * n
-            wf = w.float()
-            rows[name].append(dict(
-                shape=f"{M_TIMED}x{k}x{n}",
-                **_timed(ms=lambda: fn(x, wk, s),
-                         plain_ms=lambda: plain(x, wk, s),
-                         library_ms=lambda: torch.matmul(x, wf) * s),
-                bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                ops_ms=flops / FP32_FLOPS * 1e3))
+        for int4 in (False, True):
+            rows["quant_matmul_int4" if int4 else "quant_matmul"].append(
+                _matmul_row(ops, torch, dev, g, M_TIMED, k, n, int4, f"{M_TIMED}x{k}x{n}"))
     for cols, bits, signed, scale in ((784, 8, True, 1 / 128), (64, 2, False, 0.5),
                                       (64, 2, False, 0.5), (64, 2, False, 0.5)):
-        x = (torch.randn(M_TIMED, cols, generator=g) * 2).to(dev)
-        s = torch.tensor(scale, device=dev)
-        z = torch.tensor(0.0, device=dev)
-        kw = dict(bit_width=bits, signed=signed)
-        qmin, qmax = (-(2 ** (bits - 1)), 2 ** (bits - 1) - 1) if signed else (0, 2 ** bits - 1)
-        rows["quant_dequant"].append(dict(
-            shape=f"{M_TIMED}x{cols}",
-            **_timed(ms=lambda: ops.quant_dequant(x, s, z, **kw),
-                     plain_ms=lambda: ops.quant_dequant_plain(x, s, z, **kw),
-                     library_ms=lambda: torch.fake_quantize_per_tensor_affine(
-                         x, scale, 0, qmin, qmax)),
-            bytes_ms=(8 * M_TIMED * cols + 8) / HBM_BYTES_PER_S * 1e3,
-            ops_ms=6 * M_TIMED * cols / FP32_FLOPS * 1e3))
+        rows["quant_dequant"].append(_qdq_row(ops, torch, dev, g, M_TIMED, cols, bits,
+                                              signed, scale, f"{M_TIMED}x{cols}"))
     return rows
+
+
+def timings_mobilenet(ops, torch, dev):
+    """Per kernel, the rows of one MobileNet-w4a4 forward at img 224 with
+    SLOT rows (B5: the grouped conv of phase 3)."""
+    import torch.nn.functional as F
+    g = torch.Generator().manual_seed(15)
+    rows = {k: [] for k in REPLACES}
+    rows["quant_dequant"].append(_qdq_row(ops, torch, dev, g, SLOT, 3 * 224 * 224, 8,
+                                          True, 1 / 128, f"{SLOT}x{3 * 224 * 224}"))
+    for kind, cin, cout, stride, h in _mobilenet_layers():
+        ho = (h - 1) // stride + 1
+        if kind == "conv":          # first conv: im2col K = 27 (odd): int8, B1
+            m = SLOT * ho * ho
+            rows["quant_matmul"].append(_matmul_row(ops, torch, dev, g, m, 27, cout, False,
+                                                    f"{m}x27x{cout}"))
+        elif kind == "pw":
+            m = SLOT * h * h
+            rows["quant_matmul_int4"].append(_matmul_row(
+                ops, torch, dev, g, m, cin, cout, True, f"{m}x{cin}x{cout}"))
+        else:
+            x = torch.randn(SLOT, cin, h, h, generator=g).to(dev)
+            taps = torch.randint(-8, 8, (9, cin), generator=g, dtype=torch.int8).to(dev)
+            wf = taps.float().t().reshape(cin, 1, 3, 3).contiguous()
+            s = torch.tensor(2.0 ** -6, device=dev)
+            qs, qz = torch.tensor(0.125, device=dev), torch.tensor(0.0, device=dev)
+            kw = dict(kernel_shape=(3, 3), strides=(stride, stride), pads=(1, 1, 1, 1),
+                      relu=True, act_bits=4, act_signed=False)
+            n_out = SLOT * cin * ho * ho
+            rows["quant_depthwise_conv2d"].append(dict(
+                shape=f"{SLOT}x{cin}x{h}x{h}/s{stride}",
+                **_timed(ms=lambda: ops.quant_depthwise_conv2d(x, taps, s, None, qs, qz, **kw),
+                         plain_ms=lambda: ops.quant_depthwise_conv2d_plain(
+                             x, taps, s, None, qs, qz, **kw),
+                         library_ms=lambda: F.conv2d(x, wf, None, stride, 1, 1, cin)),
+                bytes_ms=(4 * x.numel() + 9 * cin + 4 * n_out + 12) / HBM_BYTES_PER_S * 1e3,
+                ops_ms=(18 + 8) * n_out / FP32_FLOPS * 1e3))
+        if kind != "dw":            # the act Quant B4 runs after conv / pointwise
+            c_out = cout * ho * ho if kind == "conv" else cout * h * h
+            rows["quant_dequant"].append(_qdq_row(ops, torch, dev, g, SLOT, c_out, 4, False,
+                                                  0.125, f"{SLOT}x{c_out}"))
+    rows["quant_matmul_int4"].append(_matmul_row(ops, torch, dev, g, SLOT, 1024, 1000, True,
+                                                 f"{SLOT}x1024x1000"))
+    # B5 at the grouped conv's shape: (G, M, Kg) view of its im2col matrix
+    c, img, grp = GCONV["c"], GCONV["img"], GCONV["groups"]
+    x = torch.randn(GCONV["n"], c, img, img, generator=g).to(dev)
+    patches = ops.extract_patches(x, (3, 3), (1, 1), (1, 1, 1, 1))[0]
+    m, kg, ng = patches.shape[0], c // grp * 9, c // grp
+    xg = patches.view(m, grp, kg).permute(1, 0, 2)
+    w = torch.randint(-8, 8, (grp, kg, ng), generator=g, dtype=torch.int8)
+    wk = ops.pack_int4_grouped(w).to(dev)
+    wf = w.float().to(dev)
+    s = torch.full((c,), 2.0 ** -4, device=dev)
+    rows["quant_grouped_matmul"].append(dict(
+        shape=f"{grp}x{m}x{kg}x{ng} int4",
+        **_timed(ms=lambda: ops.quant_grouped_matmul(xg, wk, s, packed=True),
+                 plain_ms=lambda: ops.quant_grouped_matmul_plain(xg, wk, s, packed=True),
+                 library_ms=lambda: torch.bmm(xg, wf)),
+        bytes_ms=(4 * m * grp * kg + grp * kg * ng // 2 + 4 * c + 4 * m * c)
+        / HBM_BYTES_PER_S * 1e3,
+        ops_ms=2 * m * grp * kg * ng / FP32_FLOPS * 1e3))
+    wfull = w.float().permute(0, 2, 1).reshape(c, c // grp, 3, 3).to(dev)
+    conv_ms = time_ms(lambda: F.conv2d(x, wfull, None, 1, 1, 1, grp))[0]
+    print(f"(library yardstick, conv only, no scale or epilogue) F.conv2d groups={grp} on "
+          f"{tuple(x.shape)}: device {conv_ms:.6f} ms", flush=True)
+    return rows
+
+
+def profile_forward(torch, plan, x, reps=5):
+    """One plan call's device time by kernel name (torch.profiler), beside
+    its wall time without the profiler: the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    xd = torch.from_numpy(x).cuda()
+
+    def run():
+        for _ in range(reps):
+            plan({"x": xd})
+        torch.cuda.synchronize()
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall_ms = (time.perf_counter() - t0) / reps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    by_name = {}
+    for e in prof.key_averages():
+        # device-side events only: an aten op repeats its kernels' time
+        if str(e.device_type).endswith("CUDA"):
+            t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+            by_name[e.key] = (t / reps / 1e3, e.count / reps)
+    busy = sum(t for t, _ in by_name.values())
+    print(f"profile: one MobileNet-224 plan call of {len(x)} rows: wall {wall_ms:.6f} ms "
+          f"(no profiler), kernels {busy:.6f} ms (profiler), device busy share "
+          f"{busy / wall_ms:.3f}", flush=True)
+    for key, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]:
+        print(f"profile:   {t:.6f} ms in {n:g} launches  {key[:110]}", flush=True)
+
+
+def report(rows, launches, err, label):
+    """Print one line per timed shape; returns the per-kernel JSON entries
+    (times summed over the shapes)."""
+    kernels = []
+    for name, rs in rows.items():
+        if not rs:
+            continue
+        for r in rs:
+            bound = max(r["bytes_ms"], r["ops_ms"])
+            print(f"time[{label}] {name} {r['shape']}: device kernel {r['ms']:.6f} ms, plain "
+                  f"{r['plain_ms']:.6f} ms, library {r['library_ms']:.6f} ms, bound "
+                  f"{bound:.6f} ms ({'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'operations'}); "
+                  f"per eager call: kernel {r['call_ms']:.6f} ms, plain "
+                  f"{r['plain_call_ms']:.6f} ms, library {r['library_call_ms']:.6f} ms",
+                  flush=True)
+        by_bytes = sum(r["bytes_ms"] for r in rs if r["bytes_ms"] >= r["ops_ms"])
+        by_ops = sum(r["ops_ms"] for r in rs if r["ops_ms"] > r["bytes_ms"])
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+            launches=launches[name], max_abs_err=err[name],
+            ms=sum(r["ms"] for r in rs), plain_ms=sum(r["plain_ms"] for r in rs),
+            bound_ms=by_bytes + by_ops,
+            bound_by="bytes" if by_bytes >= by_ops else "operations",
+            library_ms=sum(r["library_ms"] for r in rs)))
+        print(f"sum[{label}] {name} over {len(rs)} shapes: device {kernels[-1]['ms']:.6f} ms, "
+              f"eager {sum(r['call_ms'] for r in rs):.6f} ms, bound "
+              f"{kernels[-1]['bound_ms']:.6f} ms ({kernels[-1]['bound_by']}), plain "
+              f"{kernels[-1]['plain_ms']:.6f} ms, library {kernels[-1]['library_ms']:.6f} ms",
+              flush=True)
+    return kernels
 
 
 def main() -> int:
@@ -356,12 +788,15 @@ def main() -> int:
     err = {k: 0.0 for k in REPLACES}
     n_mm = check_matmuls(ops, torch, np, dev, err)
     n_qd = check_quant_dequant(ops, torch, np, dev, err)
-    print(f"kernels vs twins: {n_mm} matmul cases, {n_qd} quant_dequant cases; "
-          f"max_abs_err {err}", flush=True)
+    n_gm = check_grouped_matmul(ops, torch, np, dev, err)
+    n_dw = check_depthwise(ops, torch, np, dev, err)
+    print(f"kernels vs twins: {n_mm} matmul cases, {n_qd} quant_dequant cases, "
+          f"{n_gm} grouped matmul cases, {n_dw} depthwise cases; max_abs_err {err}",
+          flush=True)
 
     # phases 3 + 4: the main path, counted
     ops.reset_launch_counts()
-    eng, xs = run_main_path(torch, np, dev)
+    (eng, xt), (meng, xm), (lplan, x8) = run_main_path(torch, np, dev)
     launches = ops.launch_counts()
     print(f"main-path launches: {launches}", flush=True)
     for k, v in launches.items():
@@ -369,31 +804,21 @@ def main() -> int:
             raise AssertionError(f"kernel {k} never launched on the main path")
 
     # phase 5: times
-    rate = requests_per_s(eng, xs)
+    rows = timings(ops, torch, dev)
+    report(rows, launches, err, "TFC M=256")
+    print("(sums above: one TFC forward at M=256, four matmul layers and four "
+          "activation quantizers)", flush=True)
+    rows = timings_mobilenet(ops, torch, dev)
+    kernels = report(rows, launches, err, f"MobileNet-224 N={SLOT}")
+    print(f"(sums above: one MobileNet-w4a4 forward at img 224 with {SLOT} rows; "
+          "B5 over the grouped conv's one layer)", flush=True)
+    profile_forward(torch, lplan, x8)
+    rate = requests_per_s(eng, xt)
     print(f"engine: {rate:.1f} requests/s (TFC-w2a2, max_batch=16, 64 requests "
           f"per run_pending, median of 5)", flush=True)
-    rows = timings(ops, torch, dev)
-    kernels = []
-    for name, rs in rows.items():
-        for r in rs:
-            bound = max(r["bytes_ms"], r["ops_ms"])
-            print(f"time {name} {r['shape']}: device kernel {r['ms']:.6f} ms, plain "
-                  f"{r['plain_ms']:.6f} ms, library {r['library_ms']:.6f} ms, bound "
-                  f"{bound:.6f} ms ({'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'operations'}); "
-                  f"per eager call: kernel {r['call_ms']:.6f} ms, plain "
-                  f"{r['plain_call_ms']:.6f} ms, library {r['library_call_ms']:.6f} ms",
-                  flush=True)
-        by_bytes = sum(r["bytes_ms"] for r in rs if r["bytes_ms"] >= r["ops_ms"])
-        by_ops = sum(r["ops_ms"] for r in rs if r["ops_ms"] > r["bytes_ms"])
-        kernels.append(dict(
-            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            launches=launches[name], max_abs_err=err[name],
-            ms=sum(r["ms"] for r in rs), plain_ms=sum(r["plain_ms"] for r in rs),
-            bound_ms=by_bytes + by_ops,
-            bound_by="bytes" if by_bytes >= by_ops else "operations",
-            library_ms=sum(r["library_ms"] for r in rs)))
-    print("(per-kernel numbers below sum one TFC forward at M=256: four matmul "
-          "layers, four activation quantizers)")
+    rate = requests_per_s(meng, xm)
+    print(f"engine: {rate:.1f} requests/s (MobileNet-w4a4 img 224, max_batch={SLOT}, "
+          f"{len(xm)} requests per run_pending, median of 5)", flush=True)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,13 @@ oracle; this module is the performance tier above it:
      * ``Quant|BipolarQuant|QCDQ(w) -> MatMul/Gemm [-> Mul] [-> Add]`` —
        onto ``kernels.quant_matmul`` (int8, B1) / ``quant_matmul_int4``
        (packed int4, B2) with offline integer weight packing;
+     * ``Quant|BipolarQuant|QCDQ(w) -> Conv [-> Relu] [-> Quant]`` with
+       ``1 < group`` — depthwise onto ``kernels.quant_depthwise_conv2d``
+       (B6, epilogue fused), up to ``MAX_BLOCKED_GROUPS`` groups onto
+       ``kernels.quant_grouped_conv2d`` (B5);
+     * every other such Conv — onto B1 / B2 through compile-time im2col
+       weights and run-time patch extraction (``kernels.quant_conv2d``),
+       block-diagonal for the groups the grouped rule declines;
      * activation ``Quant`` nodes and ``QuantizeLinear -> Clip ->
        DequantizeLinear`` chains — onto ``kernels.quant_dequant`` (B4);
      * everything else runs on the interpreted op registry.
@@ -90,6 +97,27 @@ class CompiledPlan:
                 continue
             for n in s.nodes:
                 out[n.op_type] = out.get(n.op_type, 0) + 1
+        return out
+
+    def grouped_conv_stats(self) -> dict:
+        """Grouped / depthwise lowering, summed over the segments.
+
+        ``reclaimed_macs`` / ``carrier_bytes_saved`` — what B5 / B6 save
+        against the dense block-diagonal im2col fallback (per sample);
+        ``grouped_segments`` — segments on those kernels;
+        ``block_diagonal_grouped`` — group > 1 convs still on the dense
+        carrier (the fallback)."""
+        out = {"grouped_segments": 0, "block_diagonal_grouped": 0,
+               "reclaimed_macs": 0, "carrier_bytes_saved": 0}
+        for s in self.segments:
+            if s.kind in ("quant_conv", "quant_conv_int4") and \
+                    s.meta.get("group", 1) > 1:
+                out["block_diagonal_grouped"] += 1
+            if s.kind.startswith(("quant_conv_grouped", "quant_conv_dw")):
+                out["grouped_segments"] += 1
+                out["reclaimed_macs"] += s.meta.get("reclaimed_macs", 0)
+                out["carrier_bytes_saved"] += s.meta.get(
+                    "carrier_bytes_saved", 0)
         return out
 
     def describe(self) -> str:

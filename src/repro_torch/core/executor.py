@@ -367,13 +367,32 @@ def _squeeze(node, x, axes=None):
     return x
 
 
+def _true_div(x: torch.Tensor, n) -> torch.Tensor:
+    """``x / n`` as an IEEE division, as the reference's pools divide.  The
+    divisor is a tensor on ``x``'s device: divided by a Python number, a
+    CUDA tensor is multiplied by the reciprocal, which can be 1 ulp off."""
+    return x / torch.full((), n, dtype=x.dtype, device=x.device)
+
+
+def _mean(x: torch.Tensor, axes: tuple, keep: bool) -> torch.Tensor:
+    """The reference's ``jnp.mean``: the sum over ``axes``, then a multiply
+    by the float32 reciprocal of the count, which is what XLA makes of
+    jnp.mean's division by a constant.  Spelled out, so the CPU and CUDA
+    results agree (``torch.mean`` divides on the CPU and multiplies on
+    CUDA)."""
+    n = int(np.prod([x.shape[a] for a in axes]))
+    recip = torch.full((), np.float32(1.0) / np.float32(n), dtype=x.dtype,
+                       device=x.device)
+    return torch.sum(x, dim=axes, keepdim=keep) * recip
+
+
 @register_op("ReduceMean")
 def _reduce_mean(node, x):
     axes = node.attrs.get("axes")
     keep = bool(node.attrs.get("keepdims", 1))
     if not axes:
-        return torch.mean(x, dim=tuple(range(x.ndim)), keepdim=keep)
-    return torch.mean(x, dim=tuple(int(a) for a in axes), keepdim=keep)
+        return _mean(x, tuple(range(x.ndim)), keep)
+    return _mean(x, tuple(int(a) % x.ndim for a in axes), keep)
 
 
 @register_op("BatchNormalization")
@@ -449,7 +468,7 @@ def _pool(node, x, is_avg: bool):
             ones = F.pad(torch.ones_like(xc[:1, :1]), tp)
             y = y / F.avg_pool2d(ones, k, strides, divisor_override=1)
         else:
-            y = y / float(np.prod(k))
+            y = _true_div(y, float(np.prod(k)))
     if nsp == 1:
         y = y[:, :, 0]
     return _to_nhwc(y) if nhwc else y
@@ -469,7 +488,7 @@ def _avgpool(node, x):
 def _gap(node, x):
     layout = node.attrs.get("data_layout", "NCHW")
     axes = tuple(range(2, x.ndim)) if layout == "NCHW" else tuple(range(1, x.ndim - 1))
-    return torch.mean(x, dim=axes, keepdim=True)
+    return _mean(x, axes, True)
 
 
 @register_op("Pad")

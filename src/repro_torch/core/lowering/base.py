@@ -19,10 +19,15 @@ overlap an earlier match.
 
 Rules ported so far (imported by ``lowering/__init__``):
 
-  priority 10  quant_matmul   Quant/BipolarQuant/QCDQ(w) -> MatMul/Gemm
-                              [-> Mul][-> Add]        (lowering/matmul.py)
-  priority 30  quant_qdq      activation Quant        (lowering/qdq.py)
-  priority 40  qcdq_chain     QuantizeLinear [-> Clip] -> DequantizeLinear
+  priority 10  quant_matmul        Quant/BipolarQuant/QCDQ(w) -> MatMul/Gemm
+                                   [-> Mul][-> Add]   (lowering/matmul.py)
+  priority 15  quant_grouped_conv  ... -> Conv(1 < group) [-> Relu]
+                                   [-> Quant]   (lowering/grouped_conv.py)
+  priority 20  quant_conv          ... -> Conv [-> Relu] [-> Quant]
+                                   (im2col, lowering/conv.py)
+  priority 30  quant_qdq           activation Quant   (lowering/qdq.py)
+  priority 40  qcdq_chain          QuantizeLinear [-> Clip] ->
+                                   DequantizeLinear
 """
 from __future__ import annotations
 
@@ -41,8 +46,9 @@ from ..graph import Node, QonnxGraph
 class Segment:
     """One fused unit of the compiled plan.
 
-    kind      — "quant_matmul" | "quant_matmul_int4" | "quant_dequant"
-                | "interp"
+    kind      — "quant_matmul[_int4]" | "quant_conv[_int4]"
+                | "quant_conv_grouped[_int4]" | "quant_conv_dw"
+                | "quant_dequant" | "interp"
     nodes     — graph nodes this segment covers (for stats / debugging)
     inputs    — env tensor names read;  outputs — env names written
     run       — fn(consts: dict, env: dict) -> None (writes env)
@@ -163,6 +169,55 @@ def col_scale(a: np.ndarray, n: int) -> Optional[np.ndarray]:
     if a.ndim >= 1 and a.shape[-1] == a.size == n:
         return a.reshape(-1)
     return None
+
+
+def conv_channel_scale(a: np.ndarray,
+                       w_shape: tuple) -> Optional[np.ndarray]:
+    """Conv-weight dequant-scale granularities the im2col lowering commutes
+    with: broadcast against the (O, I/g, kH, kW) weight (the right-aligned
+    broadcasting the oracle's Quant applies), the scale must be constant
+    within each output channel, since output channels become matmul
+    columns.  Returns () or (O,); None otherwise.
+
+    A bare 1-D (O,) array broadcasts along *kW* in the oracle, not along
+    O: only an (O, 1, 1, 1)-shaped scale is per output channel, so the
+    check is on broadcast behaviour, not on which axis holds the values."""
+    a = np.asarray(a, np.float32)
+    if a.size == 1:
+        return a.reshape(())
+    try:
+        sb = np.broadcast_to(a, w_shape).reshape(w_shape[0], -1)
+    except ValueError:
+        return None
+    if not np.all(sb == sb[:, :1]):
+        return None                  # varies within an output channel
+    return np.ascontiguousarray(sb[:, 0])
+
+
+def tensor_rows(g: QonnxGraph, name: str) -> Optional[int]:
+    """Leading (batch·spatial) row count of a 2-D-viewable tensor, the M
+    dim of its kernel; None when the shape is unknown or below rank 2.
+    None dims (symbolic batch) count as 1."""
+    sh = g.get_shape(name)
+    if not sh or len(sh) < 2:
+        return None
+    rows = 1
+    for d in sh[:-1]:
+        rows *= 1 if d is None else int(d)
+    return rows
+
+
+def conv_out_rows(g: QonnxGraph, node: Node) -> Optional[int]:
+    """im2col matmul rows (N·OH·OW) of a Conv from its output shape."""
+    sh = g.get_shape(node.outputs[0])
+    if not sh or len(sh) < 3:
+        return None
+    rows = 1
+    for ax, d in enumerate(sh):
+        if ax == 1:                 # NCHW channel axis -> matmul columns
+            continue
+        rows *= 1 if d is None else int(d)
+    return rows
 
 
 def sole_consumer(g: QonnxGraph, tensor: str) -> Optional[Node]:

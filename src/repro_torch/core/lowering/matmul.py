@@ -20,7 +20,7 @@ import torch
 
 from ..graph import Node, QonnxGraph
 from .base import (LoweringContext, LoweringRule, Segment, col_scale,
-                   register_rule, sole_consumer, static_value)
+                   register_rule, sole_consumer, static_value, tensor_rows)
 from .weights import (KernelMatch, chain_absorbable, resolve_quant_weight,
                       stage_kernel_carriers)
 
@@ -125,4 +125,5 @@ def _finish_match(g: QonnxGraph, node: Node, nodes: list[Node], n: int,
             out = add.outputs[0]
 
     return QuantMatMulMatch(nodes, node.inputs[0], out, w_int,
-                            np.asarray(scale, np.float32), bias, int4_ok)
+                            np.asarray(scale, np.float32), bias, int4_ok,
+                            rows=tensor_rows(g, node.inputs[0]))

@@ -12,6 +12,7 @@ dequantize into one pass over the tensor.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
@@ -77,22 +78,41 @@ class QDQMatch(Match):
     rounding_mode: str
 
 
-def make_qdq_segment(idx: int, m: QDQMatch, consts: dict,
-                     ctx: LoweringContext) -> Segment:
+def stage_qdq_epilogue(idx: int, consts: dict, ctx: LoweringContext, *,
+                       scale, zero_point, bit_width, signed, narrow,
+                       rounding_mode):
+    """Stage one activation Quant's constants and build its kernel closure.
+
+    The one place a Quant's realization on ``kernels.quant_dequant`` (B4)
+    is staged: the QDQ rules and the conv rules' epilogue absorption both
+    call it, so a Quant stages identical constants (``__seg{idx}_qs`` /
+    ``__seg{idx}_qz``) and parameters whichever segment absorbs it; the
+    depthwise kernel (B6) reads the same constants in its fused epilogue.
+
+    Returns ``(kernel_fn, (s_key, z_key))``."""
     from repro_torch.kernels.ops import quant_dequant
 
     s_key, z_key = f"__seg{idx}_qs", f"__seg{idx}_qz"
-    consts[s_key] = to_tensor(np.asarray(m.scale, np.float32), ctx.device)
-    consts[z_key] = to_tensor(np.asarray(m.zero_point, np.float32), ctx.device)
-    attrs = dict(bit_width=m.bit_width, signed=m.signed, narrow=m.narrow,
-                 rounding_mode=m.rounding_mode)
+    consts[s_key] = to_tensor(np.asarray(scale, np.float32), ctx.device)
+    consts[z_key] = to_tensor(np.asarray(zero_point, np.float32), ctx.device)
+    kernel = functools.partial(quant_dequant, bit_width=bit_width,
+                               signed=signed, narrow=narrow,
+                               rounding_mode=rounding_mode)
+    return kernel, (s_key, z_key)
+
+
+def make_qdq_segment(idx: int, m: QDQMatch, consts: dict,
+                     ctx: LoweringContext) -> Segment:
+    kernel, (s_key, z_key) = stage_qdq_epilogue(
+        idx, consts, ctx, scale=m.scale, zero_point=m.zero_point,
+        bit_width=m.bit_width, signed=m.signed, narrow=m.narrow,
+        rounding_mode=m.rounding_mode)
     x_name, out_name = m.x, m.out
 
     def run(consts, env):
         x = env.get(x_name, consts.get(x_name))
         x2 = x.reshape(1, -1) if x.ndim < 2 else x
-        y = quant_dequant(x2.contiguous(), consts[s_key], consts[z_key],
-                          **attrs)
+        y = kernel(x2.contiguous(), consts[s_key], consts[z_key])
         env[out_name] = y.reshape(x.shape)
 
     return Segment("quant_dequant", m.nodes, [x_name], [out_name], run,

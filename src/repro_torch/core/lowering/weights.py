@@ -37,15 +37,19 @@ class KernelMatch(Match):
     scale: np.ndarray            # () or per-output-column dequant scale
     bias: Optional[np.ndarray]   # per-output-column bias or None
     int4_ok: bool                # packed-int4 dispatch is sound
+    rows: Optional[int] = None   # the kernel's M rows per declared batch
 
 
 def stage_kernel_carriers(idx: int, m: KernelMatch, consts: dict, ctx,
-                          kinds: tuple[str, str]):
+                          kinds: tuple[str, str], pack=None):
     """Stage a KernelMatch's constants into the plan's consts dict.
 
     Packs the int4 carrier when the context allows it (on the host, once),
     then moves the carrier, the dequant scale and the optional bias to the
-    plan's device under the segment's ``__seg{idx}_*`` keys.
+    plan's device under the segment's ``__seg{idx}_*`` keys.  ``pack``
+    replaces the (K, N) int4 packer for carriers of another layout (the
+    grouped rule packs along each group's Kg).  The segment meta records
+    the kernel's rows (``m.rows``) when the shapes are known.
 
     Returns ``(kind, use_int4, w_key, s_key, b_key_or_None, meta)`` where
     ``kinds`` is the (int8, int4) segment-kind pair.
@@ -56,11 +60,13 @@ def stage_kernel_carriers(idx: int, m: KernelMatch, consts: dict, ctx,
     kind = kinds[1] if use_int4 else kinds[0]
     w_key, s_key, b_key = f"__seg{idx}_w", f"__seg{idx}_s", f"__seg{idx}_b"
     w = torch.from_numpy(np.ascontiguousarray(m.w_int, np.int8))
-    consts[w_key] = (pack_int4(w) if use_int4 else w).to(ctx.device)
+    consts[w_key] = ((pack or pack_int4)(w) if use_int4 else w).to(ctx.device)
     consts[s_key] = to_tensor(np.asarray(m.scale, np.float32), ctx.device)
     if m.bias is not None:
         consts[b_key] = to_tensor(np.asarray(m.bias, np.float32), ctx.device)
     meta = {"acc": "float32", "requant_path": "fp32"}
+    if m.rows is not None:
+        meta["rows"] = m.rows
     return (kind, use_int4, w_key, s_key,
             b_key if m.bias is not None else None, meta)
 

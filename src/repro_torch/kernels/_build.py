@@ -3,8 +3,9 @@
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process (all
 started together) into an object for ``sm_90a``, and the objects are
 linked into one shared library with a plain C interface, loaded with
-``ctypes``.  The library's name carries a hash of the sources and flags,
-so an edited source is rebuilt and an unchanged one is loaded as built.
+``ctypes``.  The library's name carries a hash of the flags, the sources
+and the headers they share (``csrc/*.cuh``), so an edited source or
+header is rebuilt and an unchanged tree is loaded as built.
 The build goes to ``kernels/build/`` beside this file (listed in
 ``.gitignore``), or to ``$REPRO_TORCH_BUILD_DIR``.
 
@@ -33,6 +34,9 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 SIGNATURES = {
     "qdq_launch": [_P, _P, _P, _P, _LL, _I, _I, _I, _F, _F, _I, _I, _P],
     "qmm_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gqmm_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL,
+                    _I, _I, _P],
+    "dw_launch": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 17 + [_F, _F, _I, _P],
 }
 
 # set by ``load`` on the build that actually ran nvcc (chip_smoke prints it)
@@ -60,8 +64,10 @@ def _sources() -> list[Path]:
 
 
 def _digest() -> str:
+    """Hash of the flags and of every source and header: an edited shared
+    header (``*.cuh``) rebuilds the library as an edited source does."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -12,29 +12,16 @@
 // Rounding follows the reference exactly: the division is IEEE (nvcc's
 // default -prec-div=true, and __fdiv_rn spells it out), every add and
 // multiply is an explicit _rn intrinsic so nothing is contracted into an
-// FMA, and the clip propagates NaN as jnp.clip does.
+// FMA, and the clip propagates NaN as jnp.clip does.  The rounding modes
+// and the clip live in qdq_round.cuh, shared with B6's fused requant.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "qdq_round.cuh"
+
+using namespace qdq;
+
 namespace {
-
-enum Mode { ROUND = 0, CEIL = 1, FLOOR = 2, UP = 3, DOWN = 4, HALF_UP = 5, HALF_DOWN = 6 };
-
-// jnp.sign: +1 / -1, and the argument itself for +-0 and NaN
-__device__ __forceinline__ float sign_of(float v) {
-  return v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : v);
-}
-
-template <int MODE>
-__device__ __forceinline__ float round_mode(float v) {
-  if (MODE == ROUND) return rintf(v);                 // ties to even
-  if (MODE == CEIL) return ceilf(v);
-  if (MODE == FLOOR) return floorf(v);
-  if (MODE == DOWN) return truncf(v);                 // toward zero
-  if (MODE == UP) return __fmul_rn(sign_of(v), ceilf(fabsf(v)));
-  if (MODE == HALF_UP) return __fmul_rn(sign_of(v), floorf(__fadd_rn(fabsf(v), 0.5f)));
-  return __fmul_rn(sign_of(v), ceilf(__fsub_rn(fabsf(v), 0.5f)));   // HALF_DOWN
-}
 
 template <int MODE, bool CODES>
 __global__ void qdq_kernel(const float* __restrict__ x, const float* __restrict__ s,
@@ -46,9 +33,7 @@ __global__ void qdq_kernel(const float* __restrict__ x, const float* __restrict_
     const int c = (int)(i % cols);
     const float sc = s[c * s_stride];
     const float zp = z[c * z_stride];
-    float q = round_mode<MODE>(__fadd_rn(__fdiv_rn(x[i], sc), zp));
-    q = q < lo ? lo : q;
-    q = q > hi ? hi : q;
+    const float q = quantize<MODE>(x[i], sc, zp, lo, hi);
     if (CODES)
       static_cast<int8_t*>(out)[i] = (int8_t)q;
     else

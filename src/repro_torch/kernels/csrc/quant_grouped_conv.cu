@@ -1,0 +1,220 @@
+// B5 / B6: grouped and depthwise quantized convolution
+// (repro_torch/kernels/quant_grouped_conv.py).
+//
+// B5 replaces the Pallas kernel `_gqmm_kernel` (`quant_grouped_matmul`) of
+// repro/kernels/quant_grouped_conv.py:
+//   out[g, m, n] = (sum_k x[g, m, k] * w[g, k, n]) * s[g*Ng + n]  [+ bias[g*Ng + n]]
+// x (G, M, Kg) float32 with any group and row strides (unit stride along
+// Kg), so the conv wrapper passes a view of its im2col matrix; w (G, Kg, Ng)
+// int8, or (G, Kg/2, Ng) with row 2r of each group in the low nibble and
+// 2r+1 in the high nibble, both sign-extended; s scalar (stride 0) or per
+// output channel; out (G, M, Ng) with any group and row strides, so the
+// conv wrapper receives its (M, G*Ng) matrix without a transpose.
+//
+// B5 is B1's tiling with the group as grid axis z: a true float32 dot (FMA
+// on the CUDA cores, no TF32 or tensor cores), each block owning a 32x32
+// output tile of one group and walking that group's Kg itself (the TPU
+// grid carried K in VMEM scratch, which blocks running in any order cannot
+// share).  The int4 variant unpacks nibbles while it stages the weight
+// tile, so device memory serves the packed bytes.  Epilogue as the
+// reference: (acc * s) rounded, then + bias.  On this card it is bound by
+// the float32 FMA rate for wide Kg and by the bytes of x and out for
+// narrow Kg; at moderate group counts M is large, so the grid fills the
+// SMs.
+//
+// B6 replaces `_dw_kernel` (`quant_depthwise_conv2d`):
+//   acc[n, c, oh, ow] = sum_{i, j} x[n, c, oh*sh - pt + i*dh, ow*sw - pl + j*dw] * w[i*kW + j, c]
+//   y = acc * s[c] (rounded); y += b[c]; y = max(y, 0); y = (q - qz) * qs,
+//   q = clip(round_mode(y / qs + qz), lo, hi)       (each step optional)
+// One thread per output element reads its kH*kW taps straight from the
+// NCHW input and masks the padding itself, so the reference's (T, M, C)
+// tap tensor never exists.  A block works inside one (n, c) plane, so the
+// index math per output is two 32-bit operations and the channel's
+// constants are shared by the block.  The taps are summed in (kh, kw)
+// row-major order with separately rounded products (no FMA), the order of
+// the plain twin, and the epilogue uses the reference's order with _rn
+// intrinsics; the requant is qdq_round.cuh's, the same code as B4.  B6 is
+// bound by bytes: one read of x and one write of the output (the kH*kW
+// re-reads of neighbouring taps come from L1/L2), against about 2*kH*kW
+// flops per output element.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "qdq_round.cuh"
+
+using namespace qdq;
+
+namespace {
+
+constexpr int BM = 32, BN = 32, BK = 32, THREADS = 256;
+
+template <bool PACKED>
+__global__ void __launch_bounds__(THREADS)
+gqmm_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
+            const float* __restrict__ s, const float* __restrict__ bias,
+            float* __restrict__ out, int M, int Kg, int Ng, long long x_gs,
+            long long x_rs, long long o_gs, long long o_rs, int s_stride) {
+  __shared__ float xs[BM][BK + 1];
+  __shared__ float ws[BK][BN + 1];
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int g = blockIdx.z;
+  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
+  const float* xg = x + g * x_gs;
+  const int8_t* wg = w + (long long)g * (PACKED ? Kg / 2 : Kg) * Ng;
+  float acc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+
+  for (int k0 = 0; k0 < Kg; k0 += BK) {
+    for (int e = threadIdx.x; e < BM * BK; e += THREADS) {
+      const int r = e / BK, c = e % BK;
+      const int gr = row0 + r, gk = k0 + c;
+      xs[r][c] = (gr < M && gk < Kg) ? xg[gr * x_rs + gk] : 0.0f;
+    }
+    for (int e = threadIdx.x; e < BK * BN; e += THREADS) {
+      const int r = e / BN, c = e % BN;
+      const int gk = k0 + r, gc = col0 + c;
+      float v = 0.0f;
+      if (gk < Kg && gc < Ng) {
+        if (PACKED) {
+          const int b = wg[(long long)(gk >> 1) * Ng + gc];
+          v = (float)((gk & 1) ? (b >> 4) : ((int)(int8_t)(b << 4) >> 4));
+        } else {
+          v = (float)wg[(long long)gk * Ng + gc];
+        }
+      }
+      ws[r][c] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      const float a0 = xs[ty][kk], a1 = xs[ty + 16][kk];
+      const float b0 = ws[kk][tx], b1 = ws[kk][tx + 16];
+      acc[0][0] = fmaf(a0, b0, acc[0][0]);
+      acc[0][1] = fmaf(a0, b1, acc[0][1]);
+      acc[1][0] = fmaf(a1, b0, acc[1][0]);
+      acc[1][1] = fmaf(a1, b1, acc[1][1]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = row0 + ty + 16 * i, c = col0 + tx + 16 * j;
+      if (r < M && c < Ng) {
+        const int ch = g * Ng + c;
+        float o = __fmul_rn(acc[i][j], s[ch * s_stride]);
+        if (bias != nullptr) o = __fadd_rn(o, bias[ch]);
+        out[g * o_gs + r * o_rs + c] = o;
+      }
+    }
+  }
+}
+
+struct DwShape {
+  int C, H, W, OH, OW, kh, kw, sh, sw, pt, pl, dh, dw;
+};
+
+// grid.x: one (n, c) plane each; grid.y and the threads stride over the
+// plane's OH*OW outputs, so the per-output index math is 32-bit and the
+// channel's scale, bias and taps are the same for the whole block
+template <int MODE>
+__global__ void dw_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
+                          const float* __restrict__ s, const float* __restrict__ bias,
+                          const float* __restrict__ qs_p, const float* __restrict__ qz_p,
+                          float* __restrict__ out, DwShape p, int s_stride, int relu, int act,
+                          float lo, float hi) {
+  const int plane = blockIdx.x;                   // n*C + c
+  const int c = plane % p.C;
+  const int hw = p.OH * p.OW;
+  const float* xc = x + (long long)plane * p.H * p.W;
+  float* oc = out + (long long)plane * hw;
+  const float sc = s[c * s_stride];
+  for (int i = blockIdx.y * blockDim.x + threadIdx.x; i < hw; i += gridDim.y * blockDim.x) {
+    const int oh = i / p.OW, ow = i - oh * p.OW;
+    float acc = 0.0f;
+    for (int a = 0; a < p.kh; ++a) {
+      const int ih = oh * p.sh - p.pt + a * p.dh;
+      if (ih < 0 || ih >= p.H) continue;          // zero padding adds +-0
+      for (int b = 0; b < p.kw; ++b) {
+        const int iw = ow * p.sw - p.pl + b * p.dw;
+        if (iw < 0 || iw >= p.W) continue;
+        const float wv = (float)w[(a * p.kw + b) * p.C + c];
+        acc = __fadd_rn(acc, __fmul_rn(xc[ih * p.W + iw], wv));
+      }
+    }
+    float y = __fmul_rn(acc, sc);
+    if (bias != nullptr) y = __fadd_rn(y, bias[c]);
+    if (relu) y = y < 0.0f ? 0.0f : y;            // NaN passes, as jnp.maximum
+    if (act) {
+      const float qs = *qs_p, qz = *qz_p;
+      const float q = quantize<MODE>(y, qs, qz, lo, hi);
+      y = __fmul_rn(__fsub_rn(q, qz), qs);
+    }
+    oc[i] = y;
+  }
+}
+
+template <int MODE>
+void dw_mode(dim3 grid, int threads, cudaStream_t st, const float* x, const int8_t* w,
+             const float* s, const float* bias, const float* qs, const float* qz, float* out,
+             const DwShape& p, int s_stride, int relu, int act, float lo, float hi) {
+  dw_kernel<MODE><<<grid, threads, 0, st>>>(x, w, s, bias, qs, qz, out, p, s_stride, relu,
+                                            act, lo, hi);
+}
+
+}  // namespace
+
+// Kg is the logical per-group depth (the packed weight has Kg / 2 rows per
+// group).  x_gs / x_rs and o_gs / o_rs are the group and row strides of x
+// and out in elements.  bias may be null.  Returns cudaGetLastError() after
+// the launch (0 = launched).
+extern "C" int gqmm_launch(const float* x, const int8_t* w, const float* s, const float* bias,
+                           float* out, int G, int M, int Kg, int Ng, long long x_gs,
+                           long long x_rs, long long o_gs, long long o_rs, int s_stride,
+                           int packed, void* stream) {
+  if (G > 0 && M > 0 && Ng > 0) {
+    const dim3 grid((M + BM - 1) / BM, (Ng + BN - 1) / BN, G);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (packed)
+      gqmm_kernel<true><<<grid, THREADS, 0, st>>>(x, w, s, bias, out, M, Kg, Ng, x_gs, x_rs,
+                                                  o_gs, o_rs, s_stride);
+    else
+      gqmm_kernel<false><<<grid, THREADS, 0, st>>>(x, w, s, bias, out, M, Kg, Ng, x_gs, x_rs,
+                                                   o_gs, o_rs, s_stride);
+  }
+  return (int)cudaGetLastError();
+}
+
+// x (N, C, H, W) and out (N, C, OH, OW) contiguous float32; w (kh*kw, C)
+// int8; s scalar (stride 0) or (C,); bias (C,) or null; qs / qz one float
+// each on the device, read only when act != 0, with the static clip bounds
+// lo / hi and the rounding mode of qdq_round.cuh.  Returns
+// cudaGetLastError() after the launch (0 = launched).
+extern "C" int dw_launch(const float* x, const int8_t* w, const float* s, const float* bias,
+                         const float* qs, const float* qz, float* out, int N, int C, int H,
+                         int W, int OH, int OW, int kh, int kw, int sh, int sw, int pt, int pl,
+                         int dh, int dw, int s_stride, int relu, int act, float lo, float hi,
+                         int mode, void* stream) {
+  const int hw = OH * OW;
+  if ((long long)N * C > 0 && hw > 0) {
+    // a block no wider than the plane (warp multiples), the plane's tail
+    // over grid.y
+    const int threads = hw >= 256 ? 256 : (hw + 31) / 32 * 32;
+    const int tiles = (hw + threads - 1) / threads;
+    const dim3 grid((unsigned)(N * C), tiles < 65535 ? tiles : 65535);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const DwShape p{C, H, W, OH, OW, kh, kw, sh, sw, pt, pl, dh, dw};
+    switch (act ? mode : (int)ROUND) {
+      case ROUND: dw_mode<ROUND>(grid, threads, st, x, w, s, bias, qs, qz, out, p, s_stride, relu, act, lo, hi); break;
+      case CEIL: dw_mode<CEIL>(grid, threads, st, x, w, s, bias, qs, qz, out, p, s_stride, relu, act, lo, hi); break;
+      case FLOOR: dw_mode<FLOOR>(grid, threads, st, x, w, s, bias, qs, qz, out, p, s_stride, relu, act, lo, hi); break;
+      case UP: dw_mode<UP>(grid, threads, st, x, w, s, bias, qs, qz, out, p, s_stride, relu, act, lo, hi); break;
+      case DOWN: dw_mode<DOWN>(grid, threads, st, x, w, s, bias, qs, qz, out, p, s_stride, relu, act, lo, hi); break;
+      case HALF_UP: dw_mode<HALF_UP>(grid, threads, st, x, w, s, bias, qs, qz, out, p, s_stride, relu, act, lo, hi); break;
+      case HALF_DOWN: dw_mode<HALF_DOWN>(grid, threads, st, x, w, s, bias, qs, qz, out, p, s_stride, relu, act, lo, hi); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  return (int)cudaGetLastError();
+}

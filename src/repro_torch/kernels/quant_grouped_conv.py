@@ -1,0 +1,321 @@
+"""B5 / B6: grouped and depthwise quantized convolution as CUDA kernels.
+
+Replaces ``repro/kernels/quant_grouped_conv.py`` · ``quant_grouped_matmul``
+(Pallas body ``_gqmm_kernel``, B5) and ``quant_depthwise_conv2d``
+(``_dw_kernel``, B6).  CUDA source: ``csrc/quant_grouped_conv.cu``.
+
+The dense im2col path (``quant_conv``) lowers a ``group = g`` conv through
+a block-diagonal carrier that pays g× the true I/g·kH·kW contraction.
+These kernels do the true contraction:
+
+  * **B5** ``quant_grouped_matmul`` — out[g] = (xg[g] @ wg[g]) · s[g]
+    [+ b[g]] for moderate group counts, int8 or per-group packed int4
+    weights.  ``quant_grouped_conv2d`` feeds it the im2col matrix as a
+    (G, M, Kg) view (channel is the slowest feature, so group g's columns
+    are one contiguous slice) and receives the (M, G·Ng) output matrix
+    directly: neither of the reference's transposes is materialized.
+  * **B6** ``quant_depthwise_conv2d`` — the ``group == C`` case: a
+    per-channel kH·kW tap sum, then dequant, bias, ReLU and the activation
+    requant fused (the requant is B4's rounding, shared through
+    ``csrc/qdq_round.cuh``).  The kernel reads the taps straight from the
+    NCHW input; only the plain twin builds the reference's (T, M, C) tap
+    tensor.
+
+Layouts and signatures are the reference's: NCHW in and out, (G, M, Kg) /
+(G, Kg[/2], Ng) for B5, taps (kH·kW, C) for B6.  On CPU tensors the
+wrappers run the plain twins (``*_plain``); on CUDA tensors they launch
+the kernel or raise.  The integer epilogue (B3, ``acc_dtype=torch.int32``,
+``requant=``) arrives with ROADMAP.md A7/A8.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ._build import check, load
+from .quant_conv import conv_tap_slices, conv_out_hw, extract_patches
+from .quant_dequant import ROUNDING_MODE_IDS, quant_dequant_plain, static_bounds
+from .quant_matmul import _unported, pack_int4, unpack_int4
+
+launches = {"quant_grouped_matmul": 0, "quant_depthwise_conv2d": 0}
+
+
+# --------------------------------------------------- weight-layout helpers
+
+def grouped_weights(w, groups: int) -> np.ndarray:
+    """Conv weights (O, I/g, kH, kW) -> per-group carrier (G, Kg, Ng).
+
+    Group ``gi``'s slice is the (I/g·kH·kW, O/g) operand of that group
+    alone; rows are (c, kh, kw) with the channel slowest, as
+    ``extract_patches`` orders its features."""
+    w = np.asarray(w)
+    o, ipg, kh, kw = w.shape
+    if o % groups:
+        raise ValueError(f"output channels {o} not divisible by groups {groups}")
+    wm = w.reshape(groups, o // groups, ipg * kh * kw)
+    return np.ascontiguousarray(np.transpose(wm, (0, 2, 1)))
+
+
+def depthwise_weights(w) -> np.ndarray:
+    """Depthwise conv weights (C, 1, kH, kW) -> tap matrix (kH·kW, C),
+    taps in (kh, kw) row-major order."""
+    w = np.asarray(w)
+    c, one, kh, kw = w.shape
+    if one != 1:
+        raise ValueError(f"depthwise weights need I/g == 1, got {one}")
+    return np.ascontiguousarray(w.reshape(c, kh * kw).T)
+
+
+def pack_int4_grouped(wg: torch.Tensor) -> torch.Tensor:
+    """(G, Kg, Ng) int4-valued int8 -> (G, Kg//2, Ng) int8 carriers: packed
+    row r of each group holds its rows 2r (low nibble) and 2r+1 (high)."""
+    wg = torch.as_tensor(wg)
+    g, kg, ng = wg.shape
+    if kg % 2:
+        raise ValueError("per-group K must be even for int4 packing")
+    # with Kg even no nibble pair straddles two groups
+    return pack_int4(wg.reshape(g * kg, ng)).reshape(g, kg // 2, ng)
+
+
+def unpack_int4_grouped(wg_packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``pack_int4_grouped``: (G, Kg//2, Ng) -> (G, Kg, Ng)."""
+    g, k2, ng = wg_packed.shape
+    return unpack_int4(wg_packed.reshape(g * k2, ng)).reshape(g, 2 * k2, ng)
+
+
+def extract_depthwise_taps(x: torch.Tensor, kernel_shape, strides=(1, 1),
+                           pads=(0, 0, 0, 0), dilations=(1, 1)):
+    """Unfold NCHW ``x`` into per-tap channel-minor slices: returns
+    ``(taps, (OH, OW))`` with taps (kH·kW, N·OH·OW, C).  Used by the plain
+    twin only; the kernel reads its taps from ``x`` itself."""
+    n, c = x.shape[:2]
+    taps, (oh, ow) = conv_tap_slices(x, kernel_shape, strides, pads,
+                                     dilations)
+    p = torch.stack(taps, dim=0).permute(0, 1, 3, 4, 2)    # (T, N, OH, OW, C)
+    return p.reshape(len(taps), n * oh * ow, c), (oh, ow)
+
+
+def _check_device(name: str, x: torch.Tensor, *others) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+    for t in others:
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name}: every operand must lie on {x.device}")
+
+
+def _channel_vec(p, n: int, device, name: str, what: str) -> torch.Tensor:
+    """A scale as a contiguous float32 (1,) or (n,) vector."""
+    v = torch.as_tensor(p, dtype=torch.float32, device=device).reshape(-1)
+    if v.numel() not in (1, n):
+        raise ValueError(f"{name}: {what} must be a scalar or ({n},)")
+    return v.contiguous()
+
+
+def _bias_vec(bias, n: int, name: str) -> Optional[torch.Tensor]:
+    if bias is None:
+        return None
+    b = bias.reshape(-1)
+    if b.dtype != torch.float32 or b.numel() != n or not b.is_contiguous():
+        raise ValueError(f"{name}: bias must be a contiguous float32 ({n},)")
+    return b
+
+
+# ------------------------------------------------- B5: per-group matmul
+
+def quant_grouped_matmul_plain(xg, wg, w_scale, bias=None, *,
+                               packed=False) -> torch.Tensor:
+    """Plain twin of B5: per-group float32 product, then scale, then bias."""
+    g, ng = wg.shape[0], wg.shape[2]
+    w = unpack_int4_grouped(wg) if packed else wg
+    acc = torch.matmul(xg.to(torch.float32), w.to(torch.float32))
+    s = torch.as_tensor(w_scale, dtype=torch.float32, device=xg.device)
+    out = acc * (s.reshape(()) if s.numel() == 1 else s.reshape(g, 1, ng))
+    if bias is not None:
+        out = out + bias.to(torch.float32).reshape(g, 1, ng)
+    return out
+
+
+def quant_grouped_matmul(xg: torch.Tensor, wg: torch.Tensor, w_scale,
+                         bias: Optional[torch.Tensor] = None, *,
+                         packed: bool = False, acc_dtype=torch.float32,
+                         requant=None) -> torch.Tensor:
+    """Per-group integer matmul: out[g] = (xg[g] @ wg[g]) · s[g] [+ b[g]].
+
+    xg: (G, M, Kg) float32, any group / row strides with unit stride along
+        Kg (a view of an im2col matrix is taken as it is);
+    wg: (G, Kg, Ng) int8, or its per-group int4 packing (G, Kg//2, Ng)
+        when ``packed``;
+    w_scale: scalar or (G·Ng,) group-major per-output-channel scale;
+    bias: optional (G·Ng,) float32, added after the scale.
+    Returns (G, M, Ng) float32.  On CUDA its memory is laid out (M, G, Ng),
+    so ``out.permute(1, 0, 2).reshape(M, G·Ng)`` is a view."""
+    _unported(acc_dtype, requant)
+    name = "quant_grouped_matmul"
+    if xg.ndim != 3 or wg.ndim != 3 or xg.shape[0] != wg.shape[0]:
+        raise ValueError(f"{name}: shapes {tuple(xg.shape)} and "
+                         f"{tuple(wg.shape)} are not (G, M, Kg), (G, Kg, Ng)")
+    g, m, kg = xg.shape
+    ng = wg.shape[2]
+    if kg != (2 * wg.shape[1] if packed else wg.shape[1]):
+        raise ValueError(f"{name}: Kg mismatch {tuple(xg.shape)} @ "
+                         f"{'packed ' if packed else ''}{tuple(wg.shape)}")
+    if xg.device.type == "cpu":
+        return quant_grouped_matmul_plain(xg, wg, w_scale, bias, packed=packed)
+    _check_device(name, xg, wg, bias)
+    if xg.dtype != torch.float32 or (kg > 1 and xg.stride(2) != 1):
+        raise ValueError(f"{name}: xg must be float32 with unit stride "
+                         "along Kg")
+    if wg.dtype != torch.int8 or not wg.is_contiguous():
+        raise ValueError(f"{name}: weights must be a contiguous int8 tensor")
+    s = _channel_vec(w_scale, g * ng, xg.device, name, "w_scale")
+    b = _bias_vec(bias, g * ng, name)
+    out = torch.empty((m, g, ng), dtype=torch.float32,
+                      device=xg.device).permute(1, 0, 2)
+    err = load().gqmm_launch(
+        xg.data_ptr(), wg.data_ptr(), s.data_ptr(),
+        None if b is None else b.data_ptr(), out.data_ptr(), g, m, kg, ng,
+        xg.stride(0), xg.stride(1), out.stride(0), out.stride(1),
+        int(s.numel() > 1), int(packed),
+        torch.cuda.current_stream(xg.device).cuda_stream)
+    check(err, "gqmm_launch")
+    launches[name] += 1
+    return out
+
+
+def quant_grouped_conv2d(x: torch.Tensor, wg: torch.Tensor, w_scale,
+                         bias: Optional[torch.Tensor] = None, *, groups: int,
+                         kernel_shape, strides=(1, 1), pads=(0, 0, 0, 0),
+                         dilations=(1, 1), packed: bool = False
+                         ) -> torch.Tensor:
+    """Fused grouped quantized conv: per-group im2col onto B5.
+
+    x      — (N, C, H, W) activations (cast to float32)
+    wg     — (G, Kg, Ng) int8 with Kg = (C/G)·kH·kW and Ng = O/G, or the
+             per-group int4 packing (G, Kg//2, Ng) when ``packed``
+    w_scale — scalar or group-major per-output-channel (O,)
+    bias   — optional (O,) float32
+    Returns (N, O, OH, OW) float32, contiguous."""
+    x = x.to(torch.float32)
+    patches, (oh, ow) = extract_patches(x, kernel_shape, strides, pads,
+                                        dilations)
+    m, feat = patches.shape
+    kg = feat // groups
+    # channel is the slowest feature, so group gi's columns are the slice
+    # [gi·Kg, (gi+1)·Kg): a strided view, no copy
+    xg = patches.view(m, groups, kg).permute(1, 0, 2)
+    y = quant_grouped_matmul(xg, wg, w_scale, bias, packed=packed)
+    o = groups * y.shape[-1]
+    y = y.permute(1, 0, 2).reshape(m, o)
+    return y.reshape(x.shape[0], oh, ow, o).permute(0, 3, 1, 2).contiguous()
+
+
+# ------------------------------------------------ B6: depthwise tap-reduce
+
+def quant_depthwise_conv2d_plain(x, w_taps, w_scale, bias=None,
+                                 act_scale=None, act_zero_point=None, *,
+                                 kernel_shape, strides=(1, 1),
+                                 pads=(0, 0, 0, 0), dilations=(1, 1),
+                                 relu=False, act_bits=None, act_signed=True,
+                                 act_narrow=False, act_rounding="ROUND"
+                                 ) -> torch.Tensor:
+    """Plain twin of B6: the kernel's arithmetic in the kernel's order (taps
+    summed one by one in (kh, kw) order, products rounded apart), so the
+    two agree bit for bit on any input."""
+    x = x.to(torch.float32)
+    taps, (oh, ow) = extract_depthwise_taps(x, kernel_shape, strides, pads,
+                                            dilations)
+    w = w_taps.to(torch.float32)
+    acc = torch.zeros(taps.shape[1:], dtype=torch.float32, device=x.device)
+    for t in range(taps.shape[0]):
+        acc = acc + taps[t] * w[t]
+    c = taps.shape[2]
+    y = acc * _channel_vec(w_scale, c, x.device, "quant_depthwise_conv2d",
+                           "w_scale")
+    if bias is not None:
+        y = y + bias.to(torch.float32).reshape(-1)
+    if relu:
+        y = torch.relu(y)
+    if act_bits is not None:
+        y = quant_dequant_plain(y, act_scale, act_zero_point,
+                                bit_width=act_bits, signed=act_signed,
+                                narrow=act_narrow, rounding_mode=act_rounding)
+    return y.reshape(x.shape[0], oh, ow, c).permute(0, 3, 1, 2).contiguous()
+
+
+def quant_depthwise_conv2d(x: torch.Tensor, w_taps: torch.Tensor, w_scale,
+                           bias: Optional[torch.Tensor] = None,
+                           act_scale=None, act_zero_point=None, *,
+                           kernel_shape, strides=(1, 1), pads=(0, 0, 0, 0),
+                           dilations=(1, 1), relu: bool = False,
+                           act_bits=None, act_signed: bool = True,
+                           act_narrow: bool = False,
+                           act_rounding: str = "ROUND",
+                           acc_dtype=torch.float32, requant=None
+                           ) -> torch.Tensor:
+    """Fused depthwise quantized conv (``group == C``, multiplier 1).
+
+    x          — (N, C, H, W) activations (float32; contiguous on CUDA)
+    w_taps     — (kH·kW, C) int8 tap matrix (``depthwise_weights``)
+    w_scale    — per-channel dequant scale, scalar or (C,)
+    bias       — optional (C,) float32
+    relu       — max(0, ·) between dequant and requant
+    act_*      — optional per-tensor activation requant (the trailing Quant
+                 of Conv -> Relu -> Quant): ``act_bits`` None disables it;
+                 ``act_scale`` / ``act_zero_point`` are one-element tensors
+                 or scalars; rounding and bounds are B4's.
+    Returns (N, C, OH, OW) float32."""
+    _unported(acc_dtype, requant)
+    name = "quant_depthwise_conv2d"
+    mode = act_rounding.upper()
+    if mode not in ROUNDING_MODE_IDS:
+        raise ValueError(f"unknown rounding_mode {act_rounding!r}")
+    if x.ndim != 4 or w_taps.ndim != 2 or w_taps.shape[1] != x.shape[1]:
+        raise ValueError(f"{name}: x {tuple(x.shape)} and taps "
+                         f"{tuple(w_taps.shape)} are not (N, C, H, W), "
+                         "(kH·kW, C)")
+    kh, kw = (int(v) for v in kernel_shape)
+    if w_taps.shape[0] != kh * kw:
+        raise ValueError(f"{name}: {w_taps.shape[0]} taps for a {kh}x{kw} "
+                         "kernel")
+    kw_args = dict(kernel_shape=kernel_shape, strides=strides, pads=pads,
+                   dilations=dilations, relu=relu, act_bits=act_bits,
+                   act_signed=act_signed, act_narrow=act_narrow,
+                   act_rounding=mode)
+    if x.device.type == "cpu":
+        return quant_depthwise_conv2d_plain(x, w_taps, w_scale, bias,
+                                            act_scale, act_zero_point,
+                                            **kw_args)
+    _check_device(name, x, w_taps, bias)
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"{name}: x must be a contiguous float32 tensor")
+    if w_taps.dtype != torch.int8 or not w_taps.is_contiguous():
+        raise ValueError(f"{name}: taps must be a contiguous int8 tensor")
+    n, c, h, w = x.shape
+    oh, ow = conv_out_hw(h, w, kernel_shape, strides, pads, dilations)
+    s = _channel_vec(w_scale, c, x.device, name, "w_scale")
+    b = _bias_vec(bias, c, name)
+    qs = qz = None
+    lo = hi = 0.0
+    if act_bits is not None:
+        qs = _channel_vec(act_scale, 1, x.device, name, "act_scale")
+        qz = _channel_vec(act_zero_point, 1, x.device, name, "act_zero_point")
+        lo, hi = static_bounds(act_signed, act_narrow, act_bits)
+    out = torch.empty((n, c, max(oh, 0), max(ow, 0)), dtype=torch.float32,
+                      device=x.device)
+    sh, sw = (int(v) for v in strides)
+    dh, dw = (int(v) for v in dilations)
+    pt, pl = int(pads[0]), int(pads[1])
+    err = load().dw_launch(
+        x.data_ptr(), w_taps.data_ptr(), s.data_ptr(),
+        None if b is None else b.data_ptr(),
+        None if qs is None else qs.data_ptr(),
+        None if qz is None else qz.data_ptr(), out.data_ptr(),
+        n, c, h, w, oh, ow, kh, kw, sh, sw, pt, pl, dh, dw,
+        int(s.numel() > 1), int(relu), int(act_bits is not None), lo, hi,
+        ROUNDING_MODE_IDS[mode],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, "dw_launch")
+    launches[name] += 1
+    return out

@@ -37,6 +37,17 @@ from ._build import check, load
 launches = {"quant_matmul": 0, "quant_matmul_int4": 0}
 
 
+def pack_int4(w_int: torch.Tensor) -> torch.Tensor:
+    """(K, N) int4-valued int8 -> (K//2, N) int8 carriers: packed row r
+    holds rows 2r (low nibble) and 2r+1 (high nibble)."""
+    if w_int.shape[0] % 2:
+        raise ValueError("K must be even for int4 packing")
+    lo = w_int[0::2].to(torch.int32) & 0xF
+    hi = w_int[1::2].to(torch.int32) & 0xF
+    byte = (hi << 4) | lo                               # 0 .. 255
+    return torch.where(byte >= 128, byte - 256, byte).to(torch.int8)
+
+
 def unpack_int4(w_packed: torch.Tensor) -> torch.Tensor:
     """(K/2, N) packed int8 -> (K, N) sign-extended int4 values in int8."""
     lo = torch.bitwise_right_shift(torch.bitwise_left_shift(w_packed, 4), 4)

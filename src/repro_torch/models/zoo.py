@@ -161,6 +161,35 @@ def build_mobilenet(w_bits=4, a_bits=4, seed=0, img=224, batch=1) -> QonnxGraph:
     return b.build()
 
 
+def rescale_conv_gains(g: QonnxGraph) -> QonnxGraph:
+    """Give every ``Quant``-weighted Conv a gain of about 2, in place.
+
+    With the seeded random weights above, MobileNet's activations die out:
+    every activation after its fourth conv layer quantizes to 0, at any
+    ``img``, so whole-graph comparisons past that point compare zeros.
+    This multiplies each such Conv's float weight and its weight-Quant
+    scale by one power of two ``k`` chosen from the fan-in
+    (``k ≈ 2 / (0.07·sqrt(fan_in))``, 0.07 being the zoo's dequantized
+    weight spread).  The integer weights are unchanged and every scale
+    stays dyadic; the layer's output is exactly k times the original's, and
+    the activations stay live (about half nonzero) through all 27 convs.
+    Not part of the Table III models; it works on the reference's graphs
+    too (it touches only ``nodes``, ``producer`` and ``initializers``)."""
+    for node in g.toposort():
+        if node.op_type != "Conv":
+            continue
+        q = g.producer(node.inputs[1])
+        if q is None or q.op_type != "Quant":
+            continue
+        w = np.asarray(g.initializers[q.inputs[0]])
+        fan_in = int(np.prod(w.shape[1:]))
+        k = 2.0 ** round(float(np.log2(2.0 / (0.07 * np.sqrt(fan_in)))))
+        g.initializers[q.inputs[0]] = (w * k).astype(np.float32)
+        g.initializers[q.inputs[1]] = (
+            np.asarray(g.initializers[q.inputs[1]]) * k).astype(np.float32)
+    return g
+
+
 ZOO = {
     "TFC-w1a1": lambda: build_tfc(1, 1),
     "TFC-w1a2": lambda: build_tfc(1, 2),

@@ -189,9 +189,19 @@ class CompiledGraphEngine:
         return (self.plan, self.input_name, self.output_name,
                 self.sample_shape)
 
+    # read through to the current plan, so a reload() shows at once
     @property
     def fused_counts(self) -> dict:
         return dict(self.plan.fused_counts)
+
+    @property
+    def conv_segments_fused(self) -> int:
+        return sum(v for k, v in self.plan.fused_counts.items()
+                   if k.startswith("quant_conv"))
+
+    @property
+    def grouped_conv_stats(self) -> dict:
+        return self.plan.grouped_conv_stats()
 
     # ------------------------------------------------------------ requests
 

@@ -49,8 +49,27 @@ def test_no_source_imports_jax_or_the_reference():
 
 def test_kernel_sources_are_cuda_cpp_for_sm90a():
     from repro_torch.kernels import _build
-    srcs = sorted(p.name for p in (PKG / "kernels" / "csrc").glob("*.cu"))
-    assert srcs == ["quant_dequant.cu", "quant_matmul.cu"]
+    csrc = PKG / "kernels" / "csrc"
+    srcs = sorted(p.name for p in csrc.glob("*.cu*"))
+    assert srcs == ["qdq_round.cuh", "quant_dequant.cu",
+                    "quant_grouped_conv.cu", "quant_matmul.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH
     assert "--use_fast_math" not in _build.NVCC_FLAGS
-    assert set(_build.SIGNATURES) == {"qdq_launch", "qmm_launch"}
+    assert set(_build.SIGNATURES) == {"qdq_launch", "qmm_launch",
+                                      "gqmm_launch", "dw_launch"}
+    for name in _build.SIGNATURES:          # each entry point is defined
+        assert any(f'extern "C" int {name}(' in p.read_text()
+                   for p in csrc.glob("*.cu"))
+
+
+def test_build_hash_covers_shared_headers(tmp_path, monkeypatch):
+    """Editing a shared ``.cuh`` header must change the library's name,
+    or a stale build would be loaded."""
+    from repro_torch.kernels import _build
+    for p in (PKG / "kernels" / "csrc").glob("*.cu*"):
+        (tmp_path / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build._digest()
+    hdr = tmp_path / "qdq_round.cuh"
+    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    assert _build._digest() != before

@@ -137,3 +137,20 @@ def test_metric_names_match_the_reference():
 def test_unported_engine_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         _engine(**kw)
+
+
+def test_serves_nchw_requests_of_a_conv_graph():
+    """MobileNet-w4a4 at img 32: 4-D samples in padded slots, every row
+    equal to the oracle's, and the conv-tier telemetry read through."""
+    from repro_torch.core import execute, transforms
+    g = zoo.build_mobilenet(4, 4, img=32)
+    eng = CompiledGraphEngine(g, max_batch=4, device="cpu")
+    assert eng.conv_segments_fused == 27
+    assert eng.grouped_conv_stats["grouped_segments"] == 13
+    x = np.random.RandomState(5).randn(6, 3, 32, 32).astype(np.float32)
+    want = execute(transforms.cleanup(g), {"x": x}, device="cpu")[
+        g.output_names[0]].numpy()
+    reqs = [eng.submit(r) for r in x]
+    assert eng.run_pending() == 6
+    np.testing.assert_array_equal(np.stack([r.wait() for r in reqs]), want)
+    np.testing.assert_array_equal(eng(x[:3]), want[:3])
