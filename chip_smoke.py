@@ -21,39 +21,59 @@ printing a result:
    (its twin sums the taps in the kernel's order) with no epilogue, ReLU
    only, bias, per-channel scale, act bits {2, 4, 8} in every rounding
    mode, stride 2, asymmetric pads, dilation 2 and channel counts off the
-   block, at MobileNet-224 shapes among others;
-3. the main path, each graph built by the port's zoo, compiled on CUDA and
-   held against the port's oracle on the CPU with the reference's segment
-   census: TFC-w2a2 (packed int4: B2 + B4) and TFC-w1a1 with
-   ``use_int4=False`` (B1 + B4), CNV-w1a1 and CNV-w2a2 (B1, B2, B4), and
-   MobileNet-w4a4 at img 224 with 8 rows (B1, B2, B4, B6), all bit-exact.
-   The zoo's random weights let MobileNet's activations quantize to 0
-   after its fourth conv, so the same graph with its conv gains raised by
-   powers of two (``zoo.rescale_conv_gains``: same integer weights) runs
-   too, 2 x 8 rows: bit-exact through the global average pool, and its
-   final MatMul, whose inputs (sums x float32(1/49)) are not dyadic,
-   within the order bound.  Last a grouped conv (group 8, 64 -> 64
-   channels, 3x3, 56x56: B5 + B4), bit-exact;
-4. serving: a ``CompiledGraphEngine`` answers 64 submitted TFC requests and
-   one 40-row batch in 16-row slots, each row bit-exact against the oracle
-   on the CPU; a second one serves the rescaled MobileNet-w4a4 at img 224
-   in 8-row slots, 16 submitted requests and one ragged 5-row batch, each
-   row bit-exact against the compiled plan's rows and within the order
-   bound of the CPU oracle;
+   block, at MobileNet-224 shapes among others.  Then the integer bodies
+   of B1 / B2 / B5 / B6 (int32 sums, the integer epilogue B3) against their
+   twins with ``torch.equal``: every rounding mode, ReLU on and off, the
+   act Quant on and off, act_shift -3 / 0 / 5, zero points, signed,
+   unsigned and narrow bounds, per-tensor and per-channel multipliers,
+   ragged shapes, the int32 body with the float32 epilogue, and sums just
+   below 2^24;
+3. the main path on the float32-epilogue tier (``use_analysis=False``),
+   each graph built by the port's zoo, compiled on CUDA and held against
+   the port's oracle on the CPU with the reference's segment census:
+   TFC-w2a2 (packed int4: B2 + B4) and TFC-w1a1 with ``use_int4=False``
+   (B1 + B4), CNV-w1a1 and CNV-w2a2 (B1, B2, B4), and MobileNet-w4a4 at
+   img 224 with 8 rows (B1, B2, B4, B6), all bit-exact.  The zoo's random
+   weights let MobileNet's activations quantize to 0 after its fourth
+   conv, so the same graph with its conv gains raised by powers of two
+   (``zoo.rescale_conv_gains``: same integer weights) runs too, 2 x 8 rows:
+   bit-exact through the global average pool, and its final MatMul, whose
+   inputs (sums x float32(1/49)) are not dyadic, within the order bound.
+   Last a grouped conv (group 8, 64 -> 64 channels, 3x3, 56x56: B5 + B4),
+   bit-exact;
+4. serving on that tier: a ``CompiledGraphEngine`` answers 64 submitted
+   TFC requests and one 40-row batch in 16-row slots, each row bit-exact
+   against the oracle on the CPU; a second one serves the rescaled
+   MobileNet-w4a4 at img 224 in 8-row slots, 16 submitted requests and one
+   ragged 5-row batch, each row bit-exact against the compiled plan's rows
+   and within the order bound of the CPU oracle;
+3'. + 4'. the same on the integer path, ``compile_graph``'s defaults (the
+   analysis tier and B3): TFC-w1a1 / w1a2 / w2a2 (4 of 4 int32 segments),
+   CNV-w1a1 / w2a2 (9 of 9), MobileNet-w4a4 at img 224 as the zoo builds it
+   and rescaled (27 of 28: the final MatMul stays float32) and the grouped
+   conv (B5 on int32), each with the reference's census and
+   ``requant_stats()`` and bit-exact against the CPU oracle (MobileNet's
+   final MatMul within the order bound); then both engines on integer
+   plans, with the load-time cost report;
 5. timings beside each kernel's bound, its twin and one library call
    computing the same function (CUDA events, median of 30 samples of 10
    calls after warm-up; device time from a replayed CUDA graph of the 10
    calls, call time from eager calls): at the TFC shapes with M = 256, and
    at the shapes of one MobileNet-w4a4 forward at img 224 with 8 rows
-   (B5 at the grouped conv's shape); one MobileNet plan call's device time
-   by kernel name (torch.profiler) and the device's busy share; then each
-   engine's requests per second.
+   (B5 at the grouped conv's shape), for the float32 bodies and for the
+   integer ones (their library call is ``torch._int_mm`` on the int8
+   operands where its shape rules allow, the epilogue not included);
+   one MobileNet plan call's device time by kernel name (torch.profiler)
+   and the device's busy share, on each path; then each engine's requests
+   per second.
 
-Launch counts are reset just before phase 3 and read just after phase 4;
-every kernel of the path must have launched there.  The last lines are the
-card, a JSON line of per-kernel numbers (summed over one MobileNet-224
-forward of 8 rows; B5 over the grouped conv) and the JSON result line.
-It imports nothing of JAX and nothing of the JAX package ``repro``.
+Launch counts are reset just before phase 3 and read just after phase 4,
+and again around phases 3' and 4'; every kernel of each path must have
+launched there.  The last lines are the card, a JSON line of per-kernel
+numbers (summed over one MobileNet-224 forward of 8 rows; B5 over the
+grouped conv; the integer rows named ``<kernel>/int32``) and the JSON
+result line.  It imports nothing of JAX and nothing of the JAX package
+``repro``.
 """
 from __future__ import annotations
 
@@ -98,6 +118,44 @@ CENSUS = {
                                "quant_conv_int4": 13, "quant_matmul_int4": 1,
                                "interp": 1},
 }
+# the reference's census and requant stats on the integer path: compile_graph's
+# defaults (use_analysis=True, use_integer_requant=True) with use_fusion=False,
+# held against the reference by tests/test_torch_requant.py
+_TFC_INT = {"quant_dequant": 4, "quant_matmul_int4": 4, "interp": 3}
+_MOBILENET_INT = {"quant_dequant": 1, "quant_conv": 1, "quant_conv_dw": 13,
+                  "quant_conv_int4": 13, "interp": 1, "quant_matmul_int4": 1}
+CENSUS_ANALYSIS = {
+    "TFC-w1a1": {"quant_dequant": 1, "quant_matmul_int4": 4, "interp": 3},
+    "TFC-w1a2": _TFC_INT,
+    "TFC-w2a2": _TFC_INT,
+    "CNV-w1a1": {"quant_dequant": 1, "quant_conv": 1, "interp": 8, "quant_conv_int4": 5,
+                 "quant_matmul_int4": 3},
+    "CNV-w2a2": {"quant_dequant": 3, "quant_conv": 1, "quant_conv_int4": 5, "interp": 5,
+                 "quant_matmul_int4": 3},
+    "MobileNet-w4a4": _MOBILENET_INT,
+    "MobileNet-w4a4 rescaled": _MOBILENET_INT,
+    "GroupedConv-g8": {"quant_dequant": 1, "quant_conv_grouped_int4": 1},
+}
+
+
+def _rq_stats(kernel, int32, eliminated):
+    return {"kernel_segments": kernel, "int32_segments": int32,
+            "fp32_segments": kernel - int32, "fp32_ops_eliminated": eliminated,
+            "coverage": int32 / kernel}
+
+
+REQUANT_STATS = {
+    "TFC-w1a1": _rq_stats(4, 4, 202), "TFC-w1a2": _rq_stats(4, 4, 202),
+    "TFC-w2a2": _rq_stats(4, 4, 202), "CNV-w1a1": _rq_stats(9, 9, 284170),
+    "CNV-w2a2": _rq_stats(9, 9, 1133578),
+    "MobileNet-w4a4": _rq_stats(28, 27, 40341504),
+    "MobileNet-w4a4 rescaled": _rq_stats(28, 27, 40341504),
+    "GroupedConv-g8": _rq_stats(1, 1, 12845056),
+}
+# the kernels with an integer body (B3 inlined); B4 has none
+INT_KERNELS = ("quant_matmul", "quant_matmul_int4", "quant_grouped_matmul",
+               "quant_depthwise_conv2d")
+INT8_OPS = 1979e12             # H100 SXM int8 dense tensor-core rate (data sheet)
 MOBILENET_224_STATS = {"grouped_segments": 13, "block_diagonal_grouped": 0,
                        "reclaimed_macs": 4_260_017_664,
                        "carrier_bytes_saved": 12_512_160}
@@ -364,12 +422,169 @@ def check_depthwise(ops, torch, np, dev, err):
     return n_cases
 
 
+# ------------------------------------------------ phase 2, integer bodies
+
+IN_SCALE = 3 * 2.0 ** -5       # a dyadic activation scale that is no power of two
+
+
+def int_specs():
+    """The epilogues the integer cases run: None (the int32 body with the
+    float32 epilogue), B3 without an act Quant (ReLU off and on), and B3
+    with one in every rounding mode at act_shift -3, 0 and 5, the ReLU,
+    the zero point and signed / unsigned / narrow / int8 bounds varying."""
+    from repro_torch.kernels.requant import IntRequant
+    bounds = [(-16, 15, (-2, 0, 1)), (-7, 7, (0, 1, -3)), (0, 15, (0, 3, 1)),
+              (0, 14, (1, 0, 2)), (-128, 127, (5, -1, 0))]
+    specs = [None, IntRequant(shift=9), IntRequant(shift=9, relu=True)]
+    for i, (mode, s) in enumerate((m, s) for m in MODES for s in (-3, 0, 5)):
+        lo, hi, zps = bounds[i % len(bounds)]
+        specs.append(IntRequant(shift=s + 4, relu=bool(i % 2), has_act=True, act_shift=s,
+                                act_zp=zps[i % 3], act_lo=lo, act_hi=hi, act_out_shift=4,
+                                rounding_mode=mode))
+    return specs
+
+
+def _body(torch, spec, n, per_ch, rng, np, dev):
+    """(scale or multipliers, keyword arguments) of one integer case."""
+    if spec is None:
+        s = (2.0 ** -rng.randint(2, 6, n if per_ch else 1)).astype(np.float32)
+        return torch.from_numpy(s).to(dev), dict(acc_dtype=torch.int32)
+    mult = (2 * rng.randint(0, 5, n if per_ch else 1) + 1).astype(np.int32)
+    return torch.from_numpy(mult).to(dev), dict(acc_dtype=torch.int32, requant=spec,
+                                                in_scale=IN_SCALE)
+
+
+def _int_x(torch, np, rng, shape, dev, spec, qmax=8):
+    """Integer-valued activations: q * IN_SCALE on the B3 body (the kernel
+    divides it back), q itself on the float32-epilogue body."""
+    q = rng.randint(-qmax, qmax + 1, shape).astype(np.float32)
+    return torch.from_numpy(q * np.float32(IN_SCALE) if spec is not None else q).to(dev)
+
+
+def check_integer(ops, torch, np, dev, err):
+    """B1 / B2 / B5 / B6 on their integer bodies against their twins, all
+    with torch.equal (integer sums are exact in any order); returns the
+    number of cases per kernel."""
+    rng = np.random.RandomState(21)
+    specs = int_specs()
+    n_cases = {k: 0 for k in INT_KERNELS}
+
+    def same(name, got, want, what):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} integer body differs: {what}")
+        n_cases[name] += 1
+
+    # B1 / B2: ragged, TFC and MobileNet-pointwise shapes; every spec
+    for m, k, n in ((37, 130, 70), (256, 784, 64), (64, 64, 10), (1568, 256, 256)):
+        for int4 in (False, True):
+            name = "quant_matmul_int4" if int4 else "quant_matmul"
+            fn, plain = ((ops.quant_matmul_int4, ops.quant_matmul_int4_plain) if int4
+                         else (ops.quant_matmul, ops.quant_matmul_plain))
+            lo, hi = (-8, 7) if int4 else (-127, 127)
+            w = torch.from_numpy(rng.randint(lo, hi + 1, (k, n)).astype(np.int8))
+            wk = (ops.pack_int4(w) if int4 else w).to(dev)
+            for i, spec in enumerate(specs):
+                s, kw = _body(torch, spec, n, bool(i % 2), rng, np, dev)
+                x = _int_x(torch, np, rng, (m, k), dev, spec)
+                bias = torch.randn(n, generator=torch.Generator().manual_seed(i)).to(dev) \
+                    if i % 5 == 0 else None
+                same(name, fn(x, wk, s, bias, **kw), plain(x, wk, s, bias, **kw),
+                     f"{m}x{k}x{n} {spec}")
+    # accumulators at the obligation-3 limit: one row of x and one column of
+    # w at their largest, summed over K, just below 2**24
+    k = 1040
+    for int4 in (False, True):
+        name = "quant_matmul_int4" if int4 else "quant_matmul"
+        fn, plain = ((ops.quant_matmul_int4, ops.quant_matmul_int4_plain) if int4
+                     else (ops.quant_matmul, ops.quant_matmul_plain))
+        wmax = 7 if int4 else 127
+        qmax = (2 ** 24 - 1) // (k * wmax)
+        w = torch.from_numpy(rng.randint(-wmax, wmax + 1, (k, 5)).astype(np.int8))
+        w[:, 0] = wmax
+        wk = (ops.pack_int4(w) if int4 else w).to(dev)
+        q = rng.randint(-qmax, qmax + 1, (3, k)).astype(np.float32)
+        q[0] = qmax
+        q[1] = -qmax
+        for spec in specs[:3]:
+            x = torch.from_numpy(q * np.float32(IN_SCALE) if spec is not None else q).to(dev)
+            s, kw = _body(torch, spec, 5, False, np.random.RandomState(0), np, dev)
+            s = torch.ones_like(s)              # mult 1: acc * mult stays below 2**24
+            got = fn(x, wk, s, **kw)
+            same(name, got, plain(x, wk, s, **kw), f"edge {spec}")
+
+    # B5: the grouped conv's shape and ragged ones, int8 and int4
+    g8, m8 = GCONV["groups"], GCONV["n"] * GCONV["img"] ** 2
+    shapes = [((g8, m8, GCONV["c"] // g8 * 9, GCONV["c"] // g8), specs[:6]),
+              ((3, 65, 18, 33), specs), ((2, 13, 10, 5), specs), ((1, 33, 130, 70), specs[:8])]
+    for (g, m, kg, ng), sp in shapes:
+        for int4 in (False, True):
+            lo, hi = (-8, 7) if int4 else (-127, 127)
+            w = torch.from_numpy(rng.randint(lo, hi + 1, (g, kg, ng)).astype(np.int8))
+            wk = (ops.pack_int4_grouped(w) if int4 else w).to(dev)
+            for i, spec in enumerate(sp):
+                s, kw = _body(torch, spec, g * ng, bool(i % 2), rng, np, dev)
+                x = _int_x(torch, np, rng, (g, m, kg), dev, spec)
+                same("quant_grouped_matmul",
+                     ops.quant_grouped_matmul(x, wk, s, packed=int4, **kw),
+                     ops.quant_grouped_matmul_plain(x, wk, s, packed=int4, **kw),
+                     f"{g}x{m}x{kg}x{ng} int4={int4} {spec}")
+
+    # B6: ragged geometries with every spec, then every MobileNet-224
+    # depthwise layer at 8 rows; spec None runs the fused float32 epilogue
+    geos = [dict(strides=(1, 1), pads=(1, 1, 1, 1), dilations=(1, 1)),
+            dict(strides=(2, 1), pads=(2, 0, 1, 1), dilations=(1, 1)),
+            dict(strides=(1, 1), pads=(2, 2, 2, 2), dilations=(2, 2))]
+    fp32_epi = dict(relu=True, act_bits=4, act_signed=False, act_rounding="HALF_UP")
+
+    def dw_case(x_shape, geo, spec, per_ch, qmax=8, taps=None):
+        c = x_shape[1]
+        taps = taps if taps is not None else \
+            torch.from_numpy(rng.randint(-7, 8, (9, c)).astype(np.int8)).to(dev)
+        s, kw = _body(torch, spec, c, per_ch, rng, np, dev)
+        x = _int_x(torch, np, rng, x_shape, dev, spec, qmax)
+        args = (x, taps, s)
+        if spec is None:
+            args += (None, torch.tensor(0.25, device=dev), torch.tensor(1.0, device=dev))
+            kw.update(fp32_epi)
+        kw.update(kernel_shape=(3, 3), **geo)
+        same("quant_depthwise_conv2d", ops.quant_depthwise_conv2d(*args, **kw),
+             ops.quant_depthwise_conv2d_plain(*args, **kw), f"{x_shape} {geo} {spec}")
+
+    for c in (32, 37):
+        for geo in geos:
+            for i, spec in enumerate(specs):
+                dw_case((2, c, 15, 14), geo, spec, bool(i % 2))
+    for j, (kind, cin, _, stride, h) in enumerate(_mobilenet_layers()):
+        if kind == "dw":
+            dw_case((SLOT, cin, h, h), dict(strides=(stride, stride), pads=(1, 1, 1, 1),
+                                            dilations=(1, 1)), specs[3 + j % 24], True)
+    # accumulators at the limit: 9 taps of the largest weight and input
+    qmax = (2 ** 24 - 1) // (9 * 127)
+    taps = torch.full((9, 4), 127, dtype=torch.int8, device=dev)
+    for spec in specs[:3]:
+        dw_case((1, 4, 6, 6), geos[0], spec, False, qmax=qmax, taps=taps)
+    for k in INT_KERNELS:
+        err[k + "/int32"] = 0.0
+    return n_cases
+
+
 # ------------------------------------------------------------ phases 3 + 4
 
-def _oracle(g, x, return_all=False):
+_ORACLES: dict = {}
+
+
+def _oracle(g, x, return_all=False, key=None):
+    """The port's oracle on the CPU; with ``key`` the result is kept, so the
+    integer path reuses what the float32 path computed on the same input."""
     from repro_torch.core import execute, transforms
-    return execute(transforms.cleanup(g), {g.input_names[0]: x}, device="cpu",
-                   return_all=return_all)
+    if key is not None and key in _ORACLES:
+        return _ORACLES[key]
+    out = execute(transforms.cleanup(g), {g.input_names[0]: x}, device="cpu",
+                  return_all=return_all)
+    if key is not None:
+        _ORACLES[key] = out
+    return out
 
 
 def _check_plan(plan, key, int4, ops, before, needs):
@@ -434,10 +649,10 @@ def run_main_path(torch, np, dev):
         g = zoo.ZOO[key]()
         x = xs[key[:3]]
         before = ops.launch_counts()
-        plan = compile_graph(g, device=dev, use_int4=int4)
+        plan = compile_graph(g, device=dev, use_int4=int4, use_analysis=False)
         out = plan({"x": x})[plan.graph.output_names[0]]
         torch.cuda.synchronize()
-        ref = _oracle(g, x)[g.output_names[0]]
+        ref = _oracle(g, x, key=key)[g.output_names[0]]
         if tuple(out.shape) != (x.shape[0], 10) or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"{key}: bad output {tuple(out.shape)}")
         if not torch.equal(out.cpu(), ref):
@@ -455,10 +670,11 @@ def run_main_path(torch, np, dev):
     x16 = np.random.RandomState(13).randn(2 * SLOT, 3, 224, 224).astype(np.float32)
     g = zoo.build_mobilenet(4, 4, img=224)
     before = ops.launch_counts()
-    plan = compile_graph(g, device=dev)
+    plan = compile_graph(g, device=dev, use_analysis=False)
     out = plan({"x": x16[:SLOT]})[g.output_names[0]]
     torch.cuda.synchronize()
-    if not torch.equal(out.cpu(), _oracle(g, x16[:SLOT])[g.output_names[0]]):
+    if not torch.equal(out.cpu(), _oracle(g, x16[:SLOT], key="MobileNet-w4a4")[
+            g.output_names[0]]):
         raise AssertionError("MobileNet-224 (zoo): compiled CUDA plan differs from the oracle")
     launched = _check_plan(plan, "MobileNet-w4a4", True, ops, before,
                            needs["MobileNet-w4a4"])
@@ -470,11 +686,11 @@ def run_main_path(torch, np, dev):
 
     t0 = time.perf_counter()
     live = zoo.rescale_conv_gains(zoo.build_mobilenet(4, 4, img=224))
-    oracle = _oracle(live, x16, return_all=True)
+    oracle = _oracle(live, x16, return_all=True, key="MobileNet-w4a4 rescaled")
     ref = oracle[live.output_names[0]]
     t_oracle = time.perf_counter() - t0
     before = ops.launch_counts()
-    lplan = compile_graph(live, device=dev)
+    lplan = compile_graph(live, device=dev, use_analysis=False)
     pre, w_name = _final_matmul(lplan.graph)
     rows = []
     for i in (0, SLOT):
@@ -510,13 +726,14 @@ def run_main_path(torch, np, dev):
     gg = grouped_conv_graph()
     xg = np.random.RandomState(14).randn(*gg.inputs[0].shape).astype(np.float32)
     before = ops.launch_counts()
-    gplan = compile_graph(gg, device=dev)
+    gplan = compile_graph(gg, device=dev, use_analysis=False)
     gout = gplan({"x": xg})[gg.output_names[0]]
     torch.cuda.synchronize()
     want = {"quant_dequant": 1, "quant_conv_grouped_int4": 1}
     if gplan.fused_counts != want:
         raise AssertionError(f"grouped conv census {gplan.fused_counts} != {want}")
-    if not torch.equal(gout.cpu(), _oracle(gg, xg)[gg.output_names[0]]):
+    if not torch.equal(gout.cpu(), _oracle(gg, xg, key="GroupedConv-g8")[
+            gg.output_names[0]]):
         raise AssertionError("grouped conv: compiled CUDA plan differs from the oracle")
     after = ops.launch_counts()
     if after["quant_grouped_matmul"] <= before["quant_grouped_matmul"]:
@@ -527,16 +744,19 @@ def run_main_path(torch, np, dev):
 
     # phase 4: serving TFC in 16-row slots, held against the oracle on the CPU
     tfc = zoo.build_tfc(2, 2)
-    eng = CompiledGraphEngine(tfc, max_batch=16, device=dev)
+    eng = CompiledGraphEngine(tfc, max_batch=16, device=dev, use_analysis=False,
+                              report_cost=False)
     xt = np.random.RandomState(3).randn(64, 784).astype(np.float32)
     reqs = [eng.submit(r) for r in xt]
     if eng.run_pending() != 64:
         raise AssertionError("run_pending did not run 64 requests")
     got = np.stack([r.wait() for r in reqs])
-    if not np.array_equal(got, _oracle(tfc, xt)[tfc.output_names[0]].numpy()):
+    if not np.array_equal(got, _oracle(tfc, xt, key="serve TFC")[
+            tfc.output_names[0]].numpy()):
         raise AssertionError("served rows differ from the oracle")
     x40 = xt[:40] * 0.5
-    if not np.array_equal(eng(x40), _oracle(tfc, x40)[tfc.output_names[0]].numpy()):
+    if not np.array_equal(eng(x40), _oracle(tfc, x40, key="serve TFC 40")[
+            tfc.output_names[0]].numpy()):
         raise AssertionError("engine(x) differs from the oracle")
     if eng.n_completed != 64:
         raise AssertionError(f"engine completed {eng.n_completed}, not 64")
@@ -545,7 +765,8 @@ def run_main_path(torch, np, dev):
 
     # serving MobileNet-224 (rescaled) in 8-row slots: rows equal the
     # plan's, which phase 3 held against the oracle
-    meng = CompiledGraphEngine(live, max_batch=SLOT, device=dev)
+    meng = CompiledGraphEngine(live, max_batch=SLOT, device=dev, use_analysis=False,
+                               report_cost=False)
     if meng.conv_segments_fused != 27 or meng.grouped_conv_stats != MOBILENET_224_STATS:
         raise AssertionError("MobileNet engine: conv telemetry differs")
     reqs = [meng.submit(r) for r in x16]
@@ -562,6 +783,165 @@ def run_main_path(torch, np, dev):
           f"compiled plan and within the CPU oracle's order bound; "
           f"completed={meng.n_completed}", flush=True)
     return (eng, xt), (meng, np.concatenate([x16] * 4)), (lplan, x16[:SLOT])
+
+
+def _check_int_plan(plan, key, ops, before, needs):
+    """The integer plan's census, requant stats and kernel launches."""
+    if plan.fused_counts != CENSUS_ANALYSIS[key]:
+        raise AssertionError(f"{key} (int): census {plan.fused_counts} != "
+                             f"{CENSUS_ANALYSIS[key]}")
+    if plan.requant_stats() != REQUANT_STATS[key]:
+        raise AssertionError(f"{key} (int): requant stats {plan.requant_stats()}")
+    after = ops.launch_counts()
+    for k in needs:
+        if after[k] <= before[k]:
+            raise AssertionError(f"{key} (int): kernel {k} was not launched")
+    return {k: after[k] - before[k] for k in after}
+
+
+def run_integer_path(torch, np, dev):
+    """Phases 3 + 4 on the integer path: compile_graph's defaults (the
+    analysis tier and B3), every model bit-exact against the CPU oracle
+    (MobileNet's float32 final MatMul within the order bound)."""
+    from repro_torch.core import compile_graph
+    from repro_torch.core.executor import to_tensor
+    from repro_torch.kernels import ops
+    from repro_torch.models import zoo
+    from repro_torch.serve import CompiledGraphEngine
+
+    needs = {"TFC": ("quant_matmul_int4", "quant_dequant"),
+             "CNV": ("quant_matmul", "quant_matmul_int4", "quant_dequant"),
+             "Mob": ("quant_matmul", "quant_matmul_int4", "quant_dequant",
+                     "quant_depthwise_conv2d")}
+    xs = {"TFC": np.random.RandomState(2).randn(64, 784).astype(np.float32),
+          "CNV": np.random.RandomState(12).randn(SLOT, 3, 32, 32).astype(np.float32)}
+    for key in ("TFC-w1a1", "TFC-w1a2", "TFC-w2a2", "CNV-w1a1", "CNV-w2a2"):
+        g = zoo.ZOO[key]()
+        x = xs[key[:3]]
+        before = ops.launch_counts()
+        plan = compile_graph(g, device=dev)
+        out = plan({"x": x})[plan.graph.output_names[0]]
+        torch.cuda.synchronize()
+        ref = _oracle(g, x, key=key)[g.output_names[0]]
+        if tuple(out.shape) != (x.shape[0], 10) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{key} (int): bad output {tuple(out.shape)}")
+        if not torch.equal(out.cpu(), ref):
+            raise AssertionError(f"{key} (int): compiled CUDA plan differs from the oracle "
+                                 f"by {float((out.cpu() - ref).abs().max())}")
+        launched = _check_int_plan(plan, key, ops, before, needs[key[:3]])
+        rq = plan.requant_stats()
+        print(f"integer path {key}: bit-exact vs oracle, requant {rq['int32_segments']}/"
+              f"{rq['kernel_segments']} int32 segments, fused_counts={plan.fused_counts}, "
+              f"launches={launched}", flush=True)
+
+    x16 = np.random.RandomState(13).randn(2 * SLOT, 3, 224, 224).astype(np.float32)
+    g = zoo.build_mobilenet(4, 4, img=224)
+    before = ops.launch_counts()
+    plan = compile_graph(g, device=dev)
+    out = plan({"x": x16[:SLOT]})[g.output_names[0]]
+    torch.cuda.synchronize()
+    if not torch.equal(out.cpu(), _oracle(g, x16[:SLOT], key="MobileNet-w4a4")[
+            g.output_names[0]]):
+        raise AssertionError("MobileNet-224 (zoo, int): compiled CUDA plan differs from "
+                             "the oracle")
+    launched = _check_int_plan(plan, "MobileNet-w4a4", ops, before, needs["Mob"])
+    print(f"integer path MobileNet-w4a4 img 224 (zoo weights), {SLOT} rows: bit-exact vs the "
+          f"CPU oracle; requant 27/28 int32 segments; launches={launched}", flush=True)
+
+    live = zoo.rescale_conv_gains(zoo.build_mobilenet(4, 4, img=224))
+    oracle = _oracle(live, x16, return_all=True, key="MobileNet-w4a4 rescaled")
+    ref = oracle[live.output_names[0]]
+    before = ops.launch_counts()
+    iplan = compile_graph(live, device=dev)
+    pre, w_name = _final_matmul(iplan.graph)
+    final = [s for s in iplan.segments if s.kind == "quant_matmul_int4"]
+    if len(final) != 1 or final[0].meta["requant_path"] != "fp32":
+        raise AssertionError("MobileNet-224 (int): the final MatMul is not the one "
+                             "float32 segment")
+    rows = []
+    for i in (0, SLOT):
+        env = {"x": to_tensor(x16[i:i + SLOT], dev)}
+        for seg in iplan.segments:          # the plan's own loop, keeping env
+            seg.run(iplan.consts, env)
+        torch.cuda.synchronize()
+        if not torch.equal(env[pre].cpu(), oracle[pre][i:i + SLOT]):
+            raise AssertionError("MobileNet-224 (int): the plan differs from the oracle "
+                                 f"before the final MatMul ({pre})")
+        rows.append(env[iplan.graph.output_names[0]].cpu())
+    out = torch.cat(rows)
+    bound = order_bound(oracle[pre], oracle[w_name], ref)
+    diff = (out - ref).abs()
+    if bool((diff > bound).any()) or not bool(torch.isfinite(out).all()):
+        raise AssertionError("MobileNet-224 (int): final MatMul beyond the order bound "
+                             f"({float(diff.max())})")
+    launched = _check_int_plan(iplan, "MobileNet-w4a4 rescaled", ops, before, needs["Mob"])
+    print(f"integer path MobileNet-w4a4 img 224 (conv gains rescaled), 2 x {SLOT} rows: "
+          f"requant 27/28 int32 segments, bit-exact vs the CPU oracle through the global "
+          f"average pool; final MatMul (float32) within the order bound, max diff "
+          f"{float(diff.max())}, {int((diff == 0).sum())} of {diff.numel()} outputs "
+          f"bit-exact; launches={launched}", flush=True)
+
+    gg = grouped_conv_graph()
+    xg = np.random.RandomState(14).randn(*gg.inputs[0].shape).astype(np.float32)
+    before = ops.launch_counts()
+    gplan = compile_graph(gg, device=dev)
+    gout = gplan({"x": xg})[gg.output_names[0]]
+    torch.cuda.synchronize()
+    seg = next(s for s in gplan.segments if s.kind == "quant_conv_grouped_int4")
+    if seg.meta["requant_path"] != "int32":
+        raise AssertionError("grouped conv: B5's segment is not on the int32 path")
+    if not torch.equal(gout.cpu(), _oracle(gg, xg, key="GroupedConv-g8")[
+            gg.output_names[0]]):
+        raise AssertionError("grouped conv (int): compiled CUDA plan differs from the oracle")
+    launched = _check_int_plan(gplan, "GroupedConv-g8", ops, before,
+                               ("quant_grouped_matmul", "quant_dequant"))
+    print(f"integer path {gg.name} {tuple(xg.shape)}: B5 segment on requant_path int32, "
+          f"bit-exact vs oracle, launches={launched}", flush=True)
+
+    # phase 4 on the integer path: the engine serves TFC-w2a2 in 16-row slots
+    # and the rescaled MobileNet-224 in 8-row slots; report_cost is on
+    tfc = zoo.build_tfc(2, 2)
+    eng = CompiledGraphEngine(tfc, max_batch=16, device=dev)
+    if eng.plan.requant_stats()["coverage"] != 1.0 or eng.cost_report is None:
+        raise AssertionError("TFC engine: not on the integer path, or no cost report")
+    xt = np.random.RandomState(3).randn(64, 784).astype(np.float32)
+    reqs = [eng.submit(r) for r in xt]
+    if eng.run_pending() != 64:
+        raise AssertionError("run_pending did not run 64 requests")
+    got = np.stack([r.wait() for r in reqs])
+    if not np.array_equal(got, _oracle(tfc, xt, key="serve TFC")[
+            tfc.output_names[0]].numpy()):
+        raise AssertionError("served integer-path rows differ from the oracle")
+    x40 = xt[:40] * 0.5
+    if not np.array_equal(eng(x40), _oracle(tfc, x40, key="serve TFC 40")[
+            tfc.output_names[0]].numpy()):
+        raise AssertionError("engine(x) on the integer path differs from the oracle")
+    rep = eng.cost_report
+    print(f"serving TFC-w2a2 on the integer path: 64 requests via run_pending + one 40-row "
+          f"call, all rows bit-exact vs the CPU oracle; cost report at load: "
+          f"{len(rep.layers)} layers, {rep.macs} MACs, {rep.bops:.6g} BOPs, "
+          f"{int(rep.total_weight_bits)} weight bits", flush=True)
+
+    meng = CompiledGraphEngine(live, max_batch=SLOT, device=dev)
+    if meng.plan.requant_stats() != REQUANT_STATS["MobileNet-w4a4 rescaled"] or \
+            meng.cost_report is None:
+        raise AssertionError("MobileNet engine: not on the integer path, or no cost report")
+    reqs = [meng.submit(r) for r in x16]
+    if meng.run_pending() != 2 * SLOT:
+        raise AssertionError(f"run_pending did not run {2 * SLOT} requests")
+    served = torch.from_numpy(np.stack([r.wait() for r in reqs]))
+    ragged = torch.from_numpy(meng(x16[3:8]))
+    if not torch.equal(served, out) or not torch.equal(ragged, out[3:8]):
+        raise AssertionError("served integer-path MobileNet rows differ from the plan's")
+    if bool(((served - ref).abs() > bound).any()):
+        raise AssertionError("served MobileNet rows beyond the oracle's order bound")
+    rep = meng.cost_report
+    print(f"serving MobileNet-w4a4 img 224 (rescaled) on the integer path: {2 * SLOT} "
+          f"requests in {SLOT}-row slots + one ragged 5-row call, every row bit-exact vs "
+          f"the plan (whose rows are bit-exact vs the CPU oracle through the pool) and "
+          f"within the oracle's order bound; cost report at load: {len(rep.layers)} "
+          f"layers, {rep.macs} MACs, {int(rep.total_weight_bits)} weight bits", flush=True)
+    return (eng, xt), (meng, np.concatenate([x16] * 4)), (iplan, x16[:SLOT])
 
 
 def requests_per_s(eng, xs) -> float:
@@ -698,7 +1078,103 @@ def timings_mobilenet(ops, torch, dev):
     return rows
 
 
-def profile_forward(torch, plan, x, reps=5):
+def _int_mm_ok(m, k, n) -> bool:
+    """torch._int_mm's shape rules on CUDA (M > 16, K and N multiples of 8)."""
+    return m > 16 and k % 8 == 0 and n % 8 == 0
+
+
+def _timing_spec():
+    """The B3 epilogue of the timed integer rows: ReLU and an unsigned 4-bit
+    act Quant, as MobileNet-w4a4's layers have."""
+    from repro_torch.kernels.requant import IntRequant
+    return IntRequant(shift=9, relu=True, has_act=True, act_shift=6, act_zp=0, act_lo=0,
+                      act_hi=15, act_out_shift=3, rounding_mode="ROUND")
+
+
+def _int_matmul_row(ops, torch, dev, g, m, k, n, int4, shape):
+    q = torch.randint(-8, 9, (m, k), generator=g, dtype=torch.int8)
+    x = (q.float() * IN_SCALE).to(dev)
+    w = torch.randint(-8 if int4 else -127, 8 if int4 else 128, (k, n), generator=g,
+                      dtype=torch.int8)
+    wk = (ops.pack_int4(w) if int4 else w).to(dev)
+    mult = torch.randint(0, 5, (n,), generator=g, dtype=torch.int32).mul(2).add(1).to(dev)
+    kw = dict(acc_dtype=torch.int32, requant=_timing_spec(), in_scale=IN_SCALE)
+    fn = ops.quant_matmul_int4 if int4 else ops.quant_matmul
+    plain = ops.quant_matmul_int4_plain if int4 else ops.quant_matmul_plain
+    fns = dict(ms=lambda: fn(x, wk, mult, **kw), plain_ms=lambda: plain(x, wk, mult, **kw))
+    if _int_mm_ok(m, k, n):
+        q8, w8 = q.to(dev), w.to(dev)
+        fns["library_ms"] = lambda: torch._int_mm(q8, w8)
+    row = dict(shape=shape, **_timed(**fns),
+               bytes_ms=(4 * m * k + (k * n // 2 if int4 else k * n) + 4 * n + 4 * m * n)
+               / HBM_BYTES_PER_S * 1e3,
+               ops_ms=2 * m * k * n / INT8_OPS * 1e3)
+    row.setdefault("library_ms", None)
+    row.setdefault("library_call_ms", None)
+    return row
+
+
+def int_timings(ops, torch, dev):
+    """The integer bodies (B3 epilogue) at the shapes of one TFC forward at
+    M = M_TIMED and of one MobileNet-w4a4 forward at img 224 with SLOT rows
+    (the 27 int32 segments; the final MatMul stays float32); B5 at the
+    grouped conv's shape."""
+    g = torch.Generator().manual_seed(25)
+    tfc = {k + "/int32": [] for k in INT_KERNELS}
+    for k, n in TFC_LAYERS:
+        for int4 in (False, True):
+            tfc[("quant_matmul_int4" if int4 else "quant_matmul") + "/int32"].append(
+                _int_matmul_row(ops, torch, dev, g, M_TIMED, k, n, int4, f"{M_TIMED}x{k}x{n}"))
+    mob = {k + "/int32": [] for k in INT_KERNELS}
+    spec = _timing_spec()
+    for kind, cin, cout, stride, h in _mobilenet_layers():
+        ho = (h - 1) // stride + 1
+        if kind == "conv":
+            m = SLOT * ho * ho
+            mob["quant_matmul/int32"].append(_int_matmul_row(
+                ops, torch, dev, g, m, 27, cout, False, f"{m}x27x{cout}"))
+        elif kind == "pw":
+            m = SLOT * h * h
+            mob["quant_matmul_int4/int32"].append(_int_matmul_row(
+                ops, torch, dev, g, m, cin, cout, True, f"{m}x{cin}x{cout}"))
+        else:
+            x = (torch.randint(-8, 9, (SLOT, cin, h, h), generator=g).float()
+                 * IN_SCALE).to(dev)
+            taps = torch.randint(-8, 8, (9, cin), generator=g, dtype=torch.int8).to(dev)
+            mult = torch.full((cin,), 3, dtype=torch.int32, device=dev)
+            kw = dict(kernel_shape=(3, 3), strides=(stride, stride), pads=(1, 1, 1, 1),
+                      acc_dtype=torch.int32, requant=spec, in_scale=IN_SCALE)
+            n_out = SLOT * cin * ho * ho
+            mob["quant_depthwise_conv2d/int32"].append(dict(
+                shape=f"{SLOT}x{cin}x{h}x{h}/s{stride}",
+                **_timed(ms=lambda: ops.quant_depthwise_conv2d(x, taps, mult, **kw),
+                         plain_ms=lambda: ops.quant_depthwise_conv2d_plain(
+                             x, taps, mult, **kw)),
+                library_ms=None, library_call_ms=None,
+                bytes_ms=(4 * x.numel() + 9 * cin + 4 * cin + 4 * n_out) / HBM_BYTES_PER_S * 1e3,
+                ops_ms=18 * n_out / INT8_OPS * 1e3))
+    c, img, grp = GCONV["c"], GCONV["img"], GCONV["groups"]
+    x = (torch.randint(-8, 9, (GCONV["n"], c, img, img), generator=g).float()
+         * IN_SCALE).to(dev)
+    patches = ops.extract_patches(x, (3, 3), (1, 1), (1, 1, 1, 1))[0]
+    m, kg, ng = patches.shape[0], c // grp * 9, c // grp
+    xg = patches.view(m, grp, kg).permute(1, 0, 2)
+    w = torch.randint(-8, 8, (grp, kg, ng), generator=g, dtype=torch.int8)
+    wk = ops.pack_int4_grouped(w).to(dev)
+    mult = torch.full((c,), 3, dtype=torch.int32, device=dev)
+    kw = dict(packed=True, acc_dtype=torch.int32, requant=spec, in_scale=IN_SCALE)
+    mob["quant_grouped_matmul/int32"].append(dict(
+        shape=f"{grp}x{m}x{kg}x{ng} int4",
+        **_timed(ms=lambda: ops.quant_grouped_matmul(xg, wk, mult, **kw),
+                 plain_ms=lambda: ops.quant_grouped_matmul_plain(xg, wk, mult, **kw)),
+        library_ms=None, library_call_ms=None,
+        bytes_ms=(4 * m * grp * kg + grp * kg * ng // 2 + 4 * c + 4 * m * c)
+        / HBM_BYTES_PER_S * 1e3,
+        ops_ms=2 * m * grp * kg * ng / INT8_OPS * 1e3))
+    return tfc, mob
+
+
+def profile_forward(torch, plan, x, label, reps=5):
     """One plan call's device time by kernel name (torch.profiler), beside
     its wall time without the profiler: the device's busy share."""
     from torch.profiler import ProfilerActivity, profile
@@ -721,41 +1197,70 @@ def profile_forward(torch, plan, x, reps=5):
             t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
             by_name[e.key] = (t / reps / 1e3, e.count / reps)
     busy = sum(t for t, _ in by_name.values())
-    print(f"profile: one MobileNet-224 plan call of {len(x)} rows: wall {wall_ms:.6f} ms "
-          f"(no profiler), kernels {busy:.6f} ms (profiler), device busy share "
-          f"{busy / wall_ms:.3f}", flush=True)
+    print(f"profile[{label}]: one MobileNet-224 plan call of {len(x)} rows: wall "
+          f"{wall_ms:.6f} ms (no profiler), kernels {busy:.6f} ms (profiler), device busy "
+          f"share {busy / wall_ms:.3f}", flush=True)
     for key, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]:
-        print(f"profile:   {t:.6f} ms in {n:g} launches  {key[:110]}", flush=True)
+        print(f"profile[{label}]:   {t:.6f} ms in {n:g} launches  {key[:110]}", flush=True)
+
+
+def walls_in_turns(torch, plans: dict, x, pairs=10, reps=5):
+    """Wall ms of one plan call (host clock around ``reps`` calls and a
+    sync), the plans run in turns (A B, then B A, ...) ``pairs`` times;
+    prints each plan's median and quartiles."""
+    xd = torch.from_numpy(x).cuda()
+    names = list(plans)
+    walls = {n: [] for n in names}
+    for i in range(pairs):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            plans[name]({"x": xd})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                plans[name]({"x": xd})
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) / reps * 1e3)
+    for name, ws in walls.items():
+        q = statistics.quantiles(ws, n=4)
+        print(f"plan call wall[{name}], MobileNet-224 {len(x)} rows, {pairs} turns: median "
+              f"{statistics.median(ws):.6f} ms, quartiles {q[0]:.6f} / {q[2]:.6f} ms", flush=True)
+
+
+def _fmt(v) -> str:
+    return "n/a" if v is None else f"{v:.6f} ms"
 
 
 def report(rows, launches, err, label):
     """Print one line per timed shape; returns the per-kernel JSON entries
-    (times summed over the shapes)."""
+    (times summed over the shapes; the library time only where one call
+    computes the product at every shape, else null)."""
     kernels = []
     for name, rs in rows.items():
         if not rs:
             continue
+        base = name.split("/")[0]
         for r in rs:
             bound = max(r["bytes_ms"], r["ops_ms"])
             print(f"time[{label}] {name} {r['shape']}: device kernel {r['ms']:.6f} ms, plain "
-                  f"{r['plain_ms']:.6f} ms, library {r['library_ms']:.6f} ms, bound "
+                  f"{r['plain_ms']:.6f} ms, library {_fmt(r['library_ms'])}, bound "
                   f"{bound:.6f} ms ({'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'operations'}); "
                   f"per eager call: kernel {r['call_ms']:.6f} ms, plain "
-                  f"{r['plain_call_ms']:.6f} ms, library {r['library_call_ms']:.6f} ms",
+                  f"{r['plain_call_ms']:.6f} ms, library {_fmt(r['library_call_ms'])}",
                   flush=True)
         by_bytes = sum(r["bytes_ms"] for r in rs if r["bytes_ms"] >= r["ops_ms"])
         by_ops = sum(r["ops_ms"] for r in rs if r["ops_ms"] > r["bytes_ms"])
+        libs = [r["library_ms"] for r in rs]
         kernels.append(dict(
-            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+            name=name, route="cuda", source=SOURCES[base], replaces=REPLACES[base],
             launches=launches[name], max_abs_err=err[name],
             ms=sum(r["ms"] for r in rs), plain_ms=sum(r["plain_ms"] for r in rs),
             bound_ms=by_bytes + by_ops,
             bound_by="bytes" if by_bytes >= by_ops else "operations",
-            library_ms=sum(r["library_ms"] for r in rs)))
+            library_ms=None if None in libs else sum(libs)))
         print(f"sum[{label}] {name} over {len(rs)} shapes: device {kernels[-1]['ms']:.6f} ms, "
               f"eager {sum(r['call_ms'] for r in rs):.6f} ms, bound "
               f"{kernels[-1]['bound_ms']:.6f} ms ({kernels[-1]['bound_by']}), plain "
-              f"{kernels[-1]['plain_ms']:.6f} ms, library {kernels[-1]['library_ms']:.6f} ms",
+              f"{kernels[-1]['plain_ms']:.6f} ms, library {_fmt(kernels[-1]['library_ms'])}",
               flush=True)
     return kernels
 
@@ -793,15 +1298,28 @@ def main() -> int:
     print(f"kernels vs twins: {n_mm} matmul cases, {n_qd} quant_dequant cases, "
           f"{n_gm} grouped matmul cases, {n_dw} depthwise cases; max_abs_err {err}",
           flush=True)
+    n_int = check_integer(ops, torch, np, dev, err)
+    print(f"integer bodies vs twins (torch.equal): {n_int} cases", flush=True)
 
-    # phases 3 + 4: the main path, counted
+    # phases 3 + 4: the float32-epilogue path (use_analysis=False), counted
     ops.reset_launch_counts()
     (eng, xt), (meng, xm), (lplan, x8) = run_main_path(torch, np, dev)
     launches = ops.launch_counts()
-    print(f"main-path launches: {launches}", flush=True)
+    print(f"main-path launches (float32 epilogue): {launches}", flush=True)
     for k, v in launches.items():
         if v <= 0:
             raise AssertionError(f"kernel {k} never launched on the main path")
+
+    # phases 3 + 4 again on the integer path (compile_graph's defaults),
+    # counted on their own
+    ops.reset_launch_counts()
+    (ieng, ixt), (imeng, ixm), (iplan, ix8) = run_integer_path(torch, np, dev)
+    int_counts = ops.launch_counts()
+    print(f"main-path launches (integer path): {int_counts}", flush=True)
+    for k, v in int_counts.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} never launched on the integer path")
+    launches.update({k + "/int32": int_counts[k] for k in INT_KERNELS})
 
     # phase 5: times
     rows = timings(ops, torch, dev)
@@ -812,13 +1330,23 @@ def main() -> int:
     kernels = report(rows, launches, err, f"MobileNet-224 N={SLOT}")
     print(f"(sums above: one MobileNet-w4a4 forward at img 224 with {SLOT} rows; "
           "B5 over the grouped conv's one layer)", flush=True)
-    profile_forward(torch, lplan, x8)
-    rate = requests_per_s(eng, xt)
-    print(f"engine: {rate:.1f} requests/s (TFC-w2a2, max_batch=16, 64 requests "
-          f"per run_pending, median of 5)", flush=True)
-    rate = requests_per_s(meng, xm)
-    print(f"engine: {rate:.1f} requests/s (MobileNet-w4a4 img 224, max_batch={SLOT}, "
-          f"{len(xm)} requests per run_pending, median of 5)", flush=True)
+    tfc_int, mob_int = int_timings(ops, torch, dev)
+    report(tfc_int, launches, err, "TFC M=256, integer")
+    print("(sums above: one TFC forward at M=256 on the integer bodies)", flush=True)
+    kernels += report(mob_int, launches, err, f"MobileNet-224 N={SLOT}, integer")
+    print(f"(sums above: the 27 int32 segments of one MobileNet-w4a4 forward at img 224 "
+          f"with {SLOT} rows; B5 over the grouped conv's one layer)", flush=True)
+    profile_forward(torch, lplan, x8, "float32 epilogue")
+    profile_forward(torch, iplan, ix8, "integer path")
+    walls_in_turns(torch, {"float32 epilogue": lplan, "integer path": iplan}, x8)
+    # engines in turns: float32, integer, integer, float32
+    for model, pair in (("TFC-w2a2, max_batch=16", ((eng, xt), (ieng, ixt))),
+                        (f"MobileNet-w4a4 img 224, max_batch={SLOT}", ((meng, xm), (imeng, ixm)))):
+        for label, (e, xs) in zip(("float32 epilogue", "integer path", "integer path",
+                                   "float32 epilogue"), pair + pair[::-1]):
+            rate = requests_per_s(e, xs)
+            print(f"engine[{label}]: {rate:.1f} requests/s ({model}, {len(xs)} requests per "
+                  f"run_pending, median of 5)", flush=True)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -29,18 +29,27 @@ oracle; this module is the performance tier above it:
      topological order; a call enqueues its kernels on the current CUDA
      stream and returns without synchronizing.
 
-This slice compiles the fp32-epilogue tier only, the reference's
-``use_analysis=False, use_fusion=False`` configuration; the flags of the
-tiers still to port raise ``NotImplementedError`` naming the ROADMAP.md
-item that brings them.
+Kernel selection is **analysis-driven** by default, as in the reference
+(``repro_torch.analysis``): the range analysis proves the actual weight
+values and activation ranges, so a weight tensor whose values fit int4
+takes the packed path whatever its declared width, each fused matmul /
+conv gets an int32 accumulator where the activations are provably
+integer-valued and the dot-product bound fits 31 bits, and a segment
+whose scales are dyadic runs the exact integer epilogue B3
+(``lowering/requant.py``).  ``use_analysis=False`` restores the
+declared-bit-width fp32-epilogue tier.  Cross-segment fusion
+(``use_fusion``), tuning and meshes are not ported; their flags raise
+``NotImplementedError`` naming the ROADMAP.md item that brings them.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
+from ..obs.metrics import default_registry
 from . import lowering
 from .executor import op_output, resolve_device, to_tensor
 from .graph import Node, QonnxGraph
@@ -60,6 +69,7 @@ class CompiledPlan:
     segments: list[Segment]
     consts: dict
     device: torch.device
+    analysis: Optional[object] = None      # GraphAnalysis used for selection
 
     def __call__(self, inputs: dict) -> dict:
         """Run the plan.  Inputs (numpy arrays or tensors) are moved to the
@@ -97,6 +107,32 @@ class CompiledPlan:
                 continue
             for n in s.nodes:
                 out[n.op_type] = out.get(n.op_type, 0) + 1
+        return out
+
+    def requant_stats(self) -> dict:
+        """Integer-requant path telemetry over the kernel segments.
+
+        Only matmul / conv segments count: a ``quant_dequant`` segment
+        quantizes from the unbounded fp32 input domain and has no requant
+        path to pick.  ``coverage`` is the integer-path fraction (1.0 when
+        there are no kernel segments); ``fp32_ops_eliminated`` sums each
+        int32 segment's per-call count of fp32 epilogue ops replaced by
+        integer arithmetic."""
+        out = {"kernel_segments": 0, "int32_segments": 0, "fp32_segments": 0,
+               "fp32_ops_eliminated": 0}
+        for s in self.segments:
+            path = s.meta.get("requant_path")
+            if path is None:
+                continue
+            out["kernel_segments"] += 1
+            if path == "int32":
+                out["int32_segments"] += 1
+                out["fp32_ops_eliminated"] += s.meta.get(
+                    "fp32_ops_eliminated", 0)
+            else:
+                out["fp32_segments"] += 1
+        out["coverage"] = (out["int32_segments"] / out["kernel_segments"]
+                           if out["kernel_segments"] else 1.0)
         return out
 
     def grouped_conv_stats(self) -> dict:
@@ -150,16 +186,10 @@ def _make_interp_segment(nodes: list[Node], static_consts: dict) -> Segment:
     return Segment("interp", nodes, ins, outs, run)
 
 
-def _unported(use_analysis, use_integer_requant, use_fusion, tune, mesh,
-              interpret) -> None:
-    for flag, on, item in (
-            ("use_analysis", use_analysis, "A7 (analysis)"),
-            ("use_integer_requant", use_integer_requant,
-             "A8 (integer requant, kernel B3)"),
-            ("use_fusion", use_fusion, "A11 (fusion)")):
-        if on:
-            raise NotImplementedError(
-                f"{flag}=True is not ported yet: ROADMAP.md {item}")
+def _unported(use_fusion, tune, mesh, interpret) -> None:
+    if use_fusion:
+        raise NotImplementedError(
+            "use_fusion=True is not ported yet: ROADMAP.md A11 (fusion)")
     if tune != "off":
         raise NotImplementedError(
             f"tune={tune!r} is not ported yet: ROADMAP.md A15 (tuning)")
@@ -176,9 +206,9 @@ def _unported(use_analysis, use_integer_requant, use_fusion, tune, mesh,
 
 def compile_graph(graph: QonnxGraph, *, run_cleanup: bool = True,
                   use_kernels: bool = True, use_int4: bool = True,
-                  use_analysis: bool = False,
+                  use_analysis: bool = True,
                   interpret: Optional[bool] = None,
-                  use_integer_requant: bool = False, tune: str = "off",
+                  use_integer_requant: bool = True, tune: str = "off",
                   tune_cache_dir: Optional[str] = None,
                   tune_repeats: int = 3,
                   use_fusion: bool = False,
@@ -191,23 +221,44 @@ def compile_graph(graph: QonnxGraph, *, run_cleanup: bool = True,
     use_kernels  — False disables fusion entirely (pure interpreter plan)
     use_int4     — pack <=4-bit signed weights two per byte and dispatch
                    the in-kernel-unpack variant (B2)
+    use_analysis — consult ``repro_torch.analysis`` (range and datatype
+                   inference, on the host) for the weight carriers and the
+                   accumulator dtype, from the actual value ranges; False
+                   is the declared-bit-width fp32-epilogue tier
+    use_integer_requant — allow the dyadic integer epilogue (B3) on the
+                   segments whose exactness proof holds; False pins every
+                   segment to the fp32 epilogue
     device       — where the plan runs: None means CUDA (raising without a
                    GPU); "cpu" runs every kernel's plain twin
-    use_analysis, use_integer_requant, use_fusion, tune (with
-    tune_cache_dir / tune_repeats), mesh — the reference's later tiers;
-                   anything but their defaults raises NotImplementedError
+    use_fusion   — must stay False: cross-segment fusion and its integer
+                   boundary carriers are not ported (ROADMAP.md A11), so
+                   the default is False here where the reference's is True
+    tune (with tune_cache_dir / tune_repeats), mesh — the reference's later
+                   tiers; anything but their defaults raises
+                   NotImplementedError
     interpret    — must stay None (see ``_unported``)
+
+    Every compile records its wall time and plan-shape gauges (segments
+    per kind, fused nodes, integer-requant coverage and segments) in the
+    process-wide ``repro_torch.obs`` default registry under
+    ``model=graph.name``.
     """
+    t_compile0 = time.perf_counter()
     del tune_cache_dir, tune_repeats           # meaningful only with tune
-    _unported(use_analysis, use_integer_requant, use_fusion, tune, mesh,
-              interpret)
+    _unported(use_fusion, tune, mesh, interpret)
     dev = resolve_device(device)
     if run_cleanup:
         from . import passes
         graph = passes.run_pipeline(graph, "compile_prep")
     g = graph.copy()
     g.nodes = g.toposort()
-    ctx = LoweringContext(use_int4=use_int4, device=dev)
+
+    ga = None
+    if use_kernels and use_analysis:
+        from repro_torch.analysis import analyze
+        ga = analyze(g)
+    ctx = LoweringContext(analysis=ga, use_int4=use_int4,
+                          use_int_requant=use_integer_requant, device=dev)
 
     # constants start on the host: folding happens there once, and only
     # what the plan reads moves to the device
@@ -297,7 +348,35 @@ def compile_graph(graph: QonnxGraph, *, run_cleanup: bool = True,
     consts = {k: v.to(dev) for k, v in consts.items() if k in used}
     consts.update(staged)
 
-    return CompiledPlan(g, segments, consts, dev)
+    plan = CompiledPlan(g, segments, consts, dev, analysis=ga)
+    _record_compile_metrics(plan, time.perf_counter() - t_compile0)
+    return plan
+
+
+def _record_compile_metrics(plan: CompiledPlan, wall_s: float) -> None:
+    """Compile-tier telemetry into the process-wide default registry (the
+    reference's metric names)."""
+    reg = default_registry()
+    model = {"model": plan.graph.name}
+    reg.histogram(
+        "compile_wall_ms", unit="ms",
+        help="compile_graph wall time (partition + analysis + plan emit)",
+        window=64, labels=model).observe(wall_s * 1e3)
+    reg.gauge("compile_segments",
+              help="fused segments in the emitted plan, per kind",
+              labels={**model, "kind": "total"}).set(len(plan.segments))
+    for kind, n in plan.fused_counts.items():
+        reg.gauge("compile_segments", labels={**model, "kind": kind}).set(n)
+    reg.gauge("compile_fused_nodes",
+              help="graph nodes absorbed into kernel segments",
+              labels=model).set(plan.n_fused_nodes)
+    rq = plan.requant_stats()
+    reg.gauge("compile_integer_requant_coverage",
+              help="fraction of kernel segments on the integer-epilogue "
+                   "fast path", labels=model).set(rq["coverage"])
+    reg.gauge("compile_integer_requant_segments",
+              help="kernel segments proven exact on the dyadic integer "
+                   "epilogue", labels=model).set(rq["int32_segments"])
 
 
 __all__ = ["CompiledPlan", "compile_graph"]

@@ -76,7 +76,10 @@ class Segment:
 @dataclass
 class LoweringContext:
     """Per-compilation knobs every rule sees (compile_graph's arguments)."""
+    analysis: Optional[object] = None      # GraphAnalysis or None
     use_int4: bool = True
+    use_int_requant: bool = True   # dyadic integer-epilogue selection
+                                   # (lowering/requant.py; needs analysis)
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
 
 
@@ -225,3 +228,31 @@ def sole_consumer(g: QonnxGraph, tensor: str) -> Optional[Node]:
     if len(cons) == 1 and tensor not in g.output_names:
         return cons[0]
     return None
+
+
+def select_accumulator(ctx: LoweringContext, node: Node, match,
+                       w_int: Optional[np.ndarray] = None) -> None:
+    """Per-rule accumulator selection (the analysis tier's hook).
+
+    The fused kernel computes ``x @ w_int`` (activation *values* against
+    integer weight carriers); ``GraphAnalysis.kernel_accumulator`` bounds
+    that dot product from the proven activation range (zero-padding-aware
+    for Conv) and says whether exact int32 accumulation is sound.  Rules
+    whose staged carrier layout differs from the node's operand (the conv
+    rules stage an im2col matrix or per-group carriers) pass the
+    operand-shaped ``w_int``.
+
+    Mutates ``match.acc_dtype`` / ``match.acc_bits`` in place; a None
+    analysis (use_analysis=False) leaves the float32 default.
+    """
+    ga = ctx.analysis
+    if ga is None:
+        return
+    choice = ga.kernel_accumulator(
+        node, match.w_int if w_int is None else w_int)
+    if choice is None:
+        return
+    bits, exact_int32 = choice
+    match.acc_bits = bits
+    if exact_int32:
+        match.acc_dtype = torch.int32

@@ -26,12 +26,14 @@ fallback for the group counts that rule declines, correct for any
 attribute gates, the weight-chain resolution (``lowering/weights.py``),
 the scale granularity, the bias and the epilogue absorption.
 
-This slice ports the fp32-epilogue tier: the reference's accumulator and
-integer-requant selection (analysis tier, ROADMAP.md A7/A8) and its
-carrier negotiation (fusion, A11) are inert at ``use_analysis=False,
-use_fusion=False`` and arrive with those items.  Unsupported shapes
-(NHWC, auto_pad, per-input-channel scales, non-constant weights or bias,
-1-D / 3-D convs) do not match and stay interpreted.
+With the analysis tier the accumulator comes from the zero-padding-aware
+conv dot-product bound (``GraphAnalysis.kernel_accumulator`` on the
+conv-shaped weights) and, when ``select_requant`` proves it exact, the
+Relu and the act Quant fold into the kernel's integer epilogue (B3).  The
+reference's carrier negotiation (fusion, ROADMAP.md A11) is not ported.
+Unsupported shapes (NHWC, auto_pad, per-input-channel scales,
+non-constant weights or bias, 1-D / 3-D convs) do not match and stay
+interpreted.
 """
 from __future__ import annotations
 
@@ -44,8 +46,10 @@ import torch
 
 from ..graph import Node, QonnxGraph
 from .base import (LoweringContext, LoweringRule, Segment, conv_channel_scale,
-                   conv_out_rows, register_rule, sole_consumer, static_value)
+                   conv_out_rows, register_rule, select_accumulator,
+                   sole_consumer, static_value)
 from .qdq import stage_qdq_epilogue, static_act_quant_params
+from .requant import select_requant
 from .weights import (KernelMatch, QuantWeight, chain_absorbable,
                       resolve_quant_weight, stage_kernel_carriers)
 
@@ -103,7 +107,7 @@ def match_conv_common(g: QonnxGraph, node: Node,
         return None
     if node.attrs.get("auto_pad", "NOTSET") != "NOTSET":
         return None
-    qw = resolve_quant_weight(g, node.inputs[1])
+    qw = resolve_quant_weight(g, node.inputs[1], ctx.analysis)
     if qw is None or qw.w_int.ndim != 4:
         return None                           # 2-D convs only
     o, ipg, kh, kw = qw.w_int.shape
@@ -152,11 +156,27 @@ def match_conv_common(g: QonnxGraph, node: Node,
         ks, strides, pads, dilations, group, relu, act)
 
 
-def stage_act_epilogue(idx: int, act: Optional[ActQuantParams],
-                       consts: dict, ctx: LoweringContext):
-    """Stage a conv segment's absorbed activation Quant, if any, exactly as
-    the QDQ rule would.  Returns ``(kernel_fn_or_None, const keys)``."""
-    if act is None:
+def select_conv_paths(ctx: LoweringContext, g: QonnxGraph, node: Node,
+                      m: KernelMatch, nb: ConvNeighbourhood) -> None:
+    """Both conv rules' analysis hooks: the accumulator bound on the
+    conv-shaped weights (it contracts the true I/g·kH·kW field, zero-padding
+    aware, whatever carrier layout the rule stages), then the integer
+    requant with the absorbed Relu / act Quant.  The per-channel |w| sums
+    in natural O order are the group-major order of the (O,) scale."""
+    select_accumulator(ctx, node, m, w_int=nb.qw.w_int)
+    select_requant(ctx, g, node, m,
+                   w_absum=np.abs(nb.qw.w_int.astype(np.int64))
+                   .sum(axis=(1, 2, 3)),
+                   relu=nb.relu, act=nb.act)
+
+
+def stage_act_epilogue(idx: int, m: KernelMatch, consts: dict,
+                       ctx: LoweringContext):
+    """Stage a conv segment's absorbed activation Quant exactly as the QDQ
+    rule would, unless there is none or the integer path folds it into the
+    kernel's IntRequant.  Returns ``(kernel_fn_or_None, const keys)``."""
+    act = m.act
+    if act is None or m.requant is not None:
         return None, ()
     qdq, keys = stage_qdq_epilogue(
         idx, consts, ctx, scale=act.scale, zero_point=act.zero_point,
@@ -202,12 +222,14 @@ class QuantConvRule(LoweringRule):
         if nb is None:
             return None
         w2 = im2col_weights(nb.qw.w_int, nb.group)     # (C·kH·kW, O) int8
-        return QuantConvMatch(
+        m = QuantConvMatch(
             nb.nodes, node.inputs[0], nb.out, w2, nb.scale, nb.bias,
             nb.qw.int4_values and w2.shape[0] % 2 == 0,
             rows=conv_out_rows(g, node),
             kernel_shape=nb.kernel_shape, strides=nb.strides, pads=nb.pads,
             dilations=nb.dilations, group=nb.group, relu=nb.relu, act=nb.act)
+        select_conv_paths(ctx, g, node, m, nb)
+        return m
 
     def emit(self, idx: int, m: QuantConvMatch, consts: dict,
              ctx: LoweringContext) -> Segment:
@@ -218,9 +240,11 @@ class QuantConvRule(LoweringRule):
         conv = functools.partial(
             kernel_ops.quant_conv2d, kernel_shape=m.kernel_shape,
             strides=m.strides, pads=m.pads, dilations=m.dilations,
-            packed=use_int4)
-        qdq, act_keys = stage_act_epilogue(idx, m.act, consts, ctx)
-        x_name, out_name, relu = m.x, m.out, m.relu
+            packed=use_int4, **m.body())
+        qdq, act_keys = stage_act_epilogue(idx, m, consts, ctx)
+        # integer path: Relu and the act Quant live in the IntRequant
+        x_name, out_name = m.x, m.out
+        relu = m.relu and m.requant is None
 
         def run(consts, env):
             x = env.get(x_name, consts.get(x_name))

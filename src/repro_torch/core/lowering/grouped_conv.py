@@ -23,7 +23,10 @@ Group counts neither kernel takes (``group > MAX_BLOCKED_GROUPS`` with a
 channel multiplier) decline and keep the dense block-diagonal fallback.
 Each segment records the MACs and carrier bytes it saves against that
 fallback (``reclaimed_macs`` / ``carrier_bytes_saved`` in its meta), which
-``CompiledPlan.grouped_conv_stats`` sums.
+``CompiledPlan.grouped_conv_stats`` sums.  The accumulator and the
+integer requant path are selected as the dense rule selects them
+(``conv.select_conv_paths``): the bound already contracts per output
+channel over the true I/g·kH·kW field, so it is group-exact.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ from ..graph import Node, QonnxGraph
 from .base import (LoweringContext, LoweringRule, Segment, conv_out_rows,
                    register_rule)
 from .conv import (QuantConvMatch, conv_epilogue, match_conv_common,
-                   stage_act_epilogue)
+                   select_conv_paths, stage_act_epilogue)
 from .weights import stage_kernel_carriers
 
 # beyond this the per-group kernel's tiles get small and its grid G times
@@ -100,7 +103,7 @@ class GroupedConvRule(LoweringRule):
         # entries and (per output position) MACs; its carrier bytes are
         # priced at its own int4 eligibility (dense K = C·kH·kW evenness)
         saved_entries = (nb.group - 1) * ipg * kh * kw * o
-        return GroupedConvMatch(
+        m = GroupedConvMatch(
             nb.nodes, node.inputs[0], nb.out, w_carrier, nb.scale, nb.bias,
             int4_ok, rows=conv_out_rows(g, node),
             kernel_shape=nb.kernel_shape, strides=nb.strides,
@@ -109,6 +112,8 @@ class GroupedConvRule(LoweringRule):
             reclaimed_macs=saved_entries * _out_spatial(g, node),
             dense_int4_ok=nb.qw.int4_values and
             (ipg * nb.group * kh * kw) % 2 == 0)
+        select_conv_paths(ctx, g, node, m, nb)
+        return m
 
     def emit(self, idx: int, m: GroupedConvMatch, consts: dict,
              ctx: LoweringContext) -> Segment:
@@ -118,19 +123,24 @@ class GroupedConvRule(LoweringRule):
             ("quant_conv_grouped", "quant_conv_grouped_int4")
         kind, use_int4, w_key, s_key, b_key, meta = stage_kernel_carriers(
             idx, m, consts, ctx, kinds, pack=kernel_ops.pack_int4_grouped)
-        qdq, act_keys = stage_act_epilogue(idx, m.act, consts, ctx)
-        x_name, out_name, act = m.x, m.out, m.act
+        qdq, act_keys = stage_act_epilogue(idx, m, consts, ctx)
+        # integer path: Relu and the act Quant live in the IntRequant
+        x_name, out_name = m.x, m.out
+        relu = m.relu and m.requant is None
+        act = m.act if m.requant is None else None
 
         if m.depthwise:
-            # the act Quant runs inside B6, on the constants staged above
+            # the fp32 path's act Quant runs inside B6, on the constants
+            # staged above
             conv = functools.partial(
                 kernel_ops.quant_depthwise_conv2d,
                 kernel_shape=m.kernel_shape, strides=m.strides, pads=m.pads,
-                dilations=m.dilations, relu=m.relu,
+                dilations=m.dilations, relu=relu,
                 act_bits=None if act is None else act.bit_width,
                 act_signed=act.signed if act else True,
                 act_narrow=act.narrow if act else False,
-                act_rounding=act.rounding_mode if act else "ROUND")
+                act_rounding=act.rounding_mode if act else "ROUND",
+                **m.body())
 
             def run(consts, env):
                 x = env.get(x_name, consts.get(x_name))
@@ -142,8 +152,7 @@ class GroupedConvRule(LoweringRule):
             conv = functools.partial(
                 kernel_ops.quant_grouped_conv2d, groups=m.group,
                 kernel_shape=m.kernel_shape, strides=m.strides, pads=m.pads,
-                dilations=m.dilations, packed=use_int4)
-            relu = m.relu
+                dilations=m.dilations, packed=use_int4, **m.body())
 
             def run(consts, env):
                 x = env.get(x_name, consts.get(x_name))

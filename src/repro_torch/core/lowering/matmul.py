@@ -8,10 +8,13 @@ MatMul/Gemm):
 The weight chain is evaluated offline into an int8 (or packed int4)
 carrier; a constant per-column Mul below the matmul folds into the
 dequant scale and a constant per-column Add into the bias, so the whole
-affine tail runs inside one ``kernels.quant_matmul[_int4]`` launch.
+affine tail runs inside one ``kernels.quant_matmul[_int4]`` launch.  With
+the analysis tier the accumulator (``select_accumulator``) and the integer
+requant path (``select_requant``) are chosen per match.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
@@ -20,7 +23,9 @@ import torch
 
 from ..graph import Node, QonnxGraph
 from .base import (LoweringContext, LoweringRule, Segment, col_scale,
-                   register_rule, sole_consumer, static_value, tensor_rows)
+                   register_rule, select_accumulator, sole_consumer,
+                   static_value, tensor_rows)
+from .requant import select_requant
 from .weights import (KernelMatch, chain_absorbable, resolve_quant_weight,
                       stage_kernel_carriers)
 
@@ -41,8 +46,12 @@ def make_matmul_segment(idx: int, m: KernelMatch, consts: dict,
 
     kind, use_int4, w_key, s_key, b_key, meta = stage_kernel_carriers(
         idx, m, consts, ctx, kinds)
-    kernel = kernel_ops.quant_matmul_int4 if use_int4 \
-        else kernel_ops.quant_matmul
+    # integer path: the kernel is fed grid indices (q - z).  It divides x
+    # by s_x as it stages the tile, an IEEE division whose true quotient is
+    # a representable integer (select_requant proved it), so it is exact.
+    kernel = functools.partial(
+        kernel_ops.quant_matmul_int4 if use_int4 else kernel_ops.quant_matmul,
+        **m.body())
     x_name, out_name = m.x, m.out
 
     def run(consts, env):
@@ -70,7 +79,7 @@ class QuantMatMulRule(LoweringRule):
             if a.get("alpha", 1.0) != 1.0 or a.get("beta", 1.0) != 1.0 or \
                     a.get("transA", 0) or a.get("transB", 0):
                 return None
-        qw = resolve_quant_weight(g, node.inputs[1])
+        qw = resolve_quant_weight(g, node.inputs[1], ctx.analysis)
         if qw is None or qw.w_int.ndim != 2:
             return None
         kdim, n = qw.w_int.shape
@@ -82,7 +91,13 @@ class QuantMatMulRule(LoweringRule):
         # only absorb the weight chain when this matmul is its sole reader
         if chain_absorbable(g, qw.chain, node):
             nodes = qw.chain + nodes
-        return _finish_match(g, node, nodes, n, qw.w_int, scale, int4_ok)
+        m = _finish_match(g, node, nodes, n, qw.w_int, scale, int4_ok)
+        if m is not None:
+            select_accumulator(ctx, node, m)
+            select_requant(ctx, g, node, m,
+                           w_absum=np.abs(m.w_int.astype(np.int64))
+                           .sum(axis=0))
+        return m
 
     def emit(self, idx: int, match: QuantMatMulMatch, consts: dict,
              ctx: LoweringContext) -> Segment:

@@ -10,9 +10,10 @@ turn into an integer carrier + dequant scale:
     chains, evaluated offline with the registered ops so the packed
     carrier is bit-identical to what the oracle would produce.
 
-Carrier selection is syntactic: the declared bit-width bounds decide the
-int8 / int4 fit.  (The reference's analysis-driven selection from the
-actual values arrives with the analysis tier, ROADMAP.md A7.)
+Carrier selection is analysis-driven when a ``GraphAnalysis`` is supplied:
+the *actual* integer values decide the int8 / int4 fit, so declared-wide
+weights that happen to be narrow still lower.  Without analysis the
+declared bit-width bounds decide.
 """
 from __future__ import annotations
 
@@ -37,7 +38,19 @@ class KernelMatch(Match):
     scale: np.ndarray            # () or per-output-column dequant scale
     bias: Optional[np.ndarray]   # per-output-column bias or None
     int4_ok: bool                # packed-int4 dispatch is sound
+    acc_dtype: torch.dtype = torch.float32   # analysis-selected accumulator
+    acc_bits: Optional[int] = None    # minimal accumulator width (if proven)
+    requant: Optional[object] = None  # proven RequantPlan (integer path)
     rows: Optional[int] = None   # the kernel's M rows per declared batch
+
+    def body(self) -> dict:
+        """The kernel body this match selected, as keyword arguments of the
+        kernel wrappers: the accumulator, the IntRequant spec and the
+        activation scale the integer path divides x by."""
+        rq = self.requant
+        return dict(acc_dtype=self.acc_dtype,
+                    requant=None if rq is None else rq.spec,
+                    in_scale=None if rq is None else float(rq.in_scale))
 
 
 def stage_kernel_carriers(idx: int, m: KernelMatch, consts: dict, ctx,
@@ -45,11 +58,13 @@ def stage_kernel_carriers(idx: int, m: KernelMatch, consts: dict, ctx,
     """Stage a KernelMatch's constants into the plan's consts dict.
 
     Packs the int4 carrier when the context allows it (on the host, once),
-    then moves the carrier, the dequant scale and the optional bias to the
+    then moves the carrier, the dequant scale (on the integer path the
+    int32 ``M_x * M_w`` multipliers instead) and the optional bias to the
     plan's device under the segment's ``__seg{idx}_*`` keys.  ``pack``
     replaces the (K, N) int4 packer for carriers of another layout (the
     grouped rule packs along each group's Kg).  The segment meta records
-    the kernel's rows (``m.rows``) when the shapes are known.
+    the accumulator, the requant path and, when the shapes are known, the
+    kernel's rows (``m.rows``).
 
     Returns ``(kind, use_int4, w_key, s_key, b_key_or_None, meta)`` where
     ``kinds`` is the (int8, int4) segment-kind pair.
@@ -61,10 +76,20 @@ def stage_kernel_carriers(idx: int, m: KernelMatch, consts: dict, ctx,
     w_key, s_key, b_key = f"__seg{idx}_w", f"__seg{idx}_s", f"__seg{idx}_b"
     w = torch.from_numpy(np.ascontiguousarray(m.w_int, np.int8))
     consts[w_key] = ((pack or pack_int4)(w) if use_int4 else w).to(ctx.device)
-    consts[s_key] = to_tensor(np.asarray(m.scale, np.float32), ctx.device)
+    if m.requant is not None:
+        # integer path: the scale slot carries the int32 M_x*M_w multipliers
+        consts[s_key] = to_tensor(np.asarray(m.requant.mult, np.int32),
+                                  ctx.device)
+    else:
+        consts[s_key] = to_tensor(np.asarray(m.scale, np.float32), ctx.device)
     if m.bias is not None:
         consts[b_key] = to_tensor(np.asarray(m.bias, np.float32), ctx.device)
-    meta = {"acc": "float32", "requant_path": "fp32"}
+    meta = {"acc": str(m.acc_dtype).replace("torch.", ""),
+            "requant_path": "int32" if m.requant is not None else "fp32"}
+    if m.acc_bits is not None:
+        meta["acc_bits"] = m.acc_bits
+    if m.requant is not None:
+        meta["fp32_ops_eliminated"] = m.requant.fp32_ops_eliminated
     if m.rows is not None:
         meta["rows"] = m.rows
     return (kind, use_int4, w_key, s_key,
@@ -90,8 +115,10 @@ def _broadcasts_over(w_shape: tuple, *params: np.ndarray) -> bool:
         return False
 
 
-def resolve_quant_weight(g: QonnxGraph, w_name: str) -> Optional[QuantWeight]:
-    """Resolve ``w_name``'s producer into a ``QuantWeight`` or None."""
+def resolve_quant_weight(g: QonnxGraph, w_name: str,
+                         ga=None) -> Optional[QuantWeight]:
+    """Resolve ``w_name``'s producer into a ``QuantWeight`` or None; with a
+    ``GraphAnalysis`` the actual integer values choose the carrier."""
     wq = g.producer(w_name)
     if wq is None:
         return None
@@ -129,9 +156,16 @@ def resolve_quant_weight(g: QonnxGraph, w_name: str) -> Optional[QuantWeight]:
         to_tensor(np.asarray(w, np.float32)), to_tensor(s), to_tensor(z),
         to_tensor(bw), signed=signed, narrow=narrow,
         rounding_mode=rmode).numpy()
-    # declared bit-width bounds decide the carrier
-    w_hi = float(quant_ops.max_int(signed, narrow, nb))
-    w_lo = float(quant_ops.min_int(signed, narrow, nb))
+    if ga is not None:
+        # analysis-driven carrier selection: the *actual* value range
+        # decides, so declared-wide weights that happen to fit a narrower
+        # carrier still lower (and may take the packed int4 path)
+        w_lo, w_hi = (float(w_q.min()), float(w_q.max())) if w_q.size \
+            else (0.0, 0.0)
+    else:
+        # syntactic fallback: declared bit-width bounds
+        w_hi = float(quant_ops.max_int(signed, narrow, nb))
+        w_lo = float(quant_ops.min_int(signed, narrow, nb))
     if w_lo < -128 or w_hi > 127:
         return None                       # must fit the int8 carrier
     return QuantWeight([wq], w_q.astype(np.int8), np.asarray(s, np.float32),

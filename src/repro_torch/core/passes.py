@@ -170,3 +170,14 @@ def _ensure_registered() -> None:
                   description="Fig. 2: static-shape Reshape cleanup")
     register_pass("eliminate_dead_code", transforms.eliminate_dead_code,
                   description="drop nodes/initializers not reaching outputs")
+
+    # analysis-tier passes, imported lazily: analysis depends on core,
+    # never the other way at module level
+    from repro_torch.analysis import check_graph, infer_datatypes
+
+    register_pass("infer_datatypes", infer_datatypes,
+                  description="annotate tensors with QONNX datatypes "
+                              "(INT<N>/UINT<N>/BIPOLAR/FLOAT32)")
+    register_pass("validate_quantization", check_graph,
+                  description="reject quantization-inconsistent graphs "
+                              "with actionable errors")

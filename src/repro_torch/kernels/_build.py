@@ -31,12 +31,16 @@ NVCC_FLAGS = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # the C interface: (name, argument types); each entry returns cudaError_t
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# the epilogue's tail of B1 / B2 / B5 / B6: body (epi), x divisor (in_div),
+# the IntRequant ints (rq, a host pointer or null) and the output scale
+_EPI = [_I, _F, _P, _F]
 SIGNATURES = {
     "qdq_launch": [_P, _P, _P, _P, _LL, _I, _I, _I, _F, _F, _I, _I, _P],
-    "qmm_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "qmm_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + _EPI + [_P],
     "gqmm_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL,
-                    _I, _I, _P],
-    "dw_launch": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 17 + [_F, _F, _I, _P],
+                    _I, _I] + _EPI + [_P],
+    "dw_launch": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 17 + [_F, _F, _I]
+    + _EPI + [_P],
 }
 
 # set by ``load`` on the build that actually ran nvcc (chip_smoke prints it)

@@ -21,11 +21,18 @@ These kernels do the true contraction:
     NCHW input; only the plain twin builds the reference's (T, M, C) tap
     tensor.
 
+Both have B1's three bodies (``quant_matmul``): the float32 dot, the
+int32 dot with the float32 epilogue (``acc_dtype=torch.int32``), and the
+int32 dot with the integer epilogue B3 (``requant=IntRequant``, the scale
+slot carrying int32 multipliers); on the integer bodies ``in_scale``
+divides x (an IEEE division) as the kernel reads it.  On B6's B3 body the
+IntRequant replaces the whole fused epilogue, as in the reference's
+``_dw_kernel``: bias, ``relu`` and ``act_*`` must then be left unset.
+
 Layouts and signatures are the reference's: NCHW in and out, (G, M, Kg) /
 (G, Kg[/2], Ng) for B5, taps (kH·kW, C) for B6.  On CPU tensors the
 wrappers run the plain twins (``*_plain``); on CUDA tensors they launch
-the kernel or raise.  The integer epilogue (B3, ``acc_dtype=torch.int32``,
-``requant=``) arrives with ROADMAP.md A7/A8.
+the kernel or raise.
 """
 from __future__ import annotations
 
@@ -37,7 +44,8 @@ import torch
 from ._build import check, load
 from .quant_conv import conv_tap_slices, conv_out_hw, extract_patches
 from .quant_dequant import ROUNDING_MODE_IDS, quant_dequant_plain, static_bounds
-from .quant_matmul import _unported, pack_int4, unpack_int4
+from .quant_matmul import (check_epilogue, epilogue_args, int_values,
+                           pack_int4, plain_epilogue, unpack_int4)
 
 launches = {"quant_grouped_matmul": 0, "quant_depthwise_conv2d": 0}
 
@@ -125,22 +133,24 @@ def _bias_vec(bias, n: int, name: str) -> Optional[torch.Tensor]:
 # ------------------------------------------------- B5: per-group matmul
 
 def quant_grouped_matmul_plain(xg, wg, w_scale, bias=None, *,
-                               packed=False) -> torch.Tensor:
-    """Plain twin of B5: per-group float32 product, then scale, then bias."""
+                               packed=False, acc_dtype=torch.float32,
+                               requant=None, in_scale=None) -> torch.Tensor:
+    """Plain twin of B5: the per-group float32 product (or the exact
+    integer one), then the epilogue, then the bias."""
+    check_epilogue("quant_grouped_matmul", acc_dtype, requant, in_scale)
     g, ng = wg.shape[0], wg.shape[2]
     w = unpack_int4_grouped(wg) if packed else wg
-    acc = torch.matmul(xg.to(torch.float32), w.to(torch.float32))
-    s = torch.as_tensor(w_scale, dtype=torch.float32, device=xg.device)
-    out = acc * (s.reshape(()) if s.numel() == 1 else s.reshape(g, 1, ng))
-    if bias is not None:
-        out = out + bias.to(torch.float32).reshape(g, 1, ng)
-    return out
+    if acc_dtype == torch.int32:
+        acc = torch.matmul(int_values(xg, in_scale), w.to(torch.float64))
+    else:
+        acc = torch.matmul(xg.to(torch.float32), w.to(torch.float32))
+    return plain_epilogue(acc, w_scale, bias, acc_dtype, requant, (g, 1, ng))
 
 
 def quant_grouped_matmul(xg: torch.Tensor, wg: torch.Tensor, w_scale,
                          bias: Optional[torch.Tensor] = None, *,
                          packed: bool = False, acc_dtype=torch.float32,
-                         requant=None) -> torch.Tensor:
+                         requant=None, in_scale=None) -> torch.Tensor:
     """Per-group integer matmul: out[g] = (xg[g] @ wg[g]) · s[g] [+ b[g]].
 
     xg: (G, M, Kg) float32, any group / row strides with unit stride along
@@ -148,10 +158,10 @@ def quant_grouped_matmul(xg: torch.Tensor, wg: torch.Tensor, w_scale,
     wg: (G, Kg, Ng) int8, or its per-group int4 packing (G, Kg//2, Ng)
         when ``packed``;
     w_scale: scalar or (G·Ng,) group-major per-output-channel scale;
-    bias: optional (G·Ng,) float32, added after the scale.
+    bias: optional (G·Ng,) float32, added after the epilogue;
+    acc_dtype / requant / in_scale: the body, as ``quant_matmul``'s.
     Returns (G, M, Ng) float32.  On CUDA its memory is laid out (M, G, Ng),
     so ``out.permute(1, 0, 2).reshape(M, G·Ng)`` is a view."""
-    _unported(acc_dtype, requant)
     name = "quant_grouped_matmul"
     if xg.ndim != 3 or wg.ndim != 3 or xg.shape[0] != wg.shape[0]:
         raise ValueError(f"{name}: shapes {tuple(xg.shape)} and "
@@ -161,15 +171,19 @@ def quant_grouped_matmul(xg: torch.Tensor, wg: torch.Tensor, w_scale,
     if kg != (2 * wg.shape[1] if packed else wg.shape[1]):
         raise ValueError(f"{name}: Kg mismatch {tuple(xg.shape)} @ "
                          f"{'packed ' if packed else ''}{tuple(wg.shape)}")
+    kw = dict(acc_dtype=acc_dtype, requant=requant, in_scale=in_scale)
     if xg.device.type == "cpu":
-        return quant_grouped_matmul_plain(xg, wg, w_scale, bias, packed=packed)
+        return quant_grouped_matmul_plain(xg, wg, w_scale, bias,
+                                          packed=packed, **kw)
     _check_device(name, xg, wg, bias)
     if xg.dtype != torch.float32 or (kg > 1 and xg.stride(2) != 1):
         raise ValueError(f"{name}: xg must be float32 with unit stride "
                          "along Kg")
     if wg.dtype != torch.int8 or not wg.is_contiguous():
         raise ValueError(f"{name}: weights must be a contiguous int8 tensor")
-    s = _channel_vec(w_scale, g * ng, xg.device, name, "w_scale")
+    epi, s, in_div, rq, out_mul = epilogue_args(name, w_scale=w_scale,
+                                                n=g * ng, device=xg.device,
+                                                **kw)
     b = _bias_vec(bias, g * ng, name)
     out = torch.empty((m, g, ng), dtype=torch.float32,
                       device=xg.device).permute(1, 0, 2)
@@ -177,7 +191,7 @@ def quant_grouped_matmul(xg: torch.Tensor, wg: torch.Tensor, w_scale,
         xg.data_ptr(), wg.data_ptr(), s.data_ptr(),
         None if b is None else b.data_ptr(), out.data_ptr(), g, m, kg, ng,
         xg.stride(0), xg.stride(1), out.stride(0), out.stride(1),
-        int(s.numel() > 1), int(packed),
+        int(s.numel() > 1), int(packed), epi, in_div, rq, out_mul,
         torch.cuda.current_stream(xg.device).cuda_stream)
     check(err, "gqmm_launch")
     launches[name] += 1
@@ -187,8 +201,9 @@ def quant_grouped_matmul(xg: torch.Tensor, wg: torch.Tensor, w_scale,
 def quant_grouped_conv2d(x: torch.Tensor, wg: torch.Tensor, w_scale,
                          bias: Optional[torch.Tensor] = None, *, groups: int,
                          kernel_shape, strides=(1, 1), pads=(0, 0, 0, 0),
-                         dilations=(1, 1), packed: bool = False
-                         ) -> torch.Tensor:
+                         dilations=(1, 1), packed: bool = False,
+                         acc_dtype=torch.float32, requant=None,
+                         in_scale=None) -> torch.Tensor:
     """Fused grouped quantized conv: per-group im2col onto B5.
 
     x      — (N, C, H, W) activations (cast to float32)
@@ -196,6 +211,7 @@ def quant_grouped_conv2d(x: torch.Tensor, wg: torch.Tensor, w_scale,
              per-group int4 packing (G, Kg//2, Ng) when ``packed``
     w_scale — scalar or group-major per-output-channel (O,)
     bias   — optional (O,) float32
+    acc_dtype / requant / in_scale — B5's body (``quant_grouped_matmul``)
     Returns (N, O, OH, OW) float32, contiguous."""
     x = x.to(torch.float32)
     patches, (oh, ow) = extract_patches(x, kernel_shape, strides, pads,
@@ -205,7 +221,9 @@ def quant_grouped_conv2d(x: torch.Tensor, wg: torch.Tensor, w_scale,
     # channel is the slowest feature, so group gi's columns are the slice
     # [gi·Kg, (gi+1)·Kg): a strided view, no copy
     xg = patches.view(m, groups, kg).permute(1, 0, 2)
-    y = quant_grouped_matmul(xg, wg, w_scale, bias, packed=packed)
+    y = quant_grouped_matmul(xg, wg, w_scale, bias, packed=packed,
+                             acc_dtype=acc_dtype, requant=requant,
+                             in_scale=in_scale)
     o = groups * y.shape[-1]
     y = y.permute(1, 0, 2).reshape(m, o)
     return y.reshape(x.shape[0], oh, ow, o).permute(0, 3, 1, 2).contiguous()
@@ -218,23 +236,28 @@ def quant_depthwise_conv2d_plain(x, w_taps, w_scale, bias=None,
                                  kernel_shape, strides=(1, 1),
                                  pads=(0, 0, 0, 0), dilations=(1, 1),
                                  relu=False, act_bits=None, act_signed=True,
-                                 act_narrow=False, act_rounding="ROUND"
-                                 ) -> torch.Tensor:
+                                 act_narrow=False, act_rounding="ROUND",
+                                 acc_dtype=torch.float32, requant=None,
+                                 in_scale=None) -> torch.Tensor:
     """Plain twin of B6: the kernel's arithmetic in the kernel's order (taps
     summed one by one in (kh, kw) order, products rounded apart), so the
-    two agree bit for bit on any input."""
+    two agree bit for bit on any input; the integer sums are exact in
+    float64, in any order."""
+    _check_dw_epilogue(bias, relu, act_bits, acc_dtype, requant, in_scale)
     x = x.to(torch.float32)
     taps, (oh, ow) = extract_depthwise_taps(x, kernel_shape, strides, pads,
                                             dilations)
-    w = w_taps.to(torch.float32)
-    acc = torch.zeros(taps.shape[1:], dtype=torch.float32, device=x.device)
-    for t in range(taps.shape[0]):
-        acc = acc + taps[t] * w[t]
     c = taps.shape[2]
-    y = acc * _channel_vec(w_scale, c, x.device, "quant_depthwise_conv2d",
-                           "w_scale")
-    if bias is not None:
-        y = y + bias.to(torch.float32).reshape(-1)
+    if acc_dtype == torch.int32:
+        acc = (int_values(taps, in_scale)
+               * w_taps.to(torch.float64)[:, None, :]).sum(0)
+    else:
+        w = w_taps.to(torch.float32)
+        acc = torch.zeros(taps.shape[1:], dtype=torch.float32,
+                          device=x.device)
+        for t in range(taps.shape[0]):
+            acc = acc + taps[t] * w[t]
+    y = plain_epilogue(acc, w_scale, bias, acc_dtype, requant, (-1,))
     if relu:
         y = torch.relu(y)
     if act_bits is not None:
@@ -242,6 +265,16 @@ def quant_depthwise_conv2d_plain(x, w_taps, w_scale, bias=None,
                                 bit_width=act_bits, signed=act_signed,
                                 narrow=act_narrow, rounding_mode=act_rounding)
     return y.reshape(x.shape[0], oh, ow, c).permute(0, 3, 1, 2).contiguous()
+
+
+def _check_dw_epilogue(bias, relu, act_bits, acc_dtype, requant,
+                       in_scale) -> None:
+    name = "quant_depthwise_conv2d"
+    check_epilogue(name, acc_dtype, requant, in_scale)
+    if requant is not None and (bias is not None or relu or
+                                act_bits is not None):
+        raise ValueError(f"{name}: with requant= the IntRequant carries the "
+                         "epilogue; bias, relu and act_* must be unset")
 
 
 def quant_depthwise_conv2d(x: torch.Tensor, w_taps: torch.Tensor, w_scale,
@@ -252,8 +285,8 @@ def quant_depthwise_conv2d(x: torch.Tensor, w_taps: torch.Tensor, w_scale,
                            act_bits=None, act_signed: bool = True,
                            act_narrow: bool = False,
                            act_rounding: str = "ROUND",
-                           acc_dtype=torch.float32, requant=None
-                           ) -> torch.Tensor:
+                           acc_dtype=torch.float32, requant=None,
+                           in_scale=None) -> torch.Tensor:
     """Fused depthwise quantized conv (``group == C``, multiplier 1).
 
     x          — (N, C, H, W) activations (float32; contiguous on CUDA)
@@ -265,8 +298,9 @@ def quant_depthwise_conv2d(x: torch.Tensor, w_taps: torch.Tensor, w_scale,
                  of Conv -> Relu -> Quant): ``act_bits`` None disables it;
                  ``act_scale`` / ``act_zero_point`` are one-element tensors
                  or scalars; rounding and bounds are B4's.
+    acc_dtype / requant / in_scale — the body, as ``quant_matmul``'s; with
+                 ``requant`` the IntRequant is the whole epilogue.
     Returns (N, C, OH, OW) float32."""
-    _unported(acc_dtype, requant)
     name = "quant_depthwise_conv2d"
     mode = act_rounding.upper()
     if mode not in ROUNDING_MODE_IDS:
@@ -279,10 +313,11 @@ def quant_depthwise_conv2d(x: torch.Tensor, w_taps: torch.Tensor, w_scale,
     if w_taps.shape[0] != kh * kw:
         raise ValueError(f"{name}: {w_taps.shape[0]} taps for a {kh}x{kw} "
                          "kernel")
+    body = dict(acc_dtype=acc_dtype, requant=requant, in_scale=in_scale)
     kw_args = dict(kernel_shape=kernel_shape, strides=strides, pads=pads,
                    dilations=dilations, relu=relu, act_bits=act_bits,
                    act_signed=act_signed, act_narrow=act_narrow,
-                   act_rounding=mode)
+                   act_rounding=mode, **body)
     if x.device.type == "cpu":
         return quant_depthwise_conv2d_plain(x, w_taps, w_scale, bias,
                                             act_scale, act_zero_point,
@@ -292,9 +327,11 @@ def quant_depthwise_conv2d(x: torch.Tensor, w_taps: torch.Tensor, w_scale,
         raise ValueError(f"{name}: x must be a contiguous float32 tensor")
     if w_taps.dtype != torch.int8 or not w_taps.is_contiguous():
         raise ValueError(f"{name}: taps must be a contiguous int8 tensor")
+    _check_dw_epilogue(bias, relu, act_bits, **body)
     n, c, h, w = x.shape
     oh, ow = conv_out_hw(h, w, kernel_shape, strides, pads, dilations)
-    s = _channel_vec(w_scale, c, x.device, name, "w_scale")
+    epi, s, in_div, rq, out_mul = epilogue_args(name, w_scale=w_scale, n=c,
+                                                device=x.device, **body)
     b = _bias_vec(bias, c, name)
     qs = qz = None
     lo = hi = 0.0
@@ -314,7 +351,7 @@ def quant_depthwise_conv2d(x: torch.Tensor, w_taps: torch.Tensor, w_scale,
         None if qz is None else qz.data_ptr(), out.data_ptr(),
         n, c, h, w, oh, ow, kh, kw, sh, sw, pt, pl, dh, dw,
         int(s.numel() > 1), int(relu), int(act_bits is not None), lo, hi,
-        ROUNDING_MODE_IDS[mode],
+        ROUNDING_MODE_IDS[mode], epi, in_div, rq, out_mul,
         torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "dw_launch")
     launches[name] += 1

@@ -6,33 +6,44 @@ Replaces ``repro/kernels/quant_matmul.py`` · ``quant_matmul`` (Pallas body
 row 2r in the low nibble and 2r+1 in the high nibble).  CUDA source:
 ``csrc/quant_matmul.cu``.
 
-    out = (x @ w_int) * w_scale  [+ bias]
+    out = epilogue(x @ w_int)  [+ bias]
 
-x (M, K) float32; w_scale a scalar or (N,); bias (N,) or None.  The
-accumulator is float32 and the dot a true float32 one (no TF32), the
-scale is applied once after the K loop, and the bias is added to the
-rounded product, as in the reference.
+x (M, K) float32; bias (N,) or None, added last.  Three bodies, chosen as
+the reference chooses them:
+
+  * ``acc_dtype=torch.float32`` (default): a true float32 dot (no TF32),
+    then ``acc * w_scale``, w_scale a scalar or (N,);
+  * ``acc_dtype=torch.int32``: an exact int32 dot of integer-valued x,
+    then ``float(acc) * w_scale``;
+  * ``acc_dtype=torch.int32, requant=IntRequant(...)``: the int32 dot, then
+    the integer epilogue B3 (``kernels/requant.py``); ``w_scale`` then
+    carries the int32 multipliers ``M_x * M_w``.
+
+On the integer bodies ``in_scale`` (a float32 value) divides x as it is
+staged, an IEEE division: the lowering passes the activation scale, whose
+quotients it proved to be the integers ``q - z``.
 
 Bound on the card: at the TFC shapes (M <= 256, (K, N) in {(784, 64),
-(64, 64), (64, 10)}) the 784-wide layer is bound by the float32 FMA rate
-(2·M·K·N operations at 67 TFLOP/s) and the narrow layers by the bytes of
-x and the output.  Design: each block owns a 32x32 output tile and loops
-over K itself; the weight tile is staged in shared memory, and B2 unpacks
-the nibbles while staging, so device memory serves only the packed
-bytes.  Ragged edges are masked, with no padding copies.
+(64, 64), (64, 10)}) the 784-wide layer is bound by operations (the
+float32 FMA or int32 IMAD rate of the CUDA cores) and the narrow layers by
+the bytes of x and the output.  Design: each block owns a 32x32 output
+tile and loops over K itself; the weight tile is staged in shared memory,
+and B2 unpacks the nibbles while staging, so device memory serves only
+the packed bytes.  Ragged edges are masked, with no padding copies.
 
 On CPU tensors the wrappers run the plain twins (``*_plain``); on CUDA
-tensors they launch the kernel or raise.  The int32 accumulator and the
-integer requant epilogue (``acc_dtype=torch.int32``, ``requant=``) arrive
-with the analysis tier (ROADMAP.md, A7/A8 and B3).
+tensors they launch the kernel or raise.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
 from ._build import check, load
+from .quant_dequant import ROUNDING_MODE_IDS
+from .requant import IntRequant, int_epilogue_plain
 
 launches = {"quant_matmul": 0, "quant_matmul_int4": 0}
 
@@ -55,34 +66,113 @@ def unpack_int4(w_packed: torch.Tensor) -> torch.Tensor:
     return torch.stack([lo, hi], dim=1).reshape(-1, w_packed.shape[1])
 
 
-def quant_matmul_plain(x, w_int, w_scale, bias=None) -> torch.Tensor:
-    """Plain twin of B1: float32 product, then scale, then bias."""
-    acc = torch.matmul(x.to(torch.float32), w_int.to(torch.float32))
-    out = acc * torch.as_tensor(w_scale, dtype=torch.float32,
-                                device=x.device).reshape(-1)
+# ------------------------------------------------ epilogue, shared by B5/B6
+
+def check_epilogue(name: str, acc_dtype, requant, in_scale) -> None:
+    """Raise on an accumulator / epilogue combination the kernels lack."""
+    if acc_dtype not in (torch.float32, torch.int32):
+        raise ValueError(f"{name}: acc_dtype must be torch.float32 or "
+                         f"torch.int32, not {acc_dtype}")
+    if in_scale is not None and acc_dtype != torch.int32:
+        raise ValueError(f"{name}: in_scale= divides x on the int32 bodies "
+                         "only")
+    if requant is None:
+        return
+    if acc_dtype != torch.int32:
+        raise ValueError(f"{name}: requant= needs acc_dtype=torch.int32")
+    if not isinstance(requant, IntRequant):
+        raise TypeError(f"{name}: requant must be an IntRequant")
+    if requant.rounding_mode.upper() not in ROUNDING_MODE_IDS:
+        raise ValueError(f"{name}: unknown rounding_mode "
+                         f"{requant.rounding_mode!r}")
+    # the reference's int32 shifts are defined up to 31 bits; inside that
+    # range the kernel's int64 arithmetic cannot overflow
+    if not (0 <= requant.shift <= 62 and -31 <= requant.act_shift <= 31):
+        raise ValueError(f"{name}: shift {requant.shift} / act_shift "
+                         f"{requant.act_shift} out of range")
+
+
+def int_values(x: torch.Tensor, in_scale) -> torch.Tensor:
+    """What the integer bodies stage: ``x / in_scale`` (an IEEE division by
+    a tensor on x's device) rounded to nearest, in float64, where every
+    int32 and every dot of them below 2**53 is exact."""
+    x = x.to(torch.float32)
+    if in_scale is not None and float(in_scale) != 1.0:
+        x = x / torch.full((), float(in_scale), dtype=torch.float32,
+                           device=x.device)
+    return torch.round(x).to(torch.float64)
+
+
+def plain_epilogue(acc: torch.Tensor, w_scale, bias, acc_dtype, requant,
+                   channel_shape) -> torch.Tensor:
+    """The twins' epilogue over ``acc``: float32 sums, or exact integer sums
+    in float64 for the int32 bodies.  ``channel_shape`` views a per-channel
+    scale or bias against ``acc``."""
+    def per_channel(v, dtype):
+        t = torch.as_tensor(v, dtype=dtype, device=acc.device)
+        return t.reshape(()) if t.numel() == 1 else t.reshape(channel_shape)
+    if acc_dtype == torch.int32:
+        acc = acc.to(torch.int64).to(torch.int32)     # the int32 accumulator
+        if requant is not None:
+            out = int_epilogue_plain(acc, per_channel(w_scale, torch.int32),
+                                     requant)
+        else:
+            out = acc.to(torch.float32) * per_channel(w_scale, torch.float32)
+    else:
+        out = acc * per_channel(w_scale, torch.float32)
     if bias is not None:
-        out = out + bias.to(torch.float32)
+        out = out + bias.to(torch.float32).reshape(channel_shape)
     return out
 
 
-def quant_matmul_int4_plain(x, w_packed, w_scale, bias=None) -> torch.Tensor:
-    """Plain twin of B2: unpack the nibbles, then the B1 twin."""
-    return quant_matmul_plain(x, unpack_int4(w_packed), w_scale, bias)
-
-
-def _unported(acc_dtype, requant) -> None:
-    if acc_dtype != torch.float32:
-        raise NotImplementedError(
-            "acc_dtype other than float32 (the int32 accumulator) arrives with "
-            "the analysis tier: ROADMAP.md A7")
+def epilogue_args(name: str, acc_dtype, requant, in_scale, w_scale,
+                  n: int, device) -> tuple:
+    """Launch arguments of the epilogue: ``(epi, scale, in_div, rq,
+    out_mul)``.  ``scale`` is a contiguous (1,) or (n,) vector, float32, or
+    the int32 multipliers on the B3 body (epi 2); ``rq`` the IntRequant's
+    nine ints for the C interface."""
+    check_epilogue(name, acc_dtype, requant, in_scale)
+    epi = 0 if acc_dtype == torch.float32 else (1 if requant is None else 2)
+    s = torch.as_tensor(w_scale, dtype=torch.int32 if epi == 2
+                        else torch.float32, device=device)
+    s = s.reshape(-1).contiguous()
+    if s.numel() not in (1, n):
+        raise ValueError(f"{name}: w_scale must be a scalar or ({n},)")
+    rq, out_mul = None, 0.0
     if requant is not None:
-        raise NotImplementedError(
-            "requant= (the integer epilogue, kernel B3) arrives with "
-            "ROADMAP.md A8")
+        r = requant
+        rq = (ctypes.c_int * 9)(
+            r.shift, int(r.relu), int(r.has_act), r.act_shift, r.act_zp,
+            r.act_lo, r.act_hi, r.act_out_shift,
+            ROUNDING_MODE_IDS[r.rounding_mode.upper()])
+        out_mul = r.out_mul()
+    in_div = 1.0 if in_scale is None else float(in_scale)
+    return epi, s, in_div, rq, out_mul
 
 
-def _launch(name, x, w, w_scale, bias, k, packed) -> torch.Tensor:
-    global launches
+# ------------------------------------------------------------------ B1/B2
+
+def quant_matmul_plain(x, w_int, w_scale, bias=None, *,
+                       acc_dtype=torch.float32, requant=None,
+                       in_scale=None) -> torch.Tensor:
+    """Plain twin of B1: the float32 product (or the exact integer one),
+    then the epilogue, then the bias."""
+    check_epilogue("quant_matmul", acc_dtype, requant, in_scale)
+    if acc_dtype == torch.int32:
+        acc = torch.matmul(int_values(x, in_scale), w_int.to(torch.float64))
+    else:
+        acc = torch.matmul(x.to(torch.float32), w_int.to(torch.float32))
+    return plain_epilogue(acc, w_scale, bias, acc_dtype, requant, (-1,))
+
+
+def quant_matmul_int4_plain(x, w_packed, w_scale, bias=None,
+                            **kw) -> torch.Tensor:
+    """Plain twin of B2: unpack the nibbles, then the B1 twin."""
+    return quant_matmul_plain(x, unpack_int4(w_packed), w_scale, bias, **kw)
+
+
+def _launch(name, x, w, w_scale, bias, k, packed, acc_dtype, requant,
+            in_scale) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
     if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():
@@ -90,10 +180,8 @@ def _launch(name, x, w, w_scale, bias, k, packed) -> torch.Tensor:
     if w.dtype != torch.int8 or w.ndim != 2 or not w.is_contiguous():
         raise ValueError(f"{name}: weights must be a contiguous 2-D int8 tensor")
     m, n = x.shape[0], w.shape[1]
-    s = torch.as_tensor(w_scale, dtype=torch.float32, device=x.device)
-    s = s.reshape(-1).contiguous()
-    if s.numel() not in (1, n):
-        raise ValueError(f"{name}: w_scale must be a scalar or (N,)={n}")
+    epi, s, in_div, rq, out_mul = epilogue_args(
+        name, acc_dtype, requant, in_scale, w_scale, n, x.device)
     b = None
     if bias is not None:
         b = bias.reshape(-1)
@@ -106,7 +194,7 @@ def _launch(name, x, w, w_scale, bias, k, packed) -> torch.Tensor:
     err = load().qmm_launch(
         x.data_ptr(), w.data_ptr(), s.data_ptr(),
         None if b is None else b.data_ptr(), out.data_ptr(), m, k, n,
-        int(s.numel() > 1), int(packed),
+        int(s.numel() > 1), int(packed), epi, in_div, rq, out_mul,
         torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "qmm_launch")
     launches[name] += 1
@@ -115,27 +203,31 @@ def _launch(name, x, w, w_scale, bias, k, packed) -> torch.Tensor:
 
 def quant_matmul(x: torch.Tensor, w_int: torch.Tensor, w_scale,
                  bias: Optional[torch.Tensor] = None, *,
-                 acc_dtype=torch.float32, requant=None) -> torch.Tensor:
-    """out = (x @ w_int) * w_scale [+ bias]; x (M, K) f32, w_int (K, N) int8."""
-    _unported(acc_dtype, requant)
+                 acc_dtype=torch.float32, requant: Optional[IntRequant] = None,
+                 in_scale=None) -> torch.Tensor:
+    """out = epilogue(x @ w_int) [+ bias]; x (M, K) f32, w_int (K, N) int8
+    (acc_dtype / requant / in_scale: see the module docstring)."""
     if x.shape[-1] != w_int.shape[0]:
         raise ValueError(f"quant_matmul: K mismatch {tuple(x.shape)} @ "
                          f"{tuple(w_int.shape)}")
+    kw = dict(acc_dtype=acc_dtype, requant=requant, in_scale=in_scale)
     if x.device.type == "cpu":
-        return quant_matmul_plain(x, w_int, w_scale, bias)
+        return quant_matmul_plain(x, w_int, w_scale, bias, **kw)
     return _launch("quant_matmul", x, w_int, w_scale, bias, w_int.shape[0],
-                   packed=False)
+                   packed=False, **kw)
 
 
 def quant_matmul_int4(x: torch.Tensor, w_packed: torch.Tensor, w_scale,
                       bias: Optional[torch.Tensor] = None, *,
-                      acc_dtype=torch.float32, requant=None) -> torch.Tensor:
-    """out = (x @ unpack(w_packed)) * w_scale [+ bias]; w_packed (K/2, N)."""
-    _unported(acc_dtype, requant)
+                      acc_dtype=torch.float32,
+                      requant: Optional[IntRequant] = None,
+                      in_scale=None) -> torch.Tensor:
+    """out = epilogue(x @ unpack(w_packed)) [+ bias]; w_packed (K/2, N)."""
     if x.shape[-1] != 2 * w_packed.shape[0]:
         raise ValueError(f"quant_matmul_int4: K mismatch {tuple(x.shape)} @ "
                          f"packed {tuple(w_packed.shape)}")
+    kw = dict(acc_dtype=acc_dtype, requant=requant, in_scale=in_scale)
     if x.device.type == "cpu":
-        return quant_matmul_int4_plain(x, w_packed, w_scale, bias)
+        return quant_matmul_int4_plain(x, w_packed, w_scale, bias, **kw)
     return _launch("quant_matmul_int4", x, w_packed, w_scale, bias,
-                   x.shape[-1], packed=True)
+                   x.shape[-1], packed=True, **kw)

@@ -20,9 +20,10 @@ outside the lock, then atomically swaps it in and flushes the
 still-queued old-model requests through the old plan.
 
 Every interval timestamp is ``time.monotonic()``; the metric names are the
-reference's.  Request tracing (``tracer=``) and the load-time cost report
-(``report_cost=True``) need ``obs/trace.py`` and ``analysis/``, which are
-not ported yet, and raise ``NotImplementedError``.
+reference's.  ``report_cost=True`` (the default, as in the reference) logs
+the analysis tier's inference cost of the served model at each load.
+Request tracing (``tracer=``) needs ``obs/trace.py``, which is not ported
+yet, and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -103,20 +104,24 @@ class CompiledGraphEngine:
 
     def __init__(self, graph, *, max_batch: int = 8, use_int4: bool = True,
                  pipeline: bool = True, telemetry_window: int = 2048,
-                 tracer=None, report_cost: bool = False, device=None):
+                 tracer=None, report_cost: bool = True,
+                 use_analysis: bool = True, device=None):
+        """``use_analysis`` (the port's own knob, forwarded to
+        ``compile_graph``) False serves the declared-bit-width
+        fp32-epilogue plans instead of the analysis-driven integer ones."""
         if tracer is not None:
             raise NotImplementedError(
                 "tracer= needs obs/trace.py: ROADMAP.md A14")
-        if report_cost:
-            raise NotImplementedError(
-                "report_cost=True needs the analysis tier: ROADMAP.md A7")
         from repro_torch.core.executor import resolve_device
         self.device = resolve_device(device)
         self.max_batch = max_batch
         self.queue: list[GraphRequest] = []
         self._lock = threading.RLock()
         self.pipeline = pipeline
-        self._compile_kw = dict(use_int4=use_int4, device=self.device)
+        self._compile_kw = dict(use_int4=use_int4, use_analysis=use_analysis,
+                                device=self.device)
+        self._report_cost = report_cost
+        self.cost_report = None
         self.n_completed = 0
         self.n_flushes = 0
         self.n_deadline_misses = 0
@@ -183,6 +188,37 @@ class CompiledGraphEngine:
                 self.sample_shape = tuple(g.inputs[0].shape[1:])
             if pending and old_state is not None:
                 self._run_requests(pending, old_state)
+            # cost telemetry stays inside the reload mutex, so racing
+            # reloads cannot leave cost_report describing a retired model
+            self.cost_report = None
+            if self._report_cost:
+                self._log_cost(g, new_plan)
+
+    def _log_cost(self, g, plan) -> None:
+        """The analysis tier's inference cost of the served model, logged
+        once at load; it reuses the plan's GraphAnalysis.  Cost is
+        telemetry, not a gate: a failure is logged, not raised."""
+        try:
+            from repro_torch.analysis import infer_cost
+            self.cost_report = infer_cost(g, ga=plan.analysis)
+            gstats = plan.grouped_conv_stats()
+            rq = plan.requant_stats()
+            log.info(
+                "loaded %s: %d layers, %s MACs, %.3g BOPs, %s weight bits, "
+                "%.1f KiB traffic/inference, fused=%s (%d conv segments on "
+                "kernels, %d grouped/depthwise reclaiming %s MACs + %s "
+                "carrier bytes vs block-diagonal, integer requant %d/%d, "
+                "interp=%s)",
+                g.name, len(self.cost_report.layers),
+                f"{self.cost_report.macs:,}", self.cost_report.bops,
+                f"{int(self.cost_report.total_weight_bits):,}",
+                self.cost_report.total_mem_bytes / 1024,
+                plan.fused_counts, self.conv_segments_fused,
+                gstats["grouped_segments"], f"{gstats['reclaimed_macs']:,}",
+                f"{gstats['carrier_bytes_saved']:,}", rq["int32_segments"],
+                rq["kernel_segments"], plan.interp_op_counts())
+        except Exception:
+            log.exception("cost analysis failed for %s", g.name)
 
     def _serving_state(self) -> tuple:
         """Consistent (plan, names, shape) snapshot, taken under the lock."""

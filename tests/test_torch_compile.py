@@ -6,9 +6,12 @@ activation is a small multiple of a dyadic step and every weight a small
 integer; each float32 partial sum of a layer is then exactly
 representable (|sum| < 2**24 grid steps), whatever order the reference's
 dot or the port's sums it in.  The reference plan is compiled as
-``compile_graph(use_analysis=False, use_fusion=False)``, the tier this
-slice ports.
+``compile_graph(use_analysis=False, use_fusion=False)``, the fp32-epilogue
+tier the first slice ported; the port's plans here pass
+``use_analysis=False`` too.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -22,9 +25,13 @@ from repro.models import zoo as rzoo  # noqa: E402
 from repro_torch.core import GraphBuilder as TBuilder  # noqa: E402
 from repro_torch.core import execute as t_execute  # noqa: E402
 from repro_torch.core import transforms as ttr  # noqa: E402
-from repro_torch.core.compile import compile_graph as t_compile  # noqa: E402
+from repro_torch.core.compile import compile_graph  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.models import zoo as tzoo  # noqa: E402
+
+# the fp32-epilogue tier these tests hold; the analysis-driven integer
+# default of compile_graph is held by tests/test_torch_requant.py
+t_compile = functools.partial(compile_graph, use_analysis=False)
 
 TFC = ["TFC-w1a1", "TFC-w1a2", "TFC-w2a2"]
 
@@ -142,8 +149,8 @@ def test_use_kernels_false_is_all_interpreted():
 
 
 @pytest.mark.parametrize("kw,exc,item", [
-    ({"use_analysis": True}, NotImplementedError, "A7"),
-    ({"use_integer_requant": True}, NotImplementedError, "A8"),
+    ({"tune": "search"}, NotImplementedError, "A15"),
+    ({"use_fusion": True, "use_analysis": True}, NotImplementedError, "A11"),
     ({"use_fusion": True}, NotImplementedError, "A11"),
     ({"tune": "cached"}, NotImplementedError, "A15"),
     ({"mesh": "auto"}, NotImplementedError, "A16"),

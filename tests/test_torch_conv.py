@@ -16,6 +16,8 @@ reference's ``jnp.mean`` (which XLA computes as the sum times the float32
 reciprocal of the count) on a 7x7 map, where the count 49 is not a power
 of two.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -31,11 +33,15 @@ from repro.models import zoo as rzoo  # noqa: E402
 from repro_torch.core import GraphBuilder as TBuilder  # noqa: E402
 from repro_torch.core import execute as t_execute  # noqa: E402
 from repro_torch.core import transforms as ttr  # noqa: E402
-from repro_torch.core.compile import compile_graph as t_compile  # noqa: E402
+from repro_torch.core.compile import compile_graph  # noqa: E402
 from repro_torch.core.lowering import rules_for  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import quant_conv as tconv  # noqa: E402
 from repro_torch.models import zoo as tzoo  # noqa: E402
+
+# the fp32-epilogue tier these tests hold; the analysis-driven integer
+# default of compile_graph is held by tests/test_torch_requant.py
+t_compile = functools.partial(compile_graph, use_analysis=False)
 
 # the reference's census of its use_analysis=False, use_fusion=False plans
 CNV_CENSUS = {

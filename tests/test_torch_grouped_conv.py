@@ -23,6 +23,8 @@ so the same graph with each conv's gain raised by a power of two
 (``zoo.rescale_conv_gains``: same integer weights, dyadic scales) is held
 bit-exact too, with live activations through all 27 convs.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -38,11 +40,15 @@ from repro.models import zoo as rzoo  # noqa: E402
 from repro_torch.core import GraphBuilder as TBuilder  # noqa: E402
 from repro_torch.core import execute as t_execute  # noqa: E402
 from repro_torch.core import transforms as ttr  # noqa: E402
-from repro_torch.core.compile import compile_graph as t_compile  # noqa: E402
+from repro_torch.core.compile import compile_graph  # noqa: E402
 from repro_torch.core.lowering import MAX_BLOCKED_GROUPS  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import quant_grouped_conv as tgc  # noqa: E402
 from repro_torch.models import zoo as tzoo  # noqa: E402
+
+# the fp32-epilogue tier these tests hold; the analysis-driven integer
+# default of compile_graph is held by tests/test_torch_requant.py
+t_compile = functools.partial(compile_graph, use_analysis=False)
 
 MODES = ("ROUND", "CEIL", "FLOOR", "UP", "DOWN", "HALF_UP", "HALF_DOWN",
          "ROUND_TO_ZERO")

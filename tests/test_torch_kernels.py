@@ -170,10 +170,19 @@ def test_pack_int4_rejects_odd_k():
 
 
 def test_unported_matmul_options_raise():
+    """Every body is ported; what raises is an option no body takes."""
+    from repro_torch.kernels.requant import IntRequant
     x, w = torch.zeros(2, 4), torch.zeros(4, 3, dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tops.quant_matmul(x, w, 1.0, acc_dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="B3"):
-        tops.quant_matmul_int4(x, w[:2], 1.0, requant=object())
+    with pytest.raises(ValueError, match="acc_dtype"):
+        tops.quant_matmul(x, w, 1.0, acc_dtype=torch.float16)
+    with pytest.raises(ValueError, match="needs acc_dtype=torch.int32"):
+        tops.quant_matmul_int4(x, w[:2], 1, requant=IntRequant(shift=1))
+    with pytest.raises(TypeError, match="IntRequant"):
+        tops.quant_matmul(x, w, 1, acc_dtype=torch.int32, requant=object())
+    with pytest.raises(ValueError, match="in_scale"):
+        tops.quant_matmul(x, w, 1.0, in_scale=0.5)
+    with pytest.raises(ValueError, match="out of range"):
+        tops.quant_matmul(x, w, 1, acc_dtype=torch.int32,
+                          requant=IntRequant(shift=1, act_shift=40))
     with pytest.raises(ValueError, match="K mismatch"):
         tops.quant_matmul(x, w[:3], 1.0)

@@ -10,6 +10,9 @@ B4 and B6 are bit-exact (B6's twin sums its taps in the kernel's order);
 B1/B2/B5 are bit-exact on dyadic activations, where every float32 partial
 sum is exact in any summation order.
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -181,3 +184,120 @@ def test_conv_wrappers_reject_bad_inputs(cuda):
         tops.quant_grouped_matmul(xg, wg.cpu(), 1.0)
     with pytest.raises(ValueError):
         tops.quant_grouped_matmul(xg.double(), wg, 1.0)
+
+
+# --------------------------------------------- the integer bodies (B3)
+
+def _chip_smoke():
+    """chip_smoke.py, whose phase 2 runs the same integer cases."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# None (the int32 body with the float32 epilogue), B3 without an act Quant
+# (ReLU off and on), and B3 with one in every rounding mode at act_shift
+# -3, 0 and 5, zero points, ReLU and signed / unsigned / narrow bounds
+# varying
+INT_SPECS = _chip_smoke().int_specs()
+IN_SCALE = 3 * 2.0 ** -5
+
+
+def _int_case(rng, spec, shape, n, per_channel):
+    """(x, scale or multipliers, body keyword arguments) of one case: x is
+    q * IN_SCALE on the B3 body, which divides it back, and q itself on
+    the int32 body with the float32 epilogue."""
+    q = rng.randint(-8, 9, shape).astype(np.float32)
+    k = n if per_channel else 1
+    if spec is None:
+        s = (2.0 ** -rng.randint(2, 6, k)).astype(np.float32)
+        return torch.from_numpy(q), torch.from_numpy(s), \
+            dict(acc_dtype=torch.int32)
+    mult = (2 * rng.randint(0, 5, k) + 1).astype(np.int32)
+    return torch.from_numpy(q * np.float32(IN_SCALE)), torch.from_numpy(mult), \
+        dict(acc_dtype=torch.int32, requant=spec, in_scale=IN_SCALE)
+
+
+def _on(dev, *ts):
+    return [None if t is None else t.to(dev) for t in ts]
+
+
+@pytest.mark.parametrize("spec", range(len(INT_SPECS)))
+@pytest.mark.parametrize("int4", [False, True])
+def test_matmul_integer_body_matches_twin(cuda, int4, spec):
+    rng = np.random.RandomState(spec)
+    fn = tops.quant_matmul_int4 if int4 else tops.quant_matmul
+    for m, k, n in ((37, 130, 70), (256, 784, 64), (5, 64, 10)):
+        x, s, kw = _int_case(rng, INT_SPECS[spec], (m, k), n, spec % 2 == 1)
+        w = torch.from_numpy(_weights(spec, k, n, -8 if int4 else -127,
+                                      7 if int4 else 127))
+        if int4:
+            w = tops.pack_int4(w)
+        b = torch.randn(n) if spec % 5 == 0 else None
+        want = fn(x, w, s, b, **kw)
+        got = fn(*_on(cuda, x, w, s, b), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("spec", range(0, len(INT_SPECS), 4))
+@pytest.mark.parametrize("int4", [False, True])
+def test_grouped_matmul_integer_body_matches_twin(cuda, int4, spec):
+    rng = np.random.RandomState(100 + spec)
+    for g, m, kg, ng in ((8, 100, 72, 8), (3, 65, 18, 33)):
+        x, s, kw = _int_case(rng, INT_SPECS[spec], (g, m, kg), g * ng,
+                             spec % 2 == 0)
+        w = torch.from_numpy(rng.randint(-7, 8, (g, kg, ng)).astype(np.int8))
+        if int4:
+            w = tops.pack_int4_grouped(w)
+        want = tops.quant_grouped_matmul(x, w, s, packed=int4, **kw)
+        got = tops.quant_grouped_matmul(*_on(cuda, x, w, s), packed=int4,
+                                        **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("spec", range(len(INT_SPECS)))
+def test_depthwise_integer_body_matches_twin(cuda, spec):
+    rng = np.random.RandomState(200 + spec)
+    c = 37
+    x, s, kw = _int_case(rng, INT_SPECS[spec], (2, c, 11, 10), c,
+                         spec % 2 == 1)
+    taps = torch.from_numpy(rng.randint(-7, 8, (9, c)).astype(np.int8))
+    args = [x, taps, s]
+    if INT_SPECS[spec] is None:          # the fused float32 epilogue
+        args += [None, torch.tensor(0.25), torch.tensor(1.0)]
+        kw.update(relu=True, act_bits=4, act_signed=False)
+    for geo in (dict(strides=(1, 1), pads=(1, 1, 1, 1), dilations=(1, 1)),
+                dict(strides=(2, 2), pads=(2, 0, 1, 1), dilations=(2, 2))):
+        want = tops.quant_depthwise_conv2d(*args, kernel_shape=(3, 3), **geo,
+                                           **kw)
+        got = tops.quant_depthwise_conv2d(*_on(cuda, *args),
+                                          kernel_shape=(3, 3), **geo, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+
+
+def test_integer_accumulators_at_the_limit(cuda):
+    """Sums just below 2**24, the lowering's exactness bound."""
+    k = 1040
+    for int4, wmax in ((False, 127), (True, 7)):
+        qmax = (2 ** 24 - 1) // (k * wmax)
+        w = torch.full((k, 8), wmax, dtype=torch.int8)
+        q = torch.full((2, k), float(qmax))
+        q[1] = -qmax
+        wk = tops.pack_int4(w) if int4 else w
+        fn = tops.quant_matmul_int4 if int4 else tops.quant_matmul
+        for spec in INT_SPECS[:3]:
+            x = q if spec is None else q * IN_SCALE
+            kw = dict(acc_dtype=torch.int32) if spec is None else \
+                dict(acc_dtype=torch.int32, requant=spec, in_scale=IN_SCALE)
+            s = torch.ones(1, dtype=torch.float32 if spec is None
+                           else torch.int32)
+            want = fn(x, wk, s, **kw)
+            got = fn(*_on(cuda, x, wk, s), **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want)
+            assert float(want.abs().max()) > 2 ** 23 * 2.0 ** -9

@@ -132,11 +132,24 @@ def test_metric_names_match_the_reference():
             "serve_deadline_misses_total"} <= names
 
 
-@pytest.mark.parametrize("kw,item", [({"tracer": object()}, "A14"),
-                                     ({"report_cost": True}, "A7")])
+@pytest.mark.parametrize("kw,item", [({"tracer": object()}, "A14")])
 def test_unported_engine_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         _engine(**kw)
+
+
+def test_report_cost_logs_the_cost_at_load(caplog):
+    """report_cost=True (the default) logs the analysis tier's cost of the
+    served model at load, from the plan's own GraphAnalysis."""
+    with caplog.at_level("INFO", logger="repro_torch.serve"):
+        eng = _engine()
+    rep = eng.cost_report
+    assert rep is not None and len(rep.layers) == 4 and rep.macs == 59_008
+    assert eng.plan.analysis is not None
+    assert any("loaded TFC-w2a2" in r.getMessage() and
+               "integer requant 4/4" in r.getMessage()
+               for r in caplog.records)
+    assert _engine(report_cost=False).cost_report is None
 
 
 def test_serves_nchw_requests_of_a_conv_graph():
