@@ -27,7 +27,10 @@ printing a result:
    act Quant on and off, act_shift -3 / 0 / 5, zero points, signed,
    unsigned and narrow bounds, per-tensor and per-channel multipliers,
    ragged shapes, the int32 body with the float32 epilogue, and sums just
-   below 2^24;
+   below 2^24.  Last B7 (flash_attention) against its twin at qwen2-1.5B's
+   heads (12 over 2 KV heads, hd 128) and olmo-1B's (16 over 16), S in
+   {1, 17, 512, 2048, 2047}, B in {1, 4}, causal and not, float32 (within
+   2e-5, abs + rel) and bf16 (within one bf16 step, or 2e-5 near zero);
 3. the main path on the float32-epilogue tier (``use_analysis=False``),
    each graph built by the port's zoo, compiled on CUDA and held against
    the port's oracle on the CPU with the reference's segment census:
@@ -65,14 +68,26 @@ printing a result:
    operands where its shape rules allow, the epilogue not included);
    one MobileNet plan call's device time by kernel name (torch.profiler)
    and the device's busy share, on each path; then each engine's requests
-   per second.
+   per second;
+6. the LM serving path: first qwen2's SMOKE config on the card against
+   the CPU (prefill logits, greedy tokens); then qwen2-1.5B at full width
+   (28 layers, W8A8 with an 8-bit KV cache, bf16 activations, seeded
+   weights): (a) a B=4, S=2048 prefill with exactly 28 B7 launches, held
+   against the same prefill on the plain attention; (b) the launcher's
+   traffic (8 requests, 16 new tokens, slots of 4) and the same with
+   prompts of 512-2048 tokens through GenerationEngine, tokens per second,
+   one slot of each held against greedy_generate;
+7. LM timings: B7 at the prefill's attention shape (bf16 and float32)
+   beside its twin, F.scaled_dot_product_attention and its bound; prefill
+   and decode-step wall times; one decode step by kernel name.
 
 Launch counts are reset just before phase 3 and read just after phase 4,
-and again around phases 3' and 4'; every kernel of each path must have
-launched there.  The last lines are the card, a JSON line of per-kernel
+again around phases 3' and 4', and around phase 6 (a) and (b); every
+kernel of each path must have launched there.  The last lines are the card, a JSON line of per-kernel
 numbers (summed over one MobileNet-224 forward of 8 rows; B5 over the
-grouped conv; the integer rows named ``<kernel>/int32``) and the JSON
-result line.  It imports nothing of JAX and nothing of the JAX package
+grouped conv; the integer rows named ``<kernel>/int32``; B7 over one
+qwen2-1.5B prefill at B=4, S=2048, its launches those of phase 6 (b))
+and the JSON result line.  It imports nothing of JAX and nothing of the JAX package
 ``repro``.
 """
 from __future__ import annotations
@@ -84,11 +99,13 @@ import sys
 import time
 import traceback
 from pathlib import Path
+from unittest import mock
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM bf16 on the tensor cores, dense
 TFC_LAYERS = [(784, 64), (64, 64), (64, 64), (64, 10)]
 M_TIMED = 256
 SLOT = 8                       # MobileNet-224 rows per plan call / slot
@@ -98,6 +115,7 @@ REPLACES = {
     "quant_dequant": "src/repro/kernels/quant_dequant.py:126",
     "quant_grouped_matmul": "src/repro/kernels/quant_grouped_conv.py:218",
     "quant_depthwise_conv2d": "src/repro/kernels/quant_grouped_conv.py:392",
+    "flash_attention": "src/repro/kernels/flash_attention.py:94",
 }
 SOURCES = {
     "quant_matmul": "src/repro_torch/kernels/csrc/quant_matmul.cu",
@@ -105,7 +123,11 @@ SOURCES = {
     "quant_dequant": "src/repro_torch/kernels/csrc/quant_dequant.cu",
     "quant_grouped_matmul": "src/repro_torch/kernels/csrc/quant_grouped_conv.cu",
     "quant_depthwise_conv2d": "src/repro_torch/kernels/csrc/quant_grouped_conv.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
+# the kernels of the zoo's compiled path (phases 3 + 4); B7 runs on the LM path
+ZOO_KERNELS = ("quant_matmul", "quant_matmul_int4", "quant_dequant", "quant_grouped_matmul",
+               "quant_depthwise_conv2d")
 # the reference's census (use_analysis=False, use_fusion=False)
 CENSUS = {
     ("TFC-w2a2", True): {"quant_dequant": 4, "quant_matmul_int4": 4, "interp": 3},
@@ -419,6 +441,62 @@ def check_depthwise(ops, torch, np, dev, err):
              zp=0.0)
         n_cases += 1
     err["quant_depthwise_conv2d"] = 0.0
+    return n_cases
+
+
+# ------------------------------------------------ phase 2, B7 flash attention
+
+FA_TOL = 2e-5    # float32: the bound of the reference's tests/test_flash_attention.py
+# (H, KV, hd): qwen2-1.5B's GQA (G = 6) and olmo-1B's G = 1
+FA_SHAPES = {"qwen2": (12, 2, 128), "olmo": (16, 16, 128)}
+
+
+def _bf16_steps(torch, a, b):
+    """Distance in bf16 steps between two bf16 tensors."""
+    def key(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (key(a) - key(b)).abs()
+
+
+def check_flash_attention(ops, torch, dev, err):
+    """B7 against its twin at qwen2's and olmo's head shapes, S in {1, 17,
+    512, 2048, 2047}, B in {1, 4}, causal and not, float32 and bf16, q, k
+    and v as the model passes them (transposed views of (B, S, H, hd)).
+    float32: within FA_TOL (abs + rel).  bf16: within one bf16 step of the
+    twin, or within FA_TOL where both round a near-zero float32 value (the
+    two sum in other orders before their one rounding to bf16).  Returns
+    the number of cases."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    n_cases, worst_steps = 0, 0
+    for label, (H, KV, hd) in FA_SHAPES.items():
+        for S in (1, 17, 512, 2048, 2047):
+            for B in (1, 4):
+                for dtype in (torch.float32, torch.bfloat16):
+                    q, k, v = (torch.randn(B, S, h, hd, generator=g, device=dev)
+                               .to(dtype).transpose(1, 2) for h in (H, KV, KV))
+                    for causal in (True, False):
+                        got = ops.flash_attention(q, k, v, causal=causal)
+                        want = ops.flash_attention_plain(q, k, v, causal=causal)
+                        torch.cuda.synchronize()
+                        diff = (got.float() - want.float()).abs()
+                        if dtype == torch.float32:
+                            ok = diff <= FA_TOL + FA_TOL * want.abs()
+                        else:
+                            steps = _bf16_steps(torch, got, want)
+                            ok = (steps <= 1) | (diff <= FA_TOL)
+                            worst_steps = max(worst_steps, int(steps[diff > FA_TOL].max())
+                                              if bool((diff > FA_TOL).any()) else 0)
+                        if not bool(ok.all()):
+                            raise AssertionError(
+                                f"flash_attention {label} B={B} S={S} {dtype} causal={causal}: "
+                                f"{int((~ok).sum())} entries beyond the bound, max diff "
+                                f"{float(diff.max())}")
+                        err["flash_attention"] = max(err["flash_attention"], float(diff.max()))
+                        n_cases += 1
+    print(f"flash_attention vs twin: {n_cases} cases, max abs diff "
+          f"{err['flash_attention']:.3e} (bf16 entries beyond {FA_TOL}: at most "
+          f"{worst_steps} bf16 step apart)", flush=True)
     return n_cases
 
 
@@ -1265,6 +1343,325 @@ def report(rows, launches, err, label):
     return kernels
 
 
+# ---------------------------------------------------- phase 6: the LM path
+
+LM_ARCH = "qwen2-1.5b"
+LM_B, LM_S = 4, 2048           # the prefill of (a), and the timed attention shape
+LM_NEW = 16                    # the launcher's --max-new-tokens
+# qwen2-1.5B at full width: layers, d_model, heads, KV heads, head_dim, d_ff, vocab
+LM_SHAPE = (28, 1536, 12, 2, 128, 8960, 151936)
+# Relative L2 bound on the last-token logits of B7's prefill against the
+# plain attention's (the reference's chunked_attention).  The two differ
+# only in the order of float32 sums inside the attention, so a bf16 output
+# moves by one step here and there; under W8A8 such a step can move a code
+# of the next fake quant (a bf16 x / s above 64 has steps of 0.5: half the
+# codes sit on ties), and the flips compound over 28 layers.  Each bound
+# lies between the sound reading and the smallest planted-fault reading
+# (planted_faults: a causal mask one key late reads 0.23 and 0.17 on the
+# H100, a wrong head map, scale or a missing mask about 1.3-1.4).
+LM_REL_L2 = {"w8a8kv8": 0.15, "fp32": 0.05}
+LM_FAULTS = ("mask one key late", "kv heads swapped", "no 1/sqrt(hd)", "no causal mask")
+# card against CPU on the SMOKE config (float32 activations): the B7 path
+# there sums in another order than the CPU twin, at float32 precision
+LM_SMALL_REL_L2 = 1e-4
+
+
+def _lm_recipe():
+    from repro_torch.quantize.config import QuantRecipe
+    return QuantRecipe.w_a(8.0, 8.0, kv_cache_bits=8.0)     # the launcher's default
+
+
+def _finite(torch, t, shape, what):
+    if tuple(t.shape) != tuple(shape) or not bool(torch.isfinite(t).all()):
+        raise AssertionError(f"{what}: shape {tuple(t.shape)} (want {tuple(shape)}) "
+                             f"or non-finite values")
+
+
+def lm_small_check(torch, dev):
+    """qwen2's SMOKE config (2 layers, d 64, hd 16), float32 activations,
+    one seeded init on the CPU copied to the card: prefill logits on the
+    card within LM_SMALL_REL_L2 of the CPU's (the CPU path is the one the
+    tests hold against the reference) and greedy tokens equal, under the
+    FP32 recipe and under W8A8 with the 8-bit KV cache."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import api
+    from repro_torch.quantize.config import FP32
+    from repro_torch.serve import greedy_generate
+    for recipe in (FP32, _lm_recipe()):
+        cfg = get_smoke_config(LM_ARCH).replace(quant=recipe)
+        p_cpu = api.init_params(3, cfg, "cpu")
+        p_dev = api.init_params(3, cfg, "cpu").to(dev)
+        toks = torch.randint(1, cfg.vocab, (3, 9), generator=torch.Generator().manual_seed(4),
+                             dtype=torch.int32)
+        want, _ = api.prefill(p_cpu, {"tokens": toks}, cfg, 17)
+        got, _ = api.prefill(p_dev, {"tokens": toks.to(dev)}, cfg, 17)
+        rel = float((got.cpu() - want).norm() / want.norm())
+        t_cpu = greedy_generate(p_cpu, cfg, {"tokens": toks}, 8)
+        t_dev = greedy_generate(p_dev, cfg, {"tokens": toks.to(dev)}, 8).cpu()
+        same = float((t_cpu == t_dev).float().mean())
+        print(f"lm small check [{cfg.name}, {recipe.tag()}]: card vs CPU prefill logits rel-L2 "
+              f"{rel:.3e} (bound {LM_SMALL_REL_L2}), greedy tokens equal on {same:.3f} of "
+              f"{t_cpu.numel()}", flush=True)
+        if rel > LM_SMALL_REL_L2 or not torch.equal(t_cpu, t_dev):
+            raise AssertionError(f"LM small check {recipe.tag()}: card differs from CPU")
+
+
+def _pad_left(torch, prompts):
+    """The engine's slot batch: prompts left-padded with token 0."""
+    S = max(len(p) for p in prompts)
+    toks = torch.zeros((len(prompts), S), dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        toks[i, S - len(p):] = torch.as_tensor(p, dtype=torch.int32)
+    return toks
+
+
+def _check_slot(torch, params, cfg, prompts, results, dev, label):
+    """The engine's tokens of one slot against greedy_generate on the same
+    left-padded batch (the same kernels at the same shapes: equal)."""
+    from repro_torch.serve import greedy_generate
+    want = greedy_generate(params, cfg, {"tokens": _pad_left(torch, prompts).to(dev)},
+                           LM_NEW).cpu()
+    got = torch.stack(results)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: engine tokens differ from greedy_generate")
+
+
+def _faulty(orig, fault):
+    """The plain attention with one planted fault, as a wrong B7 would
+    compute it."""
+    def attn(q, k, v, **kw):
+        if fault == "mask one key late":          # query i also sees key i+1
+            kw["q_offset"] += 1
+        elif fault == "kv heads swapped":         # a wrong GQA head map
+            k, v = k.roll(1, dims=2), v.roll(1, dims=2)
+        elif fault == "no 1/sqrt(hd)":
+            q = q * float(q.shape[-1]) ** 0.5
+        elif fault == "no causal mask":
+            kw["causal"] = False
+        return orig(q, k, v, **kw)
+    return attn
+
+
+def planted_faults(torch, api, transformer, params, toks, cfg, sound, tag):
+    """The (a) comparison read again with a planted attention fault on the
+    plain path, against the sound plain prefill ``sound``: each fault must
+    land beyond LM_REL_L2, or the bound would not tell a wrong attention
+    from a sound one."""
+    for fault in LM_FAULTS:
+        with mock.patch.object(transformer, "takes_flash", lambda *a: False), \
+                mock.patch.object(transformer, "chunked_attention",
+                                  _faulty(transformer.chunked_attention, fault)):
+            bad, _ = api.prefill(params, {"tokens": toks}, cfg, LM_S)
+        rel = float((bad - sound).norm() / sound.norm())
+        top1 = float((bad.argmax(-1) == sound.argmax(-1)).float().mean())
+        print(f"lm (a) [{tag}] planted fault '{fault}': rel-L2 {rel:.4e} against the sound "
+              f"plain prefill (bound {LM_REL_L2[tag]}, must exceed it), "
+              f"top-1 agreement {top1:.2f}", flush=True)
+        if rel <= LM_REL_L2[tag]:
+            raise AssertionError(f"planted fault '{fault}' [{tag}] within the bound: {rel}")
+
+
+def run_lm_path(torch, np, dev, ops):
+    """Phase 6: qwen2-1.5B at full width (28 layers), W8A8 with the 8-bit
+    KV cache, bf16 activations, seeded weights on the card.
+    (a) prefill B=4, S=2048 with exactly 28 B7 launches and nothing else,
+        held against the same prefill on the plain attention (and again
+        without fake quant), relative L2 within LM_REL_L2, top-1 printed;
+        then the plain prefill with planted attention faults read against
+        the sound one (planted_faults);
+    (b) the launcher's traffic (``python -m repro_torch.launch.serve``:
+        8 requests of 4-11 tokens from default_rng(0), 16 new tokens, slots
+        of 4), then the same with prompts of 512-2048 tokens through
+        GenerationEngine; every result 16 tokens in the vocabulary, and
+        one slot of each held against greedy_generate.
+    Launch counts are set to 0 before (a) and before (b) and read after
+    each.  Returns (params, cfg, tokens, launches of (b))."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import api, transformer
+    from repro_torch.quantize.config import FP32
+    from repro_torch.serve import GenerationEngine
+
+    cfg = get_config(LM_ARCH).replace(quant=_lm_recipe())
+    shape = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab)
+    if shape != LM_SHAPE or cfg.dtype != "bfloat16":
+        raise AssertionError(f"{cfg.name} is not qwen2-1.5B at full width: {shape}")
+    t0 = time.perf_counter()
+    params = api.init_params(0, cfg, dev)
+    torch.cuda.synchronize()
+    print(f"lm: {cfg.name} at full width, {cfg.param_count()} float32 parameters, "
+          f"{cfg.n_layers} layers, recipe {cfg.quant.tag()}, {cfg.dtype} activations; "
+          f"seeded init on the card in {time.perf_counter() - t0:.2f} s", flush=True)
+    toks = torch.randint(1, cfg.vocab, (LM_B, LM_S), generator=torch.Generator().manual_seed(11),
+                         dtype=torch.int32).to(dev)
+
+    # (a) one prefill through B7, counted
+    ops.reset_launch_counts()
+    logits, _ = api.prefill(params, {"tokens": toks}, cfg, LM_S)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f"lm (a) prefill B={LM_B} S={LM_S}: launches {counts}", flush=True)
+    if counts["flash_attention"] != cfg.n_layers or sum(counts.values()) != cfg.n_layers:
+        raise AssertionError(f"prefill launched {counts}, want {cfg.n_layers} x B7 only")
+    _finite(torch, logits, (LM_B, cfg.vocab), "prefill logits")
+    for tag, c in (("w8a8kv8", cfg), ("fp32", cfg.replace(quant=FP32))):
+        a = logits if tag == "w8a8kv8" else api.prefill(params, {"tokens": toks}, c, LM_S)[0]
+        # every attention call on the plain path: the reference's computation
+        with mock.patch.object(transformer, "takes_flash", lambda *a: False):
+            b, _ = api.prefill(params, {"tokens": toks}, c, LM_S)
+        rel = float((a - b).norm() / b.norm())
+        top1 = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        print(f"lm (a) [{tag}]: B7 prefill vs plain-attention prefill, last-token logits "
+              f"rel-L2 {rel:.4e} (bound {LM_REL_L2[tag]}), top-1 agreement {top1:.2f} "
+              f"of {LM_B} rows", flush=True)
+        if rel > LM_REL_L2[tag]:
+            raise AssertionError(f"B7 prefill [{tag}] beyond the bound: {rel}")
+        planted_faults(torch, api, transformer, params, toks, c, b, tag)
+    del logits, a, b
+
+    # (b) the launcher's traffic, then long prompts, counted together
+    ops.reset_launch_counts()
+    short = launcher.main(["--arch", LM_ARCH])
+    rng = np.random.default_rng(0)
+    eng = GenerationEngine(params, cfg, max_batch=4)
+    t0 = time.perf_counter()
+    long_prompts = [rng.integers(1, cfg.vocab, size=rng.integers(512, 2049)) for _ in range(8)]
+    reqs = [eng.submit(p, LM_NEW) for p in long_prompts]
+    eng.run_pending()
+    dt = time.perf_counter() - t0
+    lm_launches = ops.launch_counts()
+    print(f"lm (b) launches over both traffics: {lm_launches}", flush=True)
+    if lm_launches["flash_attention"] <= 0:
+        raise AssertionError("B7 never launched on the LM serving path")
+    n_tok = sum(int(r.result.shape[0]) for r in reqs)
+    print(f"lm (b) launcher traffic ({short['requests']} requests of 4-11 tokens, slots of 4): "
+          f"{short['tokens']} tokens in {short['seconds']:.3f} s, "
+          f"{short['tokens_per_s']:.1f} tokens/s (host clock, first call included)", flush=True)
+    print(f"lm (b) long prompts ({len(reqs)} requests of "
+          f"{min(len(p) for p in long_prompts)}-{max(len(p) for p in long_prompts)} tokens, "
+          f"slots of 4): {n_tok} tokens in {dt:.3f} s, {n_tok / dt:.1f} tokens/s", flush=True)
+    for r in short["results"] + [r.result for r in reqs]:
+        if r.shape != (LM_NEW,) or int(r.min()) < 0 or int(r.max()) >= cfg.vocab:
+            raise AssertionError(f"a served result is not {LM_NEW} tokens of the vocabulary")
+    rng = np.random.default_rng(0)          # the launcher's prompts, drawn again
+    short_prompts = [rng.integers(1, cfg.vocab, size=rng.integers(4, 12)) for _ in range(8)]
+    _check_slot(torch, params, cfg, short_prompts[:4], short["results"][:4], dev,
+                "launcher slot 0")
+    _check_slot(torch, params, cfg, long_prompts[4:], [r.result for r in reqs[4:]], dev,
+                "long-prompt slot 1")
+    print("lm (b) one slot of each traffic equals greedy_generate on its padded batch",
+          flush=True)
+    return params, cfg, toks, lm_launches
+
+
+# ----------------------------------------------------- phase 7: LM timings
+
+def lm_attention_timings(torch, ops, cfg, dev):
+    """B7 at the prefill's attention shape (B=4, S=2048, qwen2's heads, the
+    model's layout), bf16 as the model runs it and float32: kernel, twin
+    and F.scaled_dot_product_attention (causal, GQA) on the same inputs,
+    beside the bound (causal FLOPs 2·B·H·S²·hd at the card's peak for the
+    input type, 989 TFLOP/s bf16 or 67 TFLOP/s float32, or q + k + v + out
+    bytes at 3.35 TB/s).  Per launch; one prefill runs n_layers launches."""
+    import torch.nn.functional as F
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    g = torch.Generator(device=dev).manual_seed(17)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn(LM_B, LM_S, h, hd, generator=g, device=dev).to(dtype)
+                   .transpose(1, 2) for h in (H, KV, KV))
+        r = _timed(ms=lambda: ops.flash_attention(q, k, v),
+                   plain_ms=lambda: ops.flash_attention_plain(q, k, v),
+                   library_ms=lambda: F.scaled_dot_product_attention(
+                       q, k, v, is_causal=True, enable_gqa=True))
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+        r["ops_ms"] = 2 * LM_B * H * LM_S ** 2 * hd / peak * 1e3
+        r["bytes_ms"] = (2 * q.numel() + 2 * k.numel()) * q.element_size() / HBM_BYTES_PER_S * 1e3
+        bound = max(r["ops_ms"], r["bytes_ms"])
+        name = str(dtype).replace("torch.", "")
+        print(f"time[lm attention {name}] B={LM_B} H={H} KV={KV} S={LM_S} hd={hd} causal, per "
+              f"launch: device kernel {r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, "
+              f"sdpa {r['library_ms']:.6f} ms, bound {bound:.6f} ms "
+              f"({'operations' if r['ops_ms'] >= r['bytes_ms'] else 'bytes'}); per eager call: "
+              f"kernel {r['call_ms']:.6f} ms, plain {r['plain_call_ms']:.6f} ms, sdpa "
+              f"{r['library_call_ms']:.6f} ms; x{cfg.n_layers} per prefill: kernel "
+              f"{cfg.n_layers * r['ms']:.6f} ms", flush=True)
+        rows[name] = r
+    return rows
+
+
+def _profile_lm(torch, run, label, wall_ms):
+    """One call of ``run`` under torch.profiler: device time by kernel name
+    and by PyTorch op, beside the call's wall time without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    by_name, by_op = {}, {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+            by_name[e.key] = (t / 1e3, e.count)
+        elif e.key.startswith("aten::"):
+            t = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+            if t > 0:
+                by_op[e.key] = (t / 1e3, e.count)
+    busy = sum(t for t, _ in by_name.values())
+    print(f"profile[{label}]: device kernels {busy:.3f} ms in "
+          f"{sum(n for _, n in by_name.values())} launches (profiler), against a median "
+          f"wall of {wall_ms:.3f} ms without it", flush=True)
+    for key, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
+        print(f"profile[{label}]:   {t:.3f} ms in {n} launches  {key[:100]}", flush=True)
+    # by PyTorch op (device time of the kernels each op launched; an op that
+    # calls another, as aten::to calls aten::copy_, repeats its time)
+    for key, (t, n) in sorted(by_op.items(), key=lambda kv: -kv[1][0])[:14]:
+        print(f"profile[{label}] op:   {t:.3f} ms in {n} calls  {key}", flush=True)
+
+
+def lm_walls(torch, params, cfg, toks, reps=3, steps=8):
+    """Prefill (B=4, S=2048) and decode-step wall times (host clock around
+    work that ends in a sync; medians), then one prefill's and one decode
+    step's device time by kernel name and by op (torch.profiler)."""
+    from repro_torch.models import api
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = api.prefill(params, {"tokens": toks}, cfg, LM_S + steps + 2)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"wall[lm prefill] B={LM_B} S={LM_S}: median {statistics.median(walls):.3f} ms over "
+          f"{reps} (each {', '.join(f'{w:.3f}' for w in walls)})", flush=True)
+    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    dwalls = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = api.decode_step(params, cache, tok, LM_S + i, cfg)
+        torch.cuda.synchronize()
+        dwalls.append((time.perf_counter() - t0) * 1e3)
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    print(f"wall[lm decode step] B={LM_B}, cache {LM_S}-{LM_S + steps - 1}: median "
+          f"{statistics.median(dwalls):.3f} ms over {steps} steps", flush=True)
+    _profile_lm(torch, lambda: api.prefill(params, {"tokens": toks}, cfg, LM_S),
+                "lm prefill", statistics.median(walls))
+    _profile_lm(torch, lambda: api.decode_step(params, cache, tok, LM_S + steps, cfg),
+                "lm decode step", statistics.median(dwalls))
+    return statistics.median(walls), statistics.median(dwalls)
+
+
+def lm_kernel_entry(rows, launches, err, cfg):
+    """The B7 entry of the kernels line: one prefill (n_layers launches) at
+    B=4, S=2048 on the model's bf16 inputs."""
+    r, L = rows["bfloat16"], cfg.n_layers
+    return dict(name="flash_attention", route="cuda", source=SOURCES["flash_attention"],
+                replaces=REPLACES["flash_attention"], launches=launches["flash_attention"],
+                max_abs_err=err["flash_attention"], ms=L * r["ms"], plain_ms=L * r["plain_ms"],
+                bound_ms=L * max(r["ops_ms"], r["bytes_ms"]),
+                bound_by="operations" if r["ops_ms"] >= r["bytes_ms"] else "bytes",
+                library_ms=L * r["library_ms"])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1300,14 +1697,15 @@ def main() -> int:
           flush=True)
     n_int = check_integer(ops, torch, np, dev, err)
     print(f"integer bodies vs twins (torch.equal): {n_int} cases", flush=True)
+    check_flash_attention(ops, torch, dev, err)
 
     # phases 3 + 4: the float32-epilogue path (use_analysis=False), counted
     ops.reset_launch_counts()
     (eng, xt), (meng, xm), (lplan, x8) = run_main_path(torch, np, dev)
     launches = ops.launch_counts()
     print(f"main-path launches (float32 epilogue): {launches}", flush=True)
-    for k, v in launches.items():
-        if v <= 0:
+    for k in ZOO_KERNELS:
+        if launches[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the main path")
 
     # phases 3 + 4 again on the integer path (compile_graph's defaults),
@@ -1316,8 +1714,8 @@ def main() -> int:
     (ieng, ixt), (imeng, ixm), (iplan, ix8) = run_integer_path(torch, np, dev)
     int_counts = ops.launch_counts()
     print(f"main-path launches (integer path): {int_counts}", flush=True)
-    for k, v in int_counts.items():
-        if v <= 0:
+    for k in ZOO_KERNELS:
+        if int_counts[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the integer path")
     launches.update({k + "/int32": int_counts[k] for k in INT_KERNELS})
 
@@ -1347,6 +1745,15 @@ def main() -> int:
             rate = requests_per_s(e, xs)
             print(f"engine[{label}]: {rate:.1f} requests/s ({model}, {len(xs)} requests per "
                   f"run_pending, median of 5)", flush=True)
+
+    # phase 6: the LM serving path (B7), counted on its own
+    lm_small_check(torch, dev)
+    params, cfg, toks, lm_launches = run_lm_path(torch, np, dev, ops)
+    launches["flash_attention"] = lm_launches["flash_attention"]
+    # phase 7: LM timings
+    rows = lm_attention_timings(torch, ops, cfg, dev)
+    kernels.append(lm_kernel_entry(rows, launches, err, cfg))
+    lm_walls(torch, params, cfg, toks)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -41,6 +41,8 @@ SIGNATURES = {
                     _I, _I] + _EPI + [_P],
     "dw_launch": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 17 + [_F, _F, _I]
     + _EPI + [_P],
+    # q, k, v, out; B, H, KV, Sq, Sk, hd, dtype, causal; scale; 12 strides
+    "fa_launch": [_P] * 4 + [_I] * 8 + [_F] + [_LL] * 12 + [_P],
 }
 
 # set by ``load`` on the build that actually ran nvcc (chip_smoke prints it)

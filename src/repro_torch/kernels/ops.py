@@ -9,9 +9,11 @@ unpack; ``pack_int4_grouped`` does the same along each group's Kg.
 """
 from __future__ import annotations
 
+from . import flash_attention as _fa
 from . import quant_dequant as _qdq
 from . import quant_grouped_conv as _gconv
 from . import quant_matmul as _qmm
+from .flash_attention import flash_attention, flash_attention_plain  # noqa: F401
 from .quant_conv import (  # noqa: F401
     extract_patches, im2col_weights, quant_conv2d)
 from .quant_dequant import quant_dequant, quant_dequant_plain  # noqa: F401
@@ -28,11 +30,12 @@ from .quant_matmul import (  # noqa: F401
 def launch_counts() -> dict:
     """Kernel launches so far, per kernel (plain-twin calls do not count)."""
     return {"quant_dequant": _qdq.launches, **_qmm.launches,
-            **_gconv.launches}
+            **_gconv.launches, "flash_attention": _fa.launches}
 
 
 def reset_launch_counts() -> None:
     _qdq.launches = 0
+    _fa.launches = 0
     for counts in (_qmm.launches, _gconv.launches):
         for k in counts:
             counts[k] = 0

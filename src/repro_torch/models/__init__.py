@@ -1,1 +1,2 @@
-"""repro_torch.models — the QONNX model zoo."""
+"""repro_torch.models — the QONNX model zoo and the LM architectures
+(dense family)."""

@@ -25,6 +25,14 @@ def _modules():
 def test_importing_every_port_module_leaves_jax_out():
     mods = _modules()
     assert "repro_torch.kernels.quant_matmul" in mods
+    # the LM serving slice: B7, the models, the recipes, serving, launcher
+    assert {"repro_torch.kernels.flash_attention", "repro_torch.core.ste",
+            "repro_torch.quantize.config", "repro_torch.quantize.layers",
+            "repro_torch.models.common", "repro_torch.models.transformer",
+            "repro_torch.models.api", "repro_torch.configs.qwen2_1_5b",
+            "repro_torch.configs.olmo_1b", "repro_torch.configs.starcoder2_3b",
+            "repro_torch.configs.starcoder2_7b", "repro_torch.serve.generation",
+            "repro_torch.launch.serve"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -51,12 +59,12 @@ def test_kernel_sources_are_cuda_cpp_for_sm90a():
     from repro_torch.kernels import _build
     csrc = PKG / "kernels" / "csrc"
     srcs = sorted(p.name for p in csrc.glob("*.cu*"))
-    assert srcs == ["int_epilogue.cuh", "qdq_round.cuh", "quant_dequant.cu",
-                    "quant_grouped_conv.cu", "quant_matmul.cu"]
+    assert srcs == ["flash_attention.cu", "int_epilogue.cuh", "qdq_round.cuh",
+                    "quant_dequant.cu", "quant_grouped_conv.cu", "quant_matmul.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert set(_build.SIGNATURES) == {"qdq_launch", "qmm_launch",
-                                      "gqmm_launch", "dw_launch"}
+                                      "gqmm_launch", "dw_launch", "fa_launch"}
     for name in _build.SIGNATURES:          # each entry point is defined
         assert any(f'extern "C" int {name}(' in p.read_text()
                    for p in csrc.glob("*.cu"))

@@ -301,3 +301,98 @@ def test_integer_accumulators_at_the_limit(cuda):
             torch.cuda.synchronize()
             assert torch.equal(got.cpu(), want)
             assert float(want.abs().max()) > 2 ** 23 * 2.0 ** -9
+
+
+# ------------------------------------------------------- B7 flash attention
+
+FA_TOL = 2e-5          # float32: the reference's own test bound
+
+
+def _bf16_ulps(a, b):
+    """Distance in bf16 steps between two bf16 tensors (same sign order)."""
+    def key(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (key(a) - key(b)).abs()
+
+
+def assert_attention_close(got, want):
+    """float32: within FA_TOL (abs + rel).  bf16: within one bf16 step of
+    the twin's result, or within FA_TOL where the two float32 sums (taken
+    in other orders) straddle more than one step near zero."""
+    got, want = got.cpu(), want.cpu()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=FA_TOL, rtol=FA_TOL)
+        return
+    near = (got.float() - want.float()).abs() <= FA_TOL
+    assert bool(((_bf16_ulps(got, want) <= 1) | near).all())
+
+
+def _qkv(seed, B, H, KV, Sq, Sk, hd, dtype, layout="bhsd"):
+    g = torch.Generator().manual_seed(seed)
+    if layout == "bshd":        # the model's (B, S, H, hd), viewed transposed
+        q = torch.randn(B, Sq, H, hd, generator=g).transpose(1, 2)
+        k = torch.randn(B, Sk, KV, hd, generator=g).transpose(1, 2)
+        v = torch.randn(B, Sk, KV, hd, generator=g).transpose(1, 2)
+    else:
+        q = torch.randn(B, H, Sq, hd, generator=g)
+        k = torch.randn(B, KV, Sk, hd, generator=g)
+        v = torch.randn(B, KV, Sk, hd, generator=g)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("H,KV", [(8, 2), (4, 4)])
+def test_flash_attention_kernel_matches_twin(cuda, dtype, hd, causal, H, KV):
+    from repro_torch.kernels import flash_attention as fa
+    for S in (1, 17, 64, 130):
+        q, k, v = _qkv(S, 2, H, KV, S, S, hd, dtype)
+        want = fa.flash_attention_plain(*_on(cuda, q, k, v), causal=causal)
+        before = fa.launches
+        got = fa.flash_attention(*_on(cuda, q, k, v), causal=causal)
+        torch.cuda.synchronize()
+        assert fa.launches == before + 1
+        assert_attention_close(got, want)
+        assert_attention_close(want, fa.flash_attention_plain(q, k, v, causal=causal)
+                               .to(cuda))
+
+
+def test_flash_attention_kernel_strided_and_ragged(cuda):
+    """Transposed (B, S, H, hd) views, a cache slice as k/v, Sq != Sk."""
+    from repro_torch.kernels import flash_attention as fa
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _qkv(7, 3, 12, 2, 75, 75, 128, dtype, layout="bshd")
+        q, k, v = _on(cuda, q, k, v)
+        got = fa.flash_attention(q, k, v)
+        assert got.stride() == q.stride()          # written in q's layout
+        assert_attention_close(got, fa.flash_attention_plain(q, k, v))
+        cache = torch.zeros(3, 90, 2, 128, dtype=dtype, device=cuda)
+        cache[:, :75] = k.transpose(1, 2)
+        kc = cache[:, :75].transpose(1, 2)         # a strided cache slice
+        assert_attention_close(fa.flash_attention(q, kc, v),
+                               fa.flash_attention_plain(q, kc, v))
+        q2, k2, v2 = _qkv(8, 1, 4, 2, 33, 100, 64, dtype)
+        for causal in (False, True):
+            assert_attention_close(
+                fa.flash_attention(*_on(cuda, q2, k2, v2), causal=causal),
+                fa.flash_attention_plain(*_on(cuda, q2, k2, v2), causal=causal))
+    torch.cuda.synchronize()
+
+
+def test_flash_attention_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _on(cuda, *_qkv(0, 1, 4, 2, 8, 8, 48, torch.float32))
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, k, v)
+    q, k, v = _on(cuda, *_qkv(0, 1, 4, 2, 8, 8, 64, torch.float16))
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_attention(q, k, v)
+    q, k, v = _on(cuda, *_qkv(0, 1, 4, 2, 8, 8, 64, torch.float32))
+    wide = torch.randn(1, 4, 8, 128, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(wide[..., ::2], k, v)
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_attention(q[:, :3], k, v)
