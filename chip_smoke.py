@@ -27,10 +27,17 @@ printing a result:
    act Quant on and off, act_shift -3 / 0 / 5, zero points, signed,
    unsigned and narrow bounds, per-tensor and per-channel multipliers,
    ragged shapes, the int32 body with the float32 epilogue, and sums just
-   below 2^24.  Last B7 (flash_attention) against its twin at qwen2-1.5B's
-   heads (12 over 2 KV heads, hd 128) and olmo-1B's (16 over 16), S in
-   {1, 17, 512, 2048, 2047}, B in {1, 4}, causal and not, float32 (within
-   2e-5, abs + rel) and bf16 (within one bf16 step, or 2e-5 near zero);
+   below 2^24; B2's int8 tensor-core body (``int8_codes=True``) with codes
+   over all of int8 at ragged M, N and K and MobileNet pointwise shapes, at
+   a power-of-two scale (the reciprocal multiply) and at IN_SCALE (the
+   exact-quotient staging), with x off the scale's grid (the division), and
+   at its own accumulator limit, each ``torch.equal`` to the twin and to
+   the IMAD body, its launches counted per body.  Last B7
+   (flash_attention; bf16 on its tensor-core body) against its twin at
+   qwen2-1.5B's heads (12 over 2 KV heads, hd 128) and olmo-1B's (16 over
+   16), S in {1, 17, 512, 2048, 2047}, B in {1, 4}, causal and not, float32
+   (within 2e-5, abs + rel) and bf16 (within one bf16 step, or 2e-5 near
+   zero);
 3. the main path on the float32-epilogue tier (``use_analysis=False``),
    each graph built by the port's zoo, compiled on CUDA and held against
    the port's oracle on the CPU with the reference's segment census:
@@ -57,7 +64,10 @@ printing a result:
    conv (B5 on int32), each with the reference's census and
    ``requant_stats()`` and bit-exact against the CPU oracle (MobileNet's
    final MatMul within the order bound); then both engines on integer
-   plans, with the load-time cost report;
+   plans, with the load-time cost report.  B2's launches are counted per
+   body around every forward: each launches B2's int8 tensor-core body
+   once per segment whose meta chose it, exactly 13 per MobileNet-224
+   forward (its pointwise convs; TFC's count is printed);
 5. timings beside each kernel's bound, its twin and one library call
    computing the same function (CUDA events, median of 30 samples of 10
    calls after warm-up; device time from a replayed CUDA graph of the 10
@@ -65,7 +75,9 @@ printing a result:
    at the shapes of one MobileNet-w4a4 forward at img 224 with 8 rows
    (B5 at the grouped conv's shape), for the float32 bodies and for the
    integer ones (their library call is ``torch._int_mm`` on the int8
-   operands where its shape rules allow, the epilogue not included);
+   operands where its shape rules allow, the epilogue not included; B2 on
+   the body the lowering picks, and its 13 MobileNet pointwise layers also
+   on the int8 body at a power-of-two scale and on the IMAD body);
    one MobileNet plan call's device time by kernel name (torch.profiler)
    and the device's busy share, on each path; then each engine's requests
    per second;
@@ -503,6 +515,10 @@ def check_flash_attention(ops, torch, dev, err):
 # ------------------------------------------------ phase 2, integer bodies
 
 IN_SCALE = 3 * 2.0 ** -5       # a dyadic activation scale that is no power of two
+# B2's int8 body: the zoo's kind of activation scale (a power of two, staged
+# by the exact reciprocal) and IN_SCALE (no power of two: the exact-quotient
+# check, else the IEEE division)
+TC_IN_SCALES = (2.0 ** -3, IN_SCALE)
 
 
 def int_specs():
@@ -590,6 +606,71 @@ def check_integer(ops, torch, np, dev, err):
             s = torch.ones_like(s)              # mult 1: acc * mult stays below 2**24
             got = fn(x, wk, s, **kw)
             same(name, got, plain(x, wk, s, **kw), f"edge {spec}")
+
+    # B2's int8 tensor-core body (int8_codes: the lowering's proof that the
+    # staged codes fit int8), equal to the twin and to the IMAD body, its
+    # launches counted per body: codes over all of int8, ragged M, N and K
+    # and MobileNet-224 pointwise shapes at 8 rows, both scale kinds (a
+    # power of two: the reciprocal multiply; IN_SCALE: the exact-quotient
+    # staging), x off the scale's grid (random values and exact halves,
+    # where the staging divides), and sums at the limit
+    before = ops.b2_body_counts()
+    n_tc = 0
+
+    def tc_case(x, wk, s, bias, kw, what):
+        nonlocal n_tc
+        got = ops.quant_matmul_int4(x, wk, s, bias, int8_codes=True, **kw)
+        same("quant_matmul_int4", got,
+             ops.quant_matmul_int4_plain(x, wk, s, bias, int8_codes=True, **kw), what)
+        same("quant_matmul_int4", ops.quant_matmul_int4(x, wk, s, bias, **kw), got,
+             what + " (IMAD body)")
+        n_tc += 1
+        return got
+
+    for m, k, n, sp in ((1, 32, 10, specs), (17, 784, 64, specs), (37, 98, 70, specs),
+                        (392, 1024, 1024, specs[:6]), (1568, 256, 512, specs[:4]),
+                        (25088, 64, 128, specs[:4])):
+        wk = ops.pack_int4(torch.from_numpy(rng.randint(-8, 8, (k, n)).astype(np.int8))).to(dev)
+        for i, spec in enumerate(sp):
+            for in_scale in TC_IN_SCALES:
+                s, kw = _body(torch, spec, n, bool(i % 2), rng, np, dev)
+                kw["in_scale"] = in_scale
+                q = rng.randint(-127, 128, (m, k)).astype(np.float32)
+                bias = torch.randn(n, generator=torch.Generator().manual_seed(i)).to(dev) \
+                    if i % 3 == 0 else None
+                tc_case(torch.from_numpy(q * np.float32(in_scale)).to(dev), wk, s, bias, kw,
+                        f"int8 body {m}x{k}x{n} in_scale={in_scale} {spec}")
+    for i, spec in enumerate(specs[:6]):
+        wk = ops.pack_int4(torch.from_numpy(rng.randint(-8, 8, (130, 40)).astype(np.int8))).to(dev)
+        q = rng.uniform(-120, 120, (70, 130))
+        q[::3] = np.round(q[::3]) + 0.5
+        for in_scale in TC_IN_SCALES:
+            s, kw = _body(torch, spec, 40, bool(i % 2), rng, np, dev)
+            kw["in_scale"] = in_scale
+            tc_case(torch.from_numpy((q * in_scale).astype(np.float32)).to(dev), wk, s, None, kw,
+                    f"int8 body, x off the grid, in_scale={in_scale} {spec}")
+    # the limit of int8 codes: -127 / 127 against -8 over K = 16510 (ragged
+    # in 32), sums of +-16,774,160, just below 2**24
+    k = 16510
+    w = torch.from_numpy(rng.randint(-8, 8, (k, 5)).astype(np.int8))
+    w[:, 0] = -8
+    wk = ops.pack_int4(w).to(dev)
+    q = rng.randint(-127, 128, (3, k)).astype(np.float32)
+    q[0], q[1] = -127, 127
+    for spec in specs[:3]:
+        for in_scale in TC_IN_SCALES:
+            s, kw = _body(torch, spec, 5, False, np.random.RandomState(0), np, dev)
+            kw["in_scale"] = in_scale
+            what = f"int8 body at the limit, in_scale={in_scale} {spec}"
+            got = tc_case(torch.from_numpy(q * np.float32(in_scale)).to(dev), wk,
+                          torch.ones_like(s), None, kw, what)
+            if spec is None and float(got.abs().max()) != 16774160.0:
+                raise AssertionError(f"{what}: the sums did not reach the limit")
+    after = ops.b2_body_counts()
+    if after["int8_mma"] - before["int8_mma"] != n_tc or \
+            after["imad"] - before["imad"] != n_tc:
+        raise AssertionError(f"B2 body launches {before} -> {after} for {n_tc} int8 cases")
+    n_cases["quant_matmul_int4 (int8 body)"] = n_tc
 
     # B5: the grouped conv's shape and ragged ones, int8 and int4
     g8, m8 = GCONV["groups"], GCONV["n"] * GCONV["img"] ** 2
@@ -877,6 +958,24 @@ def _check_int_plan(plan, key, ops, before, needs):
     return {k: after[k] - before[k] for k in after}
 
 
+MOBILENET_INT8_BODIES = 13     # B2 int8 tensor-core launches per MobileNet-224 forward
+
+
+def check_b2_bodies(ops, plan, before, forwards, label, exact=None):
+    """B2's launches per body since ``before`` (``ops.b2_body_counts()``):
+    each forward launches the int8 tensor-core body once per segment whose
+    meta chose it (``exact`` of them, where given); returns the counts."""
+    after = ops.b2_body_counts()
+    got = {k: after[k] - before[k] for k in after}
+    per_fwd = sum(s.meta.get("b2_body") == "int8_mma" for s in plan.segments)
+    if exact is not None and per_fwd != exact:
+        raise AssertionError(f"{label}: {per_fwd} segments chose B2's int8 body, not {exact}")
+    if got["int8_mma"] != forwards * per_fwd:
+        raise AssertionError(f"{label}: {got['int8_mma']} int8-body B2 launches in "
+                             f"{forwards} forwards, not {forwards} x {per_fwd}")
+    return got
+
+
 def run_integer_path(torch, np, dev):
     """Phases 3 + 4 on the integer path: compile_graph's defaults (the
     analysis tier and B3), every model bit-exact against the CPU oracle
@@ -898,8 +997,10 @@ def run_integer_path(torch, np, dev):
         x = xs[key[:3]]
         before = ops.launch_counts()
         plan = compile_graph(g, device=dev)
+        bodies = ops.b2_body_counts()
         out = plan({"x": x})[plan.graph.output_names[0]]
         torch.cuda.synchronize()
+        bodies = check_b2_bodies(ops, plan, bodies, 1, key)
         ref = _oracle(g, x, key=key)[g.output_names[0]]
         if tuple(out.shape) != (x.shape[0], 10) or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"{key} (int): bad output {tuple(out.shape)}")
@@ -910,21 +1011,25 @@ def run_integer_path(torch, np, dev):
         rq = plan.requant_stats()
         print(f"integer path {key}: bit-exact vs oracle, requant {rq['int32_segments']}/"
               f"{rq['kernel_segments']} int32 segments, fused_counts={plan.fused_counts}, "
-              f"launches={launched}", flush=True)
+              f"launches={launched}, B2 launches by body {bodies}", flush=True)
 
     x16 = np.random.RandomState(13).randn(2 * SLOT, 3, 224, 224).astype(np.float32)
     g = zoo.build_mobilenet(4, 4, img=224)
     before = ops.launch_counts()
     plan = compile_graph(g, device=dev)
+    bodies = ops.b2_body_counts()
     out = plan({"x": x16[:SLOT]})[g.output_names[0]]
     torch.cuda.synchronize()
+    bodies = check_b2_bodies(ops, plan, bodies, 1, "MobileNet-224 (zoo, int)",
+                             exact=MOBILENET_INT8_BODIES)
     if not torch.equal(out.cpu(), _oracle(g, x16[:SLOT], key="MobileNet-w4a4")[
             g.output_names[0]]):
         raise AssertionError("MobileNet-224 (zoo, int): compiled CUDA plan differs from "
                              "the oracle")
     launched = _check_int_plan(plan, "MobileNet-w4a4", ops, before, needs["Mob"])
     print(f"integer path MobileNet-w4a4 img 224 (zoo weights), {SLOT} rows: bit-exact vs the "
-          f"CPU oracle; requant 27/28 int32 segments; launches={launched}", flush=True)
+          f"CPU oracle; requant 27/28 int32 segments; launches={launched}; B2 launches by "
+          f"body {bodies}", flush=True)
 
     live = zoo.rescale_conv_gains(zoo.build_mobilenet(4, 4, img=224))
     oracle = _oracle(live, x16, return_all=True, key="MobileNet-w4a4 rescaled")
@@ -939,9 +1044,12 @@ def run_integer_path(torch, np, dev):
     rows = []
     for i in (0, SLOT):
         env = {"x": to_tensor(x16[i:i + SLOT], dev)}
+        bodies = ops.b2_body_counts()
         for seg in iplan.segments:          # the plan's own loop, keeping env
             seg.run(iplan.consts, env)
         torch.cuda.synchronize()
+        check_b2_bodies(ops, iplan, bodies, 1, "MobileNet-224 (rescaled, int)",
+                        exact=MOBILENET_INT8_BODIES)
         if not torch.equal(env[pre].cpu(), oracle[pre][i:i + SLOT]):
             raise AssertionError("MobileNet-224 (int): the plan differs from the oracle "
                                  f"before the final MatMul ({pre})")
@@ -984,8 +1092,10 @@ def run_integer_path(torch, np, dev):
         raise AssertionError("TFC engine: not on the integer path, or no cost report")
     xt = np.random.RandomState(3).randn(64, 784).astype(np.float32)
     reqs = [eng.submit(r) for r in xt]
+    bodies = ops.b2_body_counts()
     if eng.run_pending() != 64:
         raise AssertionError("run_pending did not run 64 requests")
+    bodies = check_b2_bodies(ops, eng.plan, bodies, 4, "TFC-w2a2 engine (int)")
     got = np.stack([r.wait() for r in reqs])
     if not np.array_equal(got, _oracle(tfc, xt, key="serve TFC")[
             tfc.output_names[0]].numpy()):
@@ -995,7 +1105,8 @@ def run_integer_path(torch, np, dev):
             tfc.output_names[0]].numpy()):
         raise AssertionError("engine(x) on the integer path differs from the oracle")
     rep = eng.cost_report
-    print(f"serving TFC-w2a2 on the integer path: 64 requests via run_pending + one 40-row "
+    print(f"serving TFC-w2a2 on the integer path: 64 requests via run_pending (4 slots of 16; "
+          f"B2 launches by body {bodies}) + one 40-row "
           f"call, all rows bit-exact vs the CPU oracle; cost report at load: "
           f"{len(rep.layers)} layers, {rep.macs} MACs, {rep.bops:.6g} BOPs, "
           f"{int(rep.total_weight_bits)} weight bits", flush=True)
@@ -1005,8 +1116,11 @@ def run_integer_path(torch, np, dev):
             meng.cost_report is None:
         raise AssertionError("MobileNet engine: not on the integer path, or no cost report")
     reqs = [meng.submit(r) for r in x16]
+    bodies = ops.b2_body_counts()
     if meng.run_pending() != 2 * SLOT:
         raise AssertionError(f"run_pending did not run {2 * SLOT} requests")
+    bodies = check_b2_bodies(ops, meng.plan, bodies, 2, "MobileNet-224 engine (int)",
+                             exact=MOBILENET_INT8_BODIES)
     served = torch.from_numpy(np.stack([r.wait() for r in reqs]))
     ragged = torch.from_numpy(meng(x16[3:8]))
     if not torch.equal(served, out) or not torch.equal(ragged, out[3:8]):
@@ -1015,7 +1129,8 @@ def run_integer_path(torch, np, dev):
         raise AssertionError("served MobileNet rows beyond the oracle's order bound")
     rep = meng.cost_report
     print(f"serving MobileNet-w4a4 img 224 (rescaled) on the integer path: {2 * SLOT} "
-          f"requests in {SLOT}-row slots + one ragged 5-row call, every row bit-exact vs "
+          f"requests in {SLOT}-row slots (B2 launches by body {bodies}) + one ragged 5-row "
+          f"call, every row bit-exact vs "
           f"the plan (whose rows are bit-exact vs the CPU oracle through the pool) and "
           f"within the oracle's order bound; cost report at load: {len(rep.layers)} "
           f"layers, {rep.macs} MACs, {int(rep.total_weight_bits)} weight bits", flush=True)
@@ -1169,17 +1284,31 @@ def _timing_spec():
                       act_hi=15, act_out_shift=3, rounding_mode="ROUND")
 
 
-def _int_matmul_row(ops, torch, dev, g, m, k, n, int4, shape):
+def _int_matmul_row(ops, torch, dev, g, m, k, n, int4, shape, int8_codes=False,
+                    in_scale=IN_SCALE, spec=_timing_spec):
+    """One integer-body row; for B2 ``int8_codes`` picks the int8 tensor-core
+    body (else IMAD), ``in_scale`` the staging division (IN_SCALE) or the
+    exact reciprocal multiply (a power of two), and ``spec`` the epilogue
+    (B3 by default; None: the float32 epilogue over the same int32 sums)."""
     q = torch.randint(-8, 9, (m, k), generator=g, dtype=torch.int8)
-    x = (q.float() * IN_SCALE).to(dev)
+    x = (q.float() * in_scale).to(dev)
     w = torch.randint(-8 if int4 else -127, 8 if int4 else 128, (k, n), generator=g,
                       dtype=torch.int8)
     wk = (ops.pack_int4(w) if int4 else w).to(dev)
     mult = torch.randint(0, 5, (n,), generator=g, dtype=torch.int32).mul(2).add(1).to(dev)
-    kw = dict(acc_dtype=torch.int32, requant=_timing_spec(), in_scale=IN_SCALE)
+    kw = dict(acc_dtype=torch.int32, in_scale=in_scale)
+    if spec is not None:
+        kw["requant"] = spec()
+    else:
+        mult = mult.float().mul(2.0 ** -6)
+    if int8_codes:
+        kw["int8_codes"] = True
     fn = ops.quant_matmul_int4 if int4 else ops.quant_matmul
     plain = ops.quant_matmul_int4_plain if int4 else ops.quant_matmul_plain
-    fns = dict(ms=lambda: fn(x, wk, mult, **kw), plain_ms=lambda: plain(x, wk, mult, **kw))
+    # the twin's int8-fit check reads its result on the host, which a CUDA
+    # graph cannot capture: the twin is timed without it (same arithmetic)
+    plain_kw = {key: v for key, v in kw.items() if key != "int8_codes"}
+    fns = dict(ms=lambda: fn(x, wk, mult, **kw), plain_ms=lambda: plain(x, wk, mult, **plain_kw))
     if _int_mm_ok(m, k, n):
         q8, w8 = q.to(dev), w.to(dev)
         fns["library_ms"] = lambda: torch._int_mm(q8, w8)
@@ -1192,18 +1321,29 @@ def _int_matmul_row(ops, torch, dev, g, m, k, n, int4, shape):
     return row
 
 
+B2_INT8 = "quant_matmul_int4/int32 (int8 body, power-of-two scale)"
+B2_INT8_F32 = "quant_matmul_int4/int32 (int8 body, power-of-two scale, float32 epilogue)"
+B2_IMAD = "quant_matmul_int4/int32 (IMAD body)"
+
+
 def int_timings(ops, torch, dev):
     """The integer bodies (B3 epilogue) at the shapes of one TFC forward at
     M = M_TIMED and of one MobileNet-w4a4 forward at img 224 with SLOT rows
     (the 27 int32 segments; the final MatMul stays float32); B5 at the
-    grouped conv's shape."""
+    grouped conv's shape.  B2 takes the body the lowering picks: IMAD for
+    TFC's first layer (8-bit input codes), the int8 tensor-core body
+    elsewhere, at IN_SCALE (the division).  Beside them, in ``b2``, the 13
+    MobileNet pointwise layers on the int8 body at a power-of-two scale
+    (the reciprocal multiply) and on the IMAD body (the PR 13 body)."""
     g = torch.Generator().manual_seed(25)
     tfc = {k + "/int32": [] for k in INT_KERNELS}
-    for k, n in TFC_LAYERS:
+    for i, (k, n) in enumerate(TFC_LAYERS):
         for int4 in (False, True):
             tfc[("quant_matmul_int4" if int4 else "quant_matmul") + "/int32"].append(
-                _int_matmul_row(ops, torch, dev, g, M_TIMED, k, n, int4, f"{M_TIMED}x{k}x{n}"))
+                _int_matmul_row(ops, torch, dev, g, M_TIMED, k, n, int4, f"{M_TIMED}x{k}x{n}",
+                                int8_codes=int4 and i > 0))
     mob = {k + "/int32": [] for k in INT_KERNELS}
+    b2 = {B2_INT8: [], B2_INT8_F32: [], B2_IMAD: []}
     spec = _timing_spec()
     for kind, cin, cout, stride, h in _mobilenet_layers():
         ho = (h - 1) // stride + 1
@@ -1213,8 +1353,15 @@ def int_timings(ops, torch, dev):
                 ops, torch, dev, g, m, 27, cout, False, f"{m}x27x{cout}"))
         elif kind == "pw":
             m = SLOT * h * h
+            shape = f"{m}x{cin}x{cout}"
             mob["quant_matmul_int4/int32"].append(_int_matmul_row(
-                ops, torch, dev, g, m, cin, cout, True, f"{m}x{cin}x{cout}"))
+                ops, torch, dev, g, m, cin, cout, True, shape, int8_codes=True))
+            b2[B2_INT8].append(_int_matmul_row(ops, torch, dev, g, m, cin, cout, True, shape,
+                                               int8_codes=True, in_scale=TC_IN_SCALES[0]))
+            b2[B2_INT8_F32].append(_int_matmul_row(ops, torch, dev, g, m, cin, cout, True,
+                                                   shape, int8_codes=True,
+                                                   in_scale=TC_IN_SCALES[0], spec=None))
+            b2[B2_IMAD].append(_int_matmul_row(ops, torch, dev, g, m, cin, cout, True, shape))
         else:
             x = (torch.randint(-8, 9, (SLOT, cin, h, h), generator=g).float()
                  * IN_SCALE).to(dev)
@@ -1249,7 +1396,7 @@ def int_timings(ops, torch, dev):
         bytes_ms=(4 * m * grp * kg + grp * kg * ng // 2 + 4 * c + 4 * m * c)
         / HBM_BYTES_PER_S * 1e3,
         ops_ms=2 * m * grp * kg * ng / INT8_OPS * 1e3))
-    return tfc, mob
+    return tfc, mob, b2
 
 
 def profile_forward(torch, plan, x, label, reps=5):
@@ -1713,7 +1860,8 @@ def main() -> int:
     ops.reset_launch_counts()
     (ieng, ixt), (imeng, ixm), (iplan, ix8) = run_integer_path(torch, np, dev)
     int_counts = ops.launch_counts()
-    print(f"main-path launches (integer path): {int_counts}", flush=True)
+    print(f"main-path launches (integer path): {int_counts}; B2 by body "
+          f"{ops.b2_body_counts()}", flush=True)
     for k in ZOO_KERNELS:
         if int_counts[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the integer path")
@@ -1728,12 +1876,19 @@ def main() -> int:
     kernels = report(rows, launches, err, f"MobileNet-224 N={SLOT}")
     print(f"(sums above: one MobileNet-w4a4 forward at img 224 with {SLOT} rows; "
           "B5 over the grouped conv's one layer)", flush=True)
-    tfc_int, mob_int = int_timings(ops, torch, dev)
+    tfc_int, mob_int, b2_rows = int_timings(ops, torch, dev)
     report(tfc_int, launches, err, "TFC M=256, integer")
     print("(sums above: one TFC forward at M=256 on the integer bodies)", flush=True)
     kernels += report(mob_int, launches, err, f"MobileNet-224 N={SLOT}, integer")
     print(f"(sums above: the 27 int32 segments of one MobileNet-w4a4 forward at img 224 "
-          f"with {SLOT} rows; B5 over the grouped conv's one layer)", flush=True)
+          f"with {SLOT} rows, B2 on its int8 tensor-core body at IN_SCALE; B5 over the "
+          f"grouped conv's one layer)", flush=True)
+    b2_launches = {k: launches["quant_matmul_int4/int32"] for k in b2_rows}
+    report(b2_rows, b2_launches, {k: err["quant_matmul_int4/int32"] for k in b2_rows},
+           f"MobileNet-224 N={SLOT}, integer, B2 bodies")
+    print("(sums above: B2's 13 pointwise layers on the int8 body at a power-of-two scale, "
+          "with B3 and with the float32 epilogue, and on the IMAD body at IN_SCALE, timed in "
+          "the same run)", flush=True)
     profile_forward(torch, lplan, x8, "float32 epilogue")
     profile_forward(torch, iplan, ix8, "integer path")
     walls_in_turns(torch, {"float32 epilogue": lplan, "integer path": iplan}, x8)

@@ -59,6 +59,8 @@ class RequantPlan:
     mult     — int32 ``M_x * M_w`` multipliers, () or per-channel (O,)
     spec     — static ``IntRequant`` (kernels/requant.py) for the epilogue
     acc_bits — minimal signed accumulator width of the ``q - z`` domain dot
+    int8_codes — every staged code ``q - z`` lies in [-127, 127]
+               (``amax <= 127``), so B2 may take its int8 tensor-core body
     fp32_ops_eliminated — per-call fp32 epilogue ops the path removes: the
                dequant multiply, the fused relu max, and the 6-op requant
                chain (div, add-zp, round, clamp, sub-zp, mul), one per
@@ -69,6 +71,7 @@ class RequantPlan:
     spec: object
     acc_bits: int
     fp32_ops_eliminated: int
+    int8_codes: bool = False
 
 
 def _scalar_int(a) -> Optional[int]:
@@ -204,6 +207,7 @@ def select_requant(ctx: LoweringContext, g: QonnxGraph, node: Node, match,
     match.requant = RequantPlan(
         in_scale=np.float32(np.asarray(s_x, np.float32).reshape(())),
         mult=mult.astype(np.int32), spec=IntRequant(**spec_kwargs),
-        acc_bits=acc_bits, fp32_ops_eliminated=eliminated)
+        acc_bits=acc_bits, fp32_ops_eliminated=eliminated,
+        int8_codes=bool(amax <= 127))
     match.acc_dtype = torch.int32
     match.acc_bits = acc_bits

@@ -45,12 +45,14 @@ class KernelMatch(Match):
 
     def body(self) -> dict:
         """The kernel body this match selected, as keyword arguments of the
-        kernel wrappers: the accumulator, the IntRequant spec and the
-        activation scale the integer path divides x by."""
+        kernel wrappers: the accumulator, the IntRequant spec, the
+        activation scale the integer path divides x by, and whether its
+        staged codes are proven to fit int8 (B2's tensor-core body)."""
         rq = self.requant
         return dict(acc_dtype=self.acc_dtype,
                     requant=None if rq is None else rq.spec,
-                    in_scale=None if rq is None else float(rq.in_scale))
+                    in_scale=None if rq is None else float(rq.in_scale),
+                    int8_codes=rq is not None and rq.int8_codes)
 
 
 def stage_kernel_carriers(idx: int, m: KernelMatch, consts: dict, ctx,
@@ -63,8 +65,9 @@ def stage_kernel_carriers(idx: int, m: KernelMatch, consts: dict, ctx,
     plan's device under the segment's ``__seg{idx}_*`` keys.  ``pack``
     replaces the (K, N) int4 packer for carriers of another layout (the
     grouped rule packs along each group's Kg).  The segment meta records
-    the accumulator, the requant path and, when the shapes are known, the
-    kernel's rows (``m.rows``).
+    the accumulator, the requant path, B2's body (``b2_body``) when the
+    segment runs B2 (the (K, N) int4 carrier) and, when the shapes are
+    known, the kernel's rows (``m.rows``).
 
     Returns ``(kind, use_int4, w_key, s_key, b_key_or_None, meta)`` where
     ``kinds`` is the (int8, int4) segment-kind pair.
@@ -90,6 +93,9 @@ def stage_kernel_carriers(idx: int, m: KernelMatch, consts: dict, ctx,
         meta["acc_bits"] = m.acc_bits
     if m.requant is not None:
         meta["fp32_ops_eliminated"] = m.requant.fp32_ops_eliminated
+    if use_int4 and pack is None:
+        from repro_torch.kernels.quant_matmul import b2_body
+        meta["b2_body"] = b2_body(m.acc_dtype, m.body()["int8_codes"])
     if m.rows is not None:
         meta["rows"] = m.rows
     return (kind, use_int4, w_key, s_key,

@@ -37,6 +37,10 @@ _EPI = [_I, _F, _P, _F]
 SIGNATURES = {
     "qdq_launch": [_P, _P, _P, _P, _LL, _I, _I, _I, _F, _F, _I, _I, _P],
     "qmm_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + _EPI + [_P],
+    # B2 on the int8 tensor cores: M, K, N, s_stride, epi; in_div, in_mul;
+    # rq; out_mul
+    "qmm_i8_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _F,
+                      _P],
     "gqmm_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL,
                     _I, _I] + _EPI + [_P],
     "dw_launch": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 17 + [_F, _F, _I]

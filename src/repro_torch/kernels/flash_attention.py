@@ -11,13 +11,25 @@ causal mask is the reference's: key j is visible to query i when j <= i.
 Unlike the reference, Sq and Sk need not be multiples of a block: the
 kernel masks the ragged edge itself.
 
-Bound on the card: operations (4·hd per visible (query, key) pair, on
-the float32 CUDA cores).  The design (one block per 64-row query tile,
-head and batch, key tiles of 64 staged in shared memory, the online
-softmax in registers) is in the source.  Every tensor is read through
-its strides with a contiguous last dimension, so the model hands over
-transposed views of its (B, S, H, hd) activations and its KV cache
-without a copy, and the output is written in q's memory layout.
+Bound on the card: operations, 4·hd per visible (query, key) pair.  Two
+bodies (design in the source):
+
+  * bfloat16: both products on the bf16 tensor cores (``mma.sync``,
+    float32 accumulation), the online softmax on the accumulator
+    fragments in registers, K and V tiles double-buffered in shared
+    memory by 16-byte ``cp.async`` copies so that the next tile's loads
+    overlap this tile's products.  The scale, log2(e) folded in,
+    multiplies the float32 scores after the dot (the softmax takes exp2),
+    and P enters P·V as two bf16 parts (hi + lo), so the result stays
+    within one bf16 step of the twin.  The copies need every row of q,
+    k, v and the output on 16 bytes: the wrapper raises on a base
+    address or a stride (of a dimension longer than 1) that breaks it.
+  * float32: both products on the float32 CUDA cores (no TF32).
+
+Every tensor is read through its strides with a contiguous last
+dimension, so the model hands over transposed views of its (B, S, H, hd)
+activations and its KV cache without a copy, and the output is written
+in q's memory layout.
 
 On a CPU tensor the wrapper runs ``flash_attention_plain``, the same
 online softmax in PyTorch over the kernel's key tiles; on a CUDA tensor
@@ -48,6 +60,20 @@ def _check_shapes(q, k, v) -> None:
     if k.shape[0] != B or k.shape[3] != hd or H % k.shape[1]:
         raise ValueError(f"k / v {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)} (H must be a multiple of KV)")
+
+
+def _check_rows_aligned(*tensors) -> None:
+    """The bf16 body copies rows in 16-byte pieces: every row of every
+    tensor must start on 16 bytes (a base address and strides of
+    dimensions longer than 1 in whole 16-byte units)."""
+    for t in tensors:
+        unit = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(
+                n > 1 and st % unit for n, st in zip(t.shape[:3], t.stride()[:3])):
+            raise ValueError(
+                "flash_attention (bfloat16): every row must start on 16 bytes; "
+                f"got strides {tuple(t.stride())} at address offset "
+                f"{t.data_ptr() % 16}")
 
 
 def flash_attention_plain(q, k, v, *, causal=True, block=BLOCK_K) -> torch.Tensor:
@@ -88,7 +114,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Returns (B, H, Sq, hd) in q's dtype.  On CUDA: float32 or bfloat16
     (all three alike), hd in ``HEAD_DIMS``, last dimension contiguous
-    (any other strides)."""
+    (any other strides; for bfloat16 every row on 16 bytes)."""
     global launches
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
@@ -112,6 +138,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)            # q's layout when q is dense
     if out.stride(-1) != 1:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if q.dtype == torch.bfloat16:
+        _check_rows_aligned(q, k, v, out)
     if out.numel() == 0 or Sk == 0:
         return out.zero_()
     lib = load()

@@ -23,8 +23,8 @@ from .quant_grouped_conv import (  # noqa: F401
     quant_grouped_conv2d, quant_grouped_matmul, quant_grouped_matmul_plain,
     unpack_int4_grouped)
 from .quant_matmul import (  # noqa: F401
-    pack_int4, quant_matmul, quant_matmul_int4, quant_matmul_int4_plain,
-    quant_matmul_plain, unpack_int4)
+    exact_reciprocal, pack_int4, quant_matmul, quant_matmul_int4,
+    quant_matmul_int4_plain, quant_matmul_plain, unpack_int4)
 
 
 def launch_counts() -> dict:
@@ -33,9 +33,16 @@ def launch_counts() -> dict:
             **_gconv.launches, "flash_attention": _fa.launches}
 
 
+def b2_body_counts() -> dict:
+    """B2's launches so far per body: ``f32``, ``imad`` (int32 on the CUDA
+    cores) and ``int8_mma`` (int32 on the int8 tensor cores)."""
+    return dict(_qmm.body_launches)
+
+
 def reset_launch_counts() -> None:
+    """Zero every launch count, B2's per-body counts included."""
     _qdq.launches = 0
     _fa.launches = 0
-    for counts in (_qmm.launches, _gconv.launches):
+    for counts in (_qmm.launches, _qmm.body_launches, _gconv.launches):
         for k in counts:
             counts[k] = 0

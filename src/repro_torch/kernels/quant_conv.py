@@ -119,7 +119,7 @@ def quant_conv2d(x: torch.Tensor, w2: torch.Tensor, w_scale,
                  bias: Optional[torch.Tensor] = None, *, kernel_shape,
                  strides=(1, 1), pads=(0, 0, 0, 0), dilations=(1, 1),
                  packed: bool = False, acc_dtype=torch.float32, requant=None,
-                 in_scale=None) -> torch.Tensor:
+                 in_scale=None, int8_codes: bool = False) -> torch.Tensor:
     """Fused quantized conv: im2col patches through B1 / B2.
 
     x        — (N, C, H, W) activations (cast to float32)
@@ -128,14 +128,15 @@ def quant_conv2d(x: torch.Tensor, w2: torch.Tensor, w_scale,
     w_scale  — dequant scale, scalar or per output channel (O,); the int32
                multipliers with ``requant``
     bias     — optional (O,) float32
-    acc_dtype / requant / in_scale — the kernel's body (``quant_matmul``);
-               the zero padding divides to 0 on the integer path too
+    acc_dtype / requant / in_scale / int8_codes — the kernel's body
+               (``quant_matmul``); the zero padding divides to 0 on the
+               integer path too
     Returns (N, O, OH, OW) float32, contiguous."""
     x = x.to(torch.float32)
     patches, (oh, ow) = extract_patches(x, kernel_shape, strides, pads,
                                         dilations)
     mm = quant_matmul_int4 if packed else quant_matmul
     y = mm(patches, w2, w_scale, bias, acc_dtype=acc_dtype, requant=requant,
-           in_scale=in_scale)
+           in_scale=in_scale, int8_codes=int8_codes)
     return y.reshape(x.shape[0], oh, ow, y.shape[-1]).permute(0, 3, 1, 2) \
         .contiguous()

@@ -150,7 +150,8 @@ def quant_grouped_matmul_plain(xg, wg, w_scale, bias=None, *,
 def quant_grouped_matmul(xg: torch.Tensor, wg: torch.Tensor, w_scale,
                          bias: Optional[torch.Tensor] = None, *,
                          packed: bool = False, acc_dtype=torch.float32,
-                         requant=None, in_scale=None) -> torch.Tensor:
+                         requant=None, in_scale=None,
+                         int8_codes: bool = False) -> torch.Tensor:
     """Per-group integer matmul: out[g] = (xg[g] @ wg[g]) · s[g] [+ b[g]].
 
     xg: (G, M, Kg) float32, any group / row strides with unit stride along
@@ -159,7 +160,9 @@ def quant_grouped_matmul(xg: torch.Tensor, wg: torch.Tensor, w_scale,
         when ``packed``;
     w_scale: scalar or (G·Ng,) group-major per-output-channel scale;
     bias: optional (G·Ng,) float32, added after the epilogue;
-    acc_dtype / requant / in_scale: the body, as ``quant_matmul``'s.
+    acc_dtype / requant / in_scale: the body, as ``quant_matmul``'s;
+    int8_codes is accepted (the lowering passes it to every body) and B5
+    keeps its body.
     Returns (G, M, Ng) float32.  On CUDA its memory is laid out (M, G, Ng),
     so ``out.permute(1, 0, 2).reshape(M, G·Ng)`` is a view."""
     name = "quant_grouped_matmul"
@@ -203,7 +206,8 @@ def quant_grouped_conv2d(x: torch.Tensor, wg: torch.Tensor, w_scale,
                          kernel_shape, strides=(1, 1), pads=(0, 0, 0, 0),
                          dilations=(1, 1), packed: bool = False,
                          acc_dtype=torch.float32, requant=None,
-                         in_scale=None) -> torch.Tensor:
+                         in_scale=None,
+                         int8_codes: bool = False) -> torch.Tensor:
     """Fused grouped quantized conv: per-group im2col onto B5.
 
     x      — (N, C, H, W) activations (cast to float32)
@@ -211,7 +215,8 @@ def quant_grouped_conv2d(x: torch.Tensor, wg: torch.Tensor, w_scale,
              per-group int4 packing (G, Kg//2, Ng) when ``packed``
     w_scale — scalar or group-major per-output-channel (O,)
     bias   — optional (O,) float32
-    acc_dtype / requant / in_scale — B5's body (``quant_grouped_matmul``)
+    acc_dtype / requant / in_scale / int8_codes — B5's body
+             (``quant_grouped_matmul``)
     Returns (N, O, OH, OW) float32, contiguous."""
     x = x.to(torch.float32)
     patches, (oh, ow) = extract_patches(x, kernel_shape, strides, pads,
@@ -286,7 +291,8 @@ def quant_depthwise_conv2d(x: torch.Tensor, w_taps: torch.Tensor, w_scale,
                            act_narrow: bool = False,
                            act_rounding: str = "ROUND",
                            acc_dtype=torch.float32, requant=None,
-                           in_scale=None) -> torch.Tensor:
+                           in_scale=None,
+                           int8_codes: bool = False) -> torch.Tensor:
     """Fused depthwise quantized conv (``group == C``, multiplier 1).
 
     x          — (N, C, H, W) activations (float32; contiguous on CUDA)
@@ -300,6 +306,8 @@ def quant_depthwise_conv2d(x: torch.Tensor, w_taps: torch.Tensor, w_scale,
                  or scalars; rounding and bounds are B4's.
     acc_dtype / requant / in_scale — the body, as ``quant_matmul``'s; with
                  ``requant`` the IntRequant is the whole epilogue.
+    int8_codes — accepted (the lowering passes it to every body); B6
+                 keeps its body.
     Returns (N, C, OH, OW) float32."""
     name = "quant_depthwise_conv2d"
     mode = act_rounding.upper()

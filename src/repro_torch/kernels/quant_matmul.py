@@ -31,14 +31,37 @@ tile and loops over K itself; the weight tile is staged in shared memory,
 and B2 unpacks the nibbles while staging, so device memory serves only
 the packed bytes.  Ragged edges are masked, with no padding copies.
 
+B2's integer body has a second form on the int8 tensor cores, taken when
+the caller passes ``int8_codes=True``: the lowering's proof
+(``RequantPlan.int8_codes``) that every staged code ``q - z`` lies in
+[-127, 127].  Its bound is bytes (MobileNet-224's pointwise layers need
+0.0044 ms of int8 tensor-core work and 0.0448 ms to move x and the output
+once), but at 8 rows its layers give few blocks with many K steps, so its
+design (in the source) shortens each step's chain of latencies: 16-byte
+``cp.async`` copies of x and the packed weights into a ring of raw
+stages, each converted once per block to int8 codes in shared memory
+while the previous step's ``mma.sync`` products run, one barrier a step,
+and the B3 epilogue on 32-bit integers where that is exact.  The staging
+keeps the IEEE division's bits: when ``in_scale`` is a power of two whose
+reciprocal is a finite normal float32 (``exact_reciprocal``) it
+multiplies by that reciprocal; otherwise a quotient that is exactly an
+integer is staged without dividing and any other x is divided.  Integer
+sums are exact, so both integer forms equal the twin bit for bit.  With
+the proof the twin raises on a staged code outside int8, so a wrong proof
+shows on the CPU.  ``int8_codes`` without ``acc_dtype=torch.int32``
+raises; B1 accepts the keyword (the lowering passes it to every body) and
+keeps its body.  ``body_launches`` counts B2's launches per body.
+
 On CPU tensors the wrappers run the plain twins (``*_plain``); on CUDA
 tensors they launch the kernel or raise.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ._build import check, load
@@ -46,6 +69,31 @@ from .quant_dequant import ROUNDING_MODE_IDS
 from .requant import IntRequant, int_epilogue_plain
 
 launches = {"quant_matmul": 0, "quant_matmul_int4": 0}
+# B2's launches per body: the float32 dot, the int32 dot on the CUDA cores
+# (IMAD) and the int32 dot on the int8 tensor cores
+body_launches = {"f32": 0, "imad": 0, "int8_mma": 0}
+
+
+def b2_body(acc_dtype, int8_codes: bool) -> str:
+    """The body B2 runs for these arguments (a key of ``body_launches``)."""
+    if acc_dtype != torch.int32:
+        return "f32"
+    return "int8_mma" if int8_codes else "imad"
+
+
+def exact_reciprocal(scale) -> Optional[float]:
+    """``1 / scale`` when multiplying by it gives the bits of dividing by
+    ``scale`` for every float32 x: ``scale`` a power of two (either sign)
+    whose reciprocal is a finite normal float32.  Both then round the
+    same real number ``x · 2^-e`` once.  Else None."""
+    s = np.float32(scale)
+    if not np.isfinite(s) or s == 0 or abs(math.frexp(float(s))[0]) != 0.5:
+        return None
+    r = float(s) ** -1
+    f32 = np.finfo(np.float32)
+    if not float(f32.tiny) <= abs(r) <= float(f32.max):
+        return None
+    return r
 
 
 def pack_int4(w_int: torch.Tensor) -> torch.Tensor:
@@ -165,14 +213,31 @@ def quant_matmul_plain(x, w_int, w_scale, bias=None, *,
     return plain_epilogue(acc, w_scale, bias, acc_dtype, requant, (-1,))
 
 
-def quant_matmul_int4_plain(x, w_packed, w_scale, bias=None,
+def _check_int8_codes(x, acc_dtype, in_scale) -> None:
+    """With ``int8_codes`` promised, every staged code must fit int8."""
+    if acc_dtype != torch.int32:
+        raise ValueError("quant_matmul_int4: int8_codes=True needs "
+                         "acc_dtype=torch.int32")
+    v = int_values(x, in_scale)
+    if v.numel() and (float(v.min()) < -128 or float(v.max()) > 127):
+        raise ValueError("quant_matmul_int4: int8_codes=True, but a staged "
+                         f"code lies in [{float(v.min()):g}, "
+                         f"{float(v.max()):g}], outside [-128, 127]")
+
+
+def quant_matmul_int4_plain(x, w_packed, w_scale, bias=None, *,
+                            int8_codes: bool = False,
                             **kw) -> torch.Tensor:
-    """Plain twin of B2: unpack the nibbles, then the B1 twin."""
+    """Plain twin of B2: unpack the nibbles, then the B1 twin; with
+    ``int8_codes`` it first checks that every staged code fits int8."""
+    if int8_codes:
+        _check_int8_codes(x, kw.get("acc_dtype", torch.float32),
+                          kw.get("in_scale"))
     return quant_matmul_plain(x, unpack_int4(w_packed), w_scale, bias, **kw)
 
 
 def _launch(name, x, w, w_scale, bias, k, packed, acc_dtype, requant,
-            in_scale) -> torch.Tensor:
+            in_scale, int8_codes=False) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
     if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():
@@ -191,22 +256,33 @@ def _launch(name, x, w, w_scale, bias, k, packed, acc_dtype, requant,
         if t.device != x.device:
             raise ValueError(f"{name}: every operand must lie on {x.device}")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    err = load().qmm_launch(
-        x.data_ptr(), w.data_ptr(), s.data_ptr(),
-        None if b is None else b.data_ptr(), out.data_ptr(), m, k, n,
-        int(s.numel() > 1), int(packed), epi, in_div, rq, out_mul,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    check(err, "qmm_launch")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    bias_ptr = None if b is None else b.data_ptr()
+    if int8_codes:
+        err = load().qmm_i8_launch(
+            x.data_ptr(), w.data_ptr(), s.data_ptr(), bias_ptr, out.data_ptr(),
+            m, k, n, int(s.numel() > 1), epi, in_div,
+            exact_reciprocal(in_div) or 0.0, rq, out_mul, stream)
+        check(err, "qmm_i8_launch")
+    else:
+        err = load().qmm_launch(
+            x.data_ptr(), w.data_ptr(), s.data_ptr(), bias_ptr, out.data_ptr(),
+            m, k, n, int(s.numel() > 1), int(packed), epi, in_div, rq, out_mul,
+            stream)
+        check(err, "qmm_launch")
     launches[name] += 1
+    if packed:
+        body_launches[b2_body(acc_dtype, int8_codes)] += 1
     return out
 
 
 def quant_matmul(x: torch.Tensor, w_int: torch.Tensor, w_scale,
                  bias: Optional[torch.Tensor] = None, *,
                  acc_dtype=torch.float32, requant: Optional[IntRequant] = None,
-                 in_scale=None) -> torch.Tensor:
+                 in_scale=None, int8_codes: bool = False) -> torch.Tensor:
     """out = epilogue(x @ w_int) [+ bias]; x (M, K) f32, w_int (K, N) int8
-    (acc_dtype / requant / in_scale: see the module docstring)."""
+    (acc_dtype / requant / in_scale: see the module docstring; int8_codes
+    is accepted and B1 keeps its body)."""
     if x.shape[-1] != w_int.shape[0]:
         raise ValueError(f"quant_matmul: K mismatch {tuple(x.shape)} @ "
                          f"{tuple(w_int.shape)}")
@@ -221,13 +297,19 @@ def quant_matmul_int4(x: torch.Tensor, w_packed: torch.Tensor, w_scale,
                       bias: Optional[torch.Tensor] = None, *,
                       acc_dtype=torch.float32,
                       requant: Optional[IntRequant] = None,
-                      in_scale=None) -> torch.Tensor:
-    """out = epilogue(x @ unpack(w_packed)) [+ bias]; w_packed (K/2, N)."""
+                      in_scale=None, int8_codes: bool = False) -> torch.Tensor:
+    """out = epilogue(x @ unpack(w_packed)) [+ bias]; w_packed (K/2, N).
+    ``int8_codes``: the staged codes are proven to fit int8, so the integer
+    body runs on the int8 tensor cores."""
     if x.shape[-1] != 2 * w_packed.shape[0]:
         raise ValueError(f"quant_matmul_int4: K mismatch {tuple(x.shape)} @ "
                          f"packed {tuple(w_packed.shape)}")
     kw = dict(acc_dtype=acc_dtype, requant=requant, in_scale=in_scale)
     if x.device.type == "cpu":
-        return quant_matmul_int4_plain(x, w_packed, w_scale, bias, **kw)
+        return quant_matmul_int4_plain(x, w_packed, w_scale, bias,
+                                       int8_codes=int8_codes, **kw)
+    if int8_codes and acc_dtype != torch.int32:
+        raise ValueError("quant_matmul_int4: int8_codes=True needs "
+                         "acc_dtype=torch.int32")
     return _launch("quant_matmul_int4", x, w_packed, w_scale, bias,
-                   x.shape[-1], packed=True, **kw)
+                   x.shape[-1], packed=True, int8_codes=int8_codes, **kw)

@@ -64,7 +64,8 @@ def test_kernel_sources_are_cuda_cpp_for_sm90a():
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert set(_build.SIGNATURES) == {"qdq_launch", "qmm_launch",
-                                      "gqmm_launch", "dw_launch", "fa_launch"}
+                                      "qmm_i8_launch", "gqmm_launch",
+                                      "dw_launch", "fa_launch"}
     for name in _build.SIGNATURES:          # each entry point is defined
         assert any(f'extern "C" int {name}(' in p.read_text()
                    for p in csrc.glob("*.cu"))

@@ -303,6 +303,123 @@ def test_integer_accumulators_at_the_limit(cuda):
             assert float(want.abs().max()) > 2 ** 23 * 2.0 ** -9
 
 
+# ------------------------------------------- B2 on the int8 tensor cores
+
+TC_IN_SCALES = {"pow2": 2.0 ** -3, "dyadic": IN_SCALE}
+
+
+def _tc_case(rng, spec, m, k, n, in_scale, lo=-127, hi=127):
+    """x of codes over all of int8, times in_scale; the float32 epilogue's
+    scales (spec None) or B3's odd multipliers; keyword arguments."""
+    x = torch.from_numpy((rng.randint(lo, hi + 1, (m, k)) * in_scale)
+                         .astype(np.float32))
+    if spec is None:
+        s = torch.from_numpy((2.0 ** -rng.randint(2, 6, n)).astype(np.float32))
+        return x, s, dict(acc_dtype=torch.int32, in_scale=in_scale)
+    s = torch.from_numpy((2 * rng.randint(0, 5, n) + 1).astype(np.int32))
+    return x, s, dict(acc_dtype=torch.int32, requant=spec, in_scale=in_scale)
+
+
+def _tc_against_twin_and_imad(cuda, x, w, s, b, kw):
+    from repro_torch.kernels import quant_matmul as qm
+    want = tops.quant_matmul_int4(x, w, s, b, int8_codes=True, **kw)
+    before = dict(qm.body_launches)
+    xd, wd, sd, bd = _on(cuda, x, w, s, b)
+    got = tops.quant_matmul_int4(xd, wd, sd, bd, int8_codes=True, **kw)
+    imad = tops.quant_matmul_int4(xd, wd, sd, bd, **kw)
+    torch.cuda.synchronize()
+    assert qm.body_launches["int8_mma"] == before["int8_mma"] + 1
+    assert qm.body_launches["imad"] == before["imad"] + 1
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(imad.cpu(), want)
+    return want
+
+
+@pytest.mark.parametrize("n", [10, 64, 1024])
+@pytest.mark.parametrize("k", [32, 784, 1024])
+@pytest.mark.parametrize("m", [1, 17, 392])
+def test_b2_int8_body_equals_twin_and_imad_body(cuda, m, k, n):
+    """Ragged M, N and K, both epilogues (the float32 one and B3 with an
+    act Quant), both scale kinds (a power of two: the reciprocal multiply;
+    3·2^-5: the division), with and without a bias: torch.equal."""
+    rng = np.random.RandomState(m + 3 * k + 7 * n)
+    w = tops.pack_int4(torch.from_numpy(rng.randint(-8, 8, (k, n))
+                                        .astype(np.int8)))
+    for kind, in_scale in TC_IN_SCALES.items():
+        for spec in (None, INT_SPECS[5]):
+            x, s, kw = _tc_case(rng, spec, m, k, n, in_scale)
+            b = torch.randn(n) if kind == "pow2" else None
+            _tc_against_twin_and_imad(cuda, x, w, s, b, kw)
+
+
+@pytest.mark.parametrize("spec", range(len(INT_SPECS)))
+def test_b2_int8_body_every_epilogue_and_unaligned_x(cuda, spec):
+    """Every integer spec at K = 98 (no 16-byte rows: the element-wise x
+    loads) with x starting 4 bytes past an allocation, at K = 32 (the
+    body's 32-wide K step) and at the MobileNet pointwise shape 392 x 512
+    x 1024."""
+    rng = np.random.RandomState(300 + spec)
+    for m, k, n in ((37, 98, 70), (45, 32, 64), (392, 512, 1024)):
+        x, s, kw = _tc_case(rng, INT_SPECS[spec], m, k, n,
+                            TC_IN_SCALES["pow2" if spec % 2 else "dyadic"])
+        w = tops.pack_int4(torch.from_numpy(rng.randint(-8, 8, (k, n))
+                                            .astype(np.int8)))
+        b = torch.randn(n) if spec % 5 == 0 else None
+        if k % 4 == 0:
+            _tc_against_twin_and_imad(cuda, x, w, s, b, kw)
+            continue
+        from repro_torch.kernels import quant_matmul as qm
+        xd = torch.zeros(m * k + 1, device=cuda)[1:].view(m, k)
+        xd.copy_(x)
+        assert xd.data_ptr() % 16
+        before = qm.body_launches["int8_mma"]
+        got = tops.quant_matmul_int4(xd, *_on(cuda, w, s, b), int8_codes=True,
+                                     **kw)
+        torch.cuda.synchronize()
+        assert qm.body_launches["int8_mma"] == before + 1
+        assert torch.equal(got.cpu(), tops.quant_matmul_int4(
+            x, w, s, b, int8_codes=True, **kw))
+
+
+@pytest.mark.parametrize("spec", [0, 5, 17])
+def test_b2_int8_body_off_grid_x_takes_the_division(cuda, spec):
+    """x that is no multiple of the scale (the integer path never stages
+    one): random values and exact halves of it, where the exact-quotient
+    shortcut does not hold and the body divides; equal to the twin and
+    the IMAD body."""
+    rng = np.random.RandomState(400 + spec)
+    m, k, n = 70, 130, 40
+    q = rng.uniform(-120, 120, (m, k))
+    q[::3] = np.round(q[::3]) + 0.5
+    for in_scale in TC_IN_SCALES.values():
+        x = torch.from_numpy((q * in_scale).astype(np.float32))
+        _, s, kw = _tc_case(rng, INT_SPECS[spec], m, k, n, in_scale)
+        w = tops.pack_int4(torch.from_numpy(rng.randint(-8, 8, (k, n))
+                                            .astype(np.int8)))
+        _tc_against_twin_and_imad(cuda, x, w, s, None, kw)
+
+
+def test_b2_int8_body_accumulators_at_the_limit(cuda):
+    """Codes -127 / 127 against weights -8 over K = 16510 (ragged in 32):
+    sums of +-16,774,160, just below 2**24."""
+    k = 16510
+    w = torch.from_numpy(np.random.RandomState(9).randint(-8, 8, (k, 5))
+                         .astype(np.int8))
+    w[:, 0] = -8
+    q = torch.from_numpy(np.random.RandomState(10).randint(-127, 128, (3, k))
+                         .astype(np.float32))
+    q[0], q[1] = -127.0, 127.0
+    wk = tops.pack_int4(w)
+    for spec in INT_SPECS[:3]:
+        kw = dict(acc_dtype=torch.int32, in_scale=IN_SCALE)
+        if spec is not None:
+            kw["requant"] = spec
+        s = torch.ones(1, dtype=torch.float32 if spec is None
+                       else torch.int32)
+        want = _tc_against_twin_and_imad(cuda, q * IN_SCALE, wk, s, None, kw)
+        assert float(want.abs().max()) >= 16774160 * 2.0 ** -9
+
+
 # ------------------------------------------------------- B7 flash attention
 
 FA_TOL = 2e-5          # float32: the reference's own test bound
@@ -396,3 +513,22 @@ def test_flash_attention_rejects_what_it_does_not_take(cuda):
         fa.flash_attention(wide[..., ::2], k, v)
     with pytest.raises(ValueError, match="multiple"):
         fa.flash_attention(q[:, :3], k, v)
+
+
+def test_flash_attention_bf16_rejects_rows_off_16_bytes(cuda):
+    """The bf16 body's 16-byte copies: a row stride of 132 elements (264
+    bytes) or a base 2 bytes off raises; float32 takes any stride."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _on(cuda, *_qkv(0, 1, 4, 2, 8, 8, 128, torch.bfloat16))
+    wide = torch.randn(1, 4, 8, 132, device=cuda).to(torch.bfloat16)[..., :128]
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa.flash_attention(wide, k, v)
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa.flash_attention(q, wide[:, :2], v)
+    flat = torch.randn(4 * 8 * 128 + 1, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa.flash_attention(flat[1:].view(1, 4, 8, 128), k, v)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    wide32 = torch.randn(1, 4, 8, 130, device=cuda)[..., :128]
+    assert_attention_close(fa.flash_attention(wide32, kf, vf),
+                           fa.flash_attention_plain(wide32, kf, vf))
