@@ -32,7 +32,18 @@ printing a result:
    a power-of-two scale (the reciprocal multiply) and at IN_SCALE (the
    exact-quotient staging), with x off the scale's grid (the division), and
    at its own accumulator limit, each ``torch.equal`` to the twin and to
-   the IMAD body, its launches counted per body.  Last B7
+   the IMAD body, its launches counted per body.  Then the B5 / B6
+   redesign's boundaries (``check_redesign``): B6 at DW_GEOMETRIES (planes
+   of 1x1, 7x7 and 13x13, C off the planes per block, N = 1, odd H at
+   stride 2, asymmetric pads, dilation 2, 5x5 and 1x3 kernels, tiles off
+   16 bytes) and every MobileNet-224 depthwise layer at 8 rows, the
+   float32 body in every rounding mode and the integer bodies in every
+   staging of x (a power-of-two scale: the reciprocal; IN_SCALE: the
+   exact-quotient check; x off its grid: the division fallback;
+   TINY_SCALE: the division), all ``torch.equal``; B5 at GQ_SHAPES (Ng 1,
+   8, 12, 16, 40, Kg off 4 and above the staged slice, int8 and int4) in
+   all three bodies and stagings; the per-staging launch counts checked.
+   Last B7
    (flash_attention; bf16 on its tensor-core body) against its twin at
    qwen2-1.5B's heads (12 over 2 KV heads, hd 128) and olmo-1B's (16 over
    16), S in {1, 17, 512, 2048, 2047}, B in {1, 4}, causal and not, float32
@@ -67,7 +78,9 @@ printing a result:
    plans, with the load-time cost report.  B2's launches are counted per
    body around every forward: each launches B2's int8 tensor-core body
    once per segment whose meta chose it, exactly 13 per MobileNet-224
-   forward (its pointwise convs; TFC's count is printed);
+   forward (its pointwise convs; TFC's count is printed); B6's 13
+   MobileNet-224 launches must all take the reciprocal staging (the zoo's
+   activation scales are powers of two), B5's staging is printed;
 5. timings beside each kernel's bound, its twin and one library call
    computing the same function (CUDA events, median of 30 samples of 10
    calls after warm-up; device time from a replayed CUDA graph of the 10
@@ -77,7 +90,10 @@ printing a result:
    integer ones (their library call is ``torch._int_mm`` on the int8
    operands where its shape rules allow, the epilogue not included; B2 on
    the body the lowering picks, and its 13 MobileNet pointwise layers also
-   on the int8 body at a power-of-two scale and on the IMAD body);
+   on the int8 body at a power-of-two scale and on the IMAD body; B6's
+   13 depthwise layers also at a power-of-two scale; the library call of
+   B5's / B6's integer rows is ``torch.bmm`` / ``F.conv2d(groups=C)`` on
+   the float32 codes, the same exact sums without the epilogue);
    one MobileNet plan call's device time by kernel name (torch.profiler)
    and the device's busy share, on each path; then each engine's requests
    per second;
@@ -519,6 +535,7 @@ IN_SCALE = 3 * 2.0 ** -5       # a dyadic activation scale that is no power of t
 # by the exact reciprocal) and IN_SCALE (no power of two: the exact-quotient
 # check, else the IEEE division)
 TC_IN_SCALES = (2.0 ** -3, IN_SCALE)
+STAGING_NAMES = ("reciprocal", "quotient", "division")   # ops.staging's modes
 
 
 def int_specs():
@@ -725,6 +742,154 @@ def check_integer(ops, torch, np, dev, err):
         dw_case((1, 4, 6, 6), geos[0], spec, False, qmax=qmax, taps=taps)
     for k in INT_KERNELS:
         err[k + "/int32"] = 0.0
+    return n_cases
+
+
+# ----------------------------------- phase 2, the B5 / B6 redesign's cases
+
+# B6 geometries beyond check_depthwise's, (N, C, H, W, kernel, strides,
+# dilations, pads): the tile and plane-group boundaries (planes of 1x1,
+# 7x7, 13x13; C off the planes per block; N = 1), odd H at stride 2,
+# dilation 2, asymmetric pads, 5x5 and 1x3 kernels, tiles whose rows are
+# not on 16 bytes
+DW_GEOMETRIES = [
+    (2, 5, 1, 1, (3, 3), (1, 1), (1, 1), (1, 1, 1, 1)),
+    (3, 37, 7, 7, (3, 3), (1, 1), (1, 1), (1, 1, 1, 1)),
+    (1, 19, 13, 13, (3, 3), (1, 1), (1, 1), (1, 1, 1, 1)),
+    (2, 6, 15, 14, (3, 3), (2, 2), (1, 1), (1, 1, 1, 1)),
+    (2, 5, 33, 31, (3, 3), (2, 1), (1, 1), (2, 0, 1, 1)),
+    (2, 4, 20, 24, (3, 3), (1, 1), (2, 2), (2, 2, 2, 2)),
+    (1, 3, 40, 44, (5, 5), (1, 1), (1, 1), (2, 2, 2, 2)),
+    (2, 7, 17, 9, (1, 3), (1, 1), (1, 1), (0, 1, 0, 1)),
+    (1, 2, 70, 66, (3, 3), (1, 2), (1, 1), (1, 1, 1, 1)),
+    (1, 3, 57, 100, (3, 3), (2, 2), (1, 1), (1, 1, 1, 1)),
+]
+# B5 shapes (G, M, Kg, Ng): Ng 1, 8, 12, 16, 40; Kg off 4 (the element
+# path); Kg above the 128-wide staged slice (the K loop)
+GQ_SHAPES = [(3, 70, 36, 1), (4, 100, 72, 8), (2, 65, 18, 12), (3, 129, 40, 16),
+             (2, 33, 36, 40), (3, 50, 27, 12), (2, 90, 300, 8), (1, 257, 258, 40)]
+# the integer bodies' stagings: a power of two (the reciprocal), IN_SCALE
+# (the exact-quotient check) and, with x off IN_SCALE's grid, its division
+# fallback; TINY_SCALE's reciprocal overflows float32, so every x is
+# divided (its twin runs on the CPU, whose division keeps the subnormals)
+STAGINGS = ((2.0 ** -3, False), (IN_SCALE, False), (IN_SCALE, True))
+TINY_SCALE = 3 * 2.0 ** -140
+
+
+def _staged_x(torch, np, rng, shape, dev, in_scale, off_grid, qmax=8):
+    """q · in_scale, every seventh element moved off the grid if asked."""
+    x = rng.randint(-qmax, qmax + 1, shape).astype(np.float32) * np.float32(in_scale)
+    if off_grid:
+        x.reshape(-1)[::7] += np.float32(in_scale / 3)
+    return torch.from_numpy(x).to(dev)
+
+
+def check_redesign(ops, torch, np, dev, err):
+    """B6 and B5 at the redesign's boundaries (DW_GEOMETRIES, every
+    MobileNet-224 depthwise layer at 8 rows, GQ_SHAPES), each body against
+    its twin: B6 torch.equal throughout (float32 on randn in every rounding
+    mode, the integer bodies in every staging); B5's integer bodies
+    torch.equal, its float32 body exact on dyadic x and within the order
+    bound on randn; the staging counts follow the scales.  Returns the
+    number of cases per kernel."""
+    rng = np.random.RandomState(31)
+    specs = int_specs()
+    n_cases = {"quant_depthwise_conv2d": 0, "quant_grouped_matmul": 0}
+    before = ops.staging_counts()
+    expect = {k: dict.fromkeys(("reciprocal", "quotient", "division"), 0) for k in n_cases}
+
+    def same(name, got, want, what):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} differs from its twin: {what}")
+        n_cases[name] += 1
+
+    def dw_float(x, taps, geo_kw, mode, i):
+        c = x.shape[1]
+        s = torch.from_numpy((rng.rand(c) * 0.1 + 0.01).astype(np.float32)).to(dev)
+        b = torch.from_numpy(rng.randn(c).astype(np.float32)).to(dev) if i % 2 else None
+        qs = torch.tensor(0.125 if i % 3 else 0.173, device=dev)     # power of two or not
+        qz = torch.tensor(float(i % 2), device=dev)
+        kw = dict(geo_kw, relu=True, act_bits=4, act_signed=False, act_rounding=mode)
+        same("quant_depthwise_conv2d", ops.quant_depthwise_conv2d(x, taps, s, b, qs, qz, **kw),
+             ops.quant_depthwise_conv2d_plain(x, taps, s, b, qs, qz, **kw),
+             f"float32 {tuple(x.shape)} {kw}")
+
+    def twin(plain, args, kw, cpu):
+        if not cpu:
+            return plain(*args, **kw)
+        return plain(*(a.cpu() if torch.is_tensor(a) else a for a in args), **kw).to(dev)
+
+    def dw_int(shape, taps, geo_kw, spec, in_scale, off_grid):
+        x = _staged_x(torch, np, rng, shape, dev, in_scale, off_grid)
+        c = shape[1]
+        if spec is None:
+            s = torch.from_numpy((2.0 ** -rng.randint(2, 6, c)).astype(np.float32)).to(dev)
+            kw = dict(acc_dtype=torch.int32, in_scale=in_scale)
+        else:
+            s = torch.from_numpy((2 * rng.randint(0, 5, c) + 1).astype(np.int32)).to(dev)
+            kw = dict(acc_dtype=torch.int32, requant=spec, in_scale=in_scale)
+        kw.update(geo_kw)
+        same("quant_depthwise_conv2d", ops.quant_depthwise_conv2d(x, taps, s, **kw),
+             twin(ops.quant_depthwise_conv2d_plain, (x, taps, s), kw, in_scale == TINY_SCALE),
+             f"integer {shape} {geo_kw} in_scale={in_scale} off_grid={off_grid} {spec}")
+        expect["quant_depthwise_conv2d"][STAGING_NAMES[ops.staging(in_scale)[0]]] += 1
+
+    layers = [(SLOT, cin, h, h, (3, 3), (st, st), (1, 1), (1, 1, 1, 1))
+              for kind, cin, _, st, h in _mobilenet_layers() if kind == "dw"]
+    for j, (n, c, h, w, ks, st, dil, pads) in enumerate(DW_GEOMETRIES + layers):
+        geo_kw = dict(kernel_shape=ks, strides=st, dilations=dil, pads=pads)
+        taps = torch.from_numpy(rng.randint(-7, 8, (ks[0] * ks[1], c)).astype(np.int8)).to(dev)
+        x = torch.randn(n, c, h, w, generator=torch.Generator().manual_seed(j)).to(dev)
+        for i, mode in enumerate(MODES if j >= len(DW_GEOMETRIES) or j % 3 == 0 else MODES[::3]):
+            dw_float(x, taps, geo_kw, mode, i + j)
+        for k, (in_scale, off_grid) in enumerate(STAGINGS):
+            dw_int((n, c, h, w), taps, geo_kw, specs[3 + (3 * j + k) % 24], in_scale, off_grid)
+        dw_int((n, c, h, w), taps, geo_kw, None, STAGINGS[j % 3][0], STAGINGS[j % 3][1])
+        if j < len(DW_GEOMETRIES):
+            dw_int((n, c, h, w), taps, geo_kw, specs[j % 3], TINY_SCALE, False)
+
+    for g, m, kg, ng in GQ_SHAPES:
+        for int4 in (False, True) if kg % 2 == 0 else (False,):
+            lo, hi = (-8, 7) if int4 else (-127, 127)
+            w = torch.from_numpy(rng.randint(lo, hi + 1, (g, kg, ng)).astype(np.int8))
+            wk = (ops.pack_int4_grouped(w) if int4 else w).to(dev)
+            s = torch.from_numpy((2.0 ** -rng.randint(2, 6, g * ng)).astype(np.float32)).to(dev)
+            b = torch.from_numpy((rng.randint(-64, 64, g * ng) / 16.0).astype(np.float32)).to(dev)
+            x = torch.from_numpy((rng.randint(-128, 129, (g, m, kg)) / 128.0)
+                                 .astype(np.float32)).to(dev)
+            what = f"B5 {g}x{m}x{kg}x{ng} int4={int4}"
+            same("quant_grouped_matmul", ops.quant_grouped_matmul(x, wk, s, b, packed=int4),
+                 ops.quant_grouped_matmul_plain(x, wk, s, b, packed=int4), what + " dyadic")
+            xr = torch.randn(g, m, kg, generator=torch.Generator().manual_seed(m + kg)).to(dev)
+            got = ops.quant_grouped_matmul(xr, wk, s, b, packed=int4)
+            want = ops.quant_grouped_matmul_plain(xr, wk, s, b, packed=int4)
+            mag = torch.matmul(xr.abs(), w.to(dev).float().abs()) * s.abs().reshape(g, 1, ng)
+            diff = (got - want).abs()
+            if bool((diff > 2 * kg * 2.0 ** -24 * mag + 2.0 ** -23 * want.abs()).any()):
+                raise AssertionError(f"{what} beyond the order bound")
+            err["quant_grouped_matmul"] = max(err["quant_grouped_matmul"], float(diff.max()))
+            n_cases["quant_grouped_matmul"] += 1
+            for k, (in_scale, off_grid) in enumerate(STAGINGS + ((TINY_SCALE, False),)):
+                for spec in (None, specs[3 + (k + ng) % 24]):
+                    xi = _staged_x(torch, np, rng, (g, m, kg), dev, in_scale, off_grid)
+                    if spec is None:
+                        si, kw = s, dict(acc_dtype=torch.int32, in_scale=in_scale)
+                    else:
+                        si = torch.from_numpy((2 * rng.randint(0, 5, g * ng) + 1)
+                                              .astype(np.int32)).to(dev)
+                        kw = dict(acc_dtype=torch.int32, requant=spec, in_scale=in_scale)
+                    same("quant_grouped_matmul",
+                         ops.quant_grouped_matmul(xi, wk, si, packed=int4, **kw),
+                         twin(ops.quant_grouped_matmul_plain, (xi, wk, si),
+                              dict(kw, packed=int4), in_scale == TINY_SCALE),
+                         f"{what} in_scale={in_scale} off_grid={off_grid} {spec}")
+                    expect["quant_grouped_matmul"][STAGING_NAMES[ops.staging(in_scale)[0]]] += 1
+    after = ops.staging_counts()
+    moved = {k: {m: after[k][m] - before[k][m] for m in after[k]} for k in after}
+    if moved != expect:
+        raise AssertionError(f"staging launches {moved}, expected {expect}")
+    print(f"redesign cases: {n_cases}; integer launches by staging {moved}", flush=True)
     return n_cases
 
 
@@ -1018,10 +1183,17 @@ def run_integer_path(torch, np, dev):
     before = ops.launch_counts()
     plan = compile_graph(g, device=dev)
     bodies = ops.b2_body_counts()
+    staged = ops.staging_counts()["quant_depthwise_conv2d"]
     out = plan({"x": x16[:SLOT]})[g.output_names[0]]
     torch.cuda.synchronize()
     bodies = check_b2_bodies(ops, plan, bodies, 1, "MobileNet-224 (zoo, int)",
                              exact=MOBILENET_INT8_BODIES)
+    staged = {k: v - staged[k] for k, v in ops.staging_counts()["quant_depthwise_conv2d"].items()}
+    if staged != {"reciprocal": 13, "quotient": 0, "division": 0}:
+        raise AssertionError(f"MobileNet-224 (zoo, int): B6 launches by staging {staged}, "
+                             "not 13 on the reciprocal")
+    print(f"integer path MobileNet-w4a4 img 224: its 13 depthwise segments (B6) launched "
+          f"by staging {staged}", flush=True)
     if not torch.equal(out.cpu(), _oracle(g, x16[:SLOT], key="MobileNet-w4a4")[
             g.output_names[0]]):
         raise AssertionError("MobileNet-224 (zoo, int): compiled CUDA plan differs from "
@@ -1071,8 +1243,10 @@ def run_integer_path(torch, np, dev):
     xg = np.random.RandomState(14).randn(*gg.inputs[0].shape).astype(np.float32)
     before = ops.launch_counts()
     gplan = compile_graph(gg, device=dev)
+    staged = ops.staging_counts()["quant_grouped_matmul"]
     gout = gplan({"x": xg})[gg.output_names[0]]
     torch.cuda.synchronize()
+    staged = {k: v - staged[k] for k, v in ops.staging_counts()["quant_grouped_matmul"].items()}
     seg = next(s for s in gplan.segments if s.kind == "quant_conv_grouped_int4")
     if seg.meta["requant_path"] != "int32":
         raise AssertionError("grouped conv: B5's segment is not on the int32 path")
@@ -1082,7 +1256,7 @@ def run_integer_path(torch, np, dev):
     launched = _check_int_plan(gplan, "GroupedConv-g8", ops, before,
                                ("quant_grouped_matmul", "quant_dequant"))
     print(f"integer path {gg.name} {tuple(xg.shape)}: B5 segment on requant_path int32, "
-          f"bit-exact vs oracle, launches={launched}", flush=True)
+          f"bit-exact vs oracle, launches={launched}, B5 by staging {staged}", flush=True)
 
     # phase 4 on the integer path: the engine serves TFC-w2a2 in 16-row slots
     # and the rescaled MobileNet-224 in 8-row slots; report_cost is on
@@ -1334,7 +1508,10 @@ def int_timings(ops, torch, dev):
     TFC's first layer (8-bit input codes), the int8 tensor-core body
     elsewhere, at IN_SCALE (the division).  Beside them, in ``b2``, the 13
     MobileNet pointwise layers on the int8 body at a power-of-two scale
-    (the reciprocal multiply) and on the IMAD body (the PR 13 body)."""
+    (the reciprocal multiply) and on the IMAD body (B2's integer body
+    before the int8 one); in
+    ``b6`` the 13 depthwise layers at a power-of-two scale (the reciprocal
+    staging of the main path's scales)."""
     g = torch.Generator().manual_seed(25)
     tfc = {k + "/int32": [] for k in INT_KERNELS}
     for i, (k, n) in enumerate(TFC_LAYERS):
@@ -1344,6 +1521,7 @@ def int_timings(ops, torch, dev):
                                 int8_codes=int4 and i > 0))
     mob = {k + "/int32": [] for k in INT_KERNELS}
     b2 = {B2_INT8: [], B2_INT8_F32: [], B2_IMAD: []}
+    b6 = {B6_POW2: []}
     spec = _timing_spec()
     for kind, cin, cout, stride, h in _mobilenet_layers():
         ho = (h - 1) // stride + 1
@@ -1363,40 +1541,60 @@ def int_timings(ops, torch, dev):
                                                    in_scale=TC_IN_SCALES[0], spec=None))
             b2[B2_IMAD].append(_int_matmul_row(ops, torch, dev, g, m, cin, cout, True, shape))
         else:
-            x = (torch.randint(-8, 9, (SLOT, cin, h, h), generator=g).float()
-                 * IN_SCALE).to(dev)
-            taps = torch.randint(-8, 8, (9, cin), generator=g, dtype=torch.int8).to(dev)
-            mult = torch.full((cin,), 3, dtype=torch.int32, device=dev)
-            kw = dict(kernel_shape=(3, 3), strides=(stride, stride), pads=(1, 1, 1, 1),
-                      acc_dtype=torch.int32, requant=spec, in_scale=IN_SCALE)
-            n_out = SLOT * cin * ho * ho
-            mob["quant_depthwise_conv2d/int32"].append(dict(
-                shape=f"{SLOT}x{cin}x{h}x{h}/s{stride}",
-                **_timed(ms=lambda: ops.quant_depthwise_conv2d(x, taps, mult, **kw),
-                         plain_ms=lambda: ops.quant_depthwise_conv2d_plain(
-                             x, taps, mult, **kw)),
-                library_ms=None, library_call_ms=None,
-                bytes_ms=(4 * x.numel() + 9 * cin + 4 * cin + 4 * n_out) / HBM_BYTES_PER_S * 1e3,
-                ops_ms=18 * n_out / INT8_OPS * 1e3))
+            q = torch.randint(-8, 9, (SLOT, cin, h, h), generator=g).float()
+            taps = torch.randint(-8, 8, (9, cin), generator=g, dtype=torch.int8)
+            mob["quant_depthwise_conv2d/int32"].append(
+                _int_dw_row(ops, torch, dev, q, taps, stride, IN_SCALE, spec))
+            b6[B6_POW2].append(_int_dw_row(ops, torch, dev, q, taps, stride,
+                                           TC_IN_SCALES[0], spec))
     c, img, grp = GCONV["c"], GCONV["img"], GCONV["groups"]
-    x = (torch.randint(-8, 9, (GCONV["n"], c, img, img), generator=g).float()
-         * IN_SCALE).to(dev)
+    q = torch.randint(-8, 9, (GCONV["n"], c, img, img), generator=g).float().to(dev)
+    x = q * IN_SCALE
     patches = ops.extract_patches(x, (3, 3), (1, 1), (1, 1, 1, 1))[0]
     m, kg, ng = patches.shape[0], c // grp * 9, c // grp
     xg = patches.view(m, grp, kg).permute(1, 0, 2)
+    qg = ops.extract_patches(q, (3, 3), (1, 1), (1, 1, 1, 1))[0].view(m, grp, kg).permute(1, 0, 2)
     w = torch.randint(-8, 8, (grp, kg, ng), generator=g, dtype=torch.int8)
     wk = ops.pack_int4_grouped(w).to(dev)
+    wf = w.float().to(dev)
     mult = torch.full((c,), 3, dtype=torch.int32, device=dev)
     kw = dict(packed=True, acc_dtype=torch.int32, requant=spec, in_scale=IN_SCALE)
+    # the library yardstick: the same sums (exact in float32) on the codes,
+    # without the epilogue
     mob["quant_grouped_matmul/int32"].append(dict(
         shape=f"{grp}x{m}x{kg}x{ng} int4",
         **_timed(ms=lambda: ops.quant_grouped_matmul(xg, wk, mult, **kw),
-                 plain_ms=lambda: ops.quant_grouped_matmul_plain(xg, wk, mult, **kw)),
-        library_ms=None, library_call_ms=None,
+                 plain_ms=lambda: ops.quant_grouped_matmul_plain(xg, wk, mult, **kw),
+                 library_ms=lambda: torch.bmm(qg, wf)),
         bytes_ms=(4 * m * grp * kg + grp * kg * ng // 2 + 4 * c + 4 * m * c)
         / HBM_BYTES_PER_S * 1e3,
         ops_ms=2 * m * grp * kg * ng / INT8_OPS * 1e3))
-    return tfc, mob, b2
+    return tfc, mob, b2, b6
+
+
+B6_POW2 = "quant_depthwise_conv2d/int32 (power-of-two scale)"
+
+
+def _int_dw_row(ops, torch, dev, q, taps, stride, in_scale, spec):
+    """One B6 integer-body row (B3 epilogue) on x = q · in_scale; its
+    library yardstick F.conv2d(groups=C) sums the float32 codes q (exact)
+    without the epilogue."""
+    import torch.nn.functional as F
+    slot, cin, h = q.shape[0], q.shape[1], q.shape[2]
+    ho = (h - 1) // stride + 1
+    x = (q * in_scale).to(dev)
+    qd, td = q.to(dev), taps.to(dev)
+    wf = taps.float().t().reshape(cin, 1, 3, 3).contiguous().to(dev)
+    mult = torch.full((cin,), 3, dtype=torch.int32, device=dev)
+    kw = dict(kernel_shape=(3, 3), strides=(stride, stride), pads=(1, 1, 1, 1),
+              acc_dtype=torch.int32, requant=spec, in_scale=in_scale)
+    n_out = slot * cin * ho * ho
+    return dict(shape=f"{slot}x{cin}x{h}x{h}/s{stride}",
+                **_timed(ms=lambda: ops.quant_depthwise_conv2d(x, td, mult, **kw),
+                         plain_ms=lambda: ops.quant_depthwise_conv2d_plain(x, td, mult, **kw),
+                         library_ms=lambda: F.conv2d(qd, wf, None, stride, 1, 1, cin)),
+                bytes_ms=(4 * x.numel() + 9 * cin + 4 * cin + 4 * n_out) / HBM_BYTES_PER_S * 1e3,
+                ops_ms=18 * n_out / INT8_OPS * 1e3)
 
 
 def profile_forward(torch, plan, x, label, reps=5):
@@ -1844,6 +2042,7 @@ def main() -> int:
           flush=True)
     n_int = check_integer(ops, torch, np, dev, err)
     print(f"integer bodies vs twins (torch.equal): {n_int} cases", flush=True)
+    check_redesign(ops, torch, np, dev, err)
     check_flash_attention(ops, torch, dev, err)
 
     # phases 3 + 4: the float32-epilogue path (use_analysis=False), counted
@@ -1876,7 +2075,7 @@ def main() -> int:
     kernels = report(rows, launches, err, f"MobileNet-224 N={SLOT}")
     print(f"(sums above: one MobileNet-w4a4 forward at img 224 with {SLOT} rows; "
           "B5 over the grouped conv's one layer)", flush=True)
-    tfc_int, mob_int, b2_rows = int_timings(ops, torch, dev)
+    tfc_int, mob_int, b2_rows, b6_rows = int_timings(ops, torch, dev)
     report(tfc_int, launches, err, "TFC M=256, integer")
     print("(sums above: one TFC forward at M=256 on the integer bodies)", flush=True)
     kernels += report(mob_int, launches, err, f"MobileNet-224 N={SLOT}, integer")
@@ -1889,6 +2088,11 @@ def main() -> int:
     print("(sums above: B2's 13 pointwise layers on the int8 body at a power-of-two scale, "
           "with B3 and with the float32 epilogue, and on the IMAD body at IN_SCALE, timed in "
           "the same run)", flush=True)
+    report(b6_rows, {B6_POW2: launches["quant_depthwise_conv2d/int32"]},
+           {B6_POW2: err["quant_depthwise_conv2d/int32"]},
+           f"MobileNet-224 N={SLOT}, integer, B6 power-of-two scale")
+    print("(sums above: B6's 13 depthwise layers at a power-of-two scale, the reciprocal "
+          "staging of the main path's scales, timed in the same run)", flush=True)
     profile_forward(torch, lplan, x8, "float32 epilogue")
     profile_forward(torch, iplan, ix8, "integer path")
     walls_in_turns(torch, {"float32 epilogue": lplan, "integer path": iplan}, x8)

@@ -34,6 +34,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # the epilogue's tail of B1 / B2 / B5 / B6: body (epi), x divisor (in_div),
 # the IntRequant ints (rq, a host pointer or null) and the output scale
 _EPI = [_I, _F, _P, _F]
+_STAGE = [_I, _F, _F, _I, _P, _F]
 SIGNATURES = {
     "qdq_launch": [_P, _P, _P, _P, _LL, _I, _I, _I, _F, _F, _I, _I, _P],
     "qmm_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + _EPI + [_P],
@@ -41,10 +42,11 @@ SIGNATURES = {
     # rq; out_mul
     "qmm_i8_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _F,
                       _P],
-    "gqmm_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL,
-                    _I, _I] + _EPI + [_P],
-    "dw_launch": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 17 + [_F, _F, _I]
-    + _EPI + [_P],
+    # B5 / B6: x, w, s, bias, [qs, qz,] out, the plan's geometry (an int
+    # array), ...; their epilogue tail adds the staging mode after in_div
+    # and in_mul: epi, in_div, in_mul, stage_mode, rq, out_mul
+    "gqmm_launch": [_P] * 6 + [_LL] * 4 + [_I, _I] + _STAGE + [_P],
+    "dw_launch": [_P] * 8 + [_I, _I, _I, _F, _F, _I] + _STAGE + [_P],
     # q, k, v, out; B, H, KV, Sq, Sk, hd, dtype, causal; scale; 12 strides
     "fa_launch": [_P] * 4 + [_I] * 8 + [_F] + [_LL] * 12 + [_P],
 }

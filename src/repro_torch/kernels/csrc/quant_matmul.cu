@@ -65,19 +65,21 @@
 //     mult), else b3::int_epilogue itself: the card has no 64-bit
 //     integer unit, so each int64 shift, compare or add there costs two
 //     or more instructions per output.
-// The staging division keeps __fdiv_rn's bits at a lower price: when
-// in_scale is a power of two whose reciprocal is a finite normal float32,
-// the host passes that reciprocal and the kernel multiplies (x * 2^-e and
-// x / 2^e round the same real number); for any other scale, an x whose
-// quotient is exactly an integer n (n · s - x == 0 in one FMA, exact) stages
-// n, which is what __fdiv_rn returns, and any other x is divided with
-// __fdiv_rn.  Every x of the integer path is such a multiple.  The int32
+// The staging division keeps __fdiv_rn's bits at a lower price, through
+// int_staging.cuh (shared with B5 / B6): when in_scale is a power of two
+// whose reciprocal is a finite normal float32, the host passes that
+// reciprocal and the kernel multiplies (x * 2^-e and x / 2^e round the same
+// real number); for any other scale, an x whose quotient is exactly an
+// integer n (n · s - x == 0 in one FMA, exact) stages n, which is what
+// __fdiv_rn returns, and any other x is divided with __fdiv_rn.  Every x
+// of the integer path is such a multiple.  The int32
 // sums of integer products are exact in any order, so this body equals the
 // IMAD body and the twin bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "int_epilogue.cuh"
+#include "int_staging.cuh"
 
 namespace {
 
@@ -235,39 +237,24 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// How x is staged: divided by `div` (IEEE), or multiplied by `mul` when
-// the host set it (the exact reciprocal of a power-of-two divisor); `rcp`
-// is float32(1 / div), a guess for the exact-quotient check below.
-struct Stage {
-  float div, mul, rcp;
-};
+using stg::Stage;
 
 // a quotient as an int8 code in the low byte
 __device__ __forceinline__ uint32_t code(float q) {
   return (uint32_t)(uint8_t)(int8_t)__float2int_rn(q);
 }
 
-// four x elements staged as four int8 codes, round(x / div) as __fdiv_rn
-// rounds it.  With st.mul set, x · mul (the same bits).  Else the guess
-// n = rint(x · rcp) stands where x / div is exactly that integer (n · div -
-// x is 0 in one FMA, which is exact: a nonzero difference of such floats
-// is at least 2^-149), since __fdiv_rn returns n there; `exact` turns false
-// where it is not, and the caller then divides.  Every x of the integer
-// path is such a multiple.
+// four x elements staged as four int8 codes by int_staging.cuh's
+// RECIPROCAL or QUOTIENT mode; in QUOTIENT mode `exact` turns false where
+// the guess is not the quotient, and the caller then divides (codes4_div)
 __device__ __forceinline__ uint32_t codes4(float4 f, const Stage& st, bool& exact) {
-  if (st.mul != 0.f)
-    return code(__fmul_rn(f.x, st.mul)) | code(__fmul_rn(f.y, st.mul)) << 8 |
-           code(__fmul_rn(f.z, st.mul)) << 16 | code(__fmul_rn(f.w, st.mul)) << 24;
-  const float n0 = rintf(__fmul_rn(f.x, st.rcp)), n1 = rintf(__fmul_rn(f.y, st.rcp));
-  const float n2 = rintf(__fmul_rn(f.z, st.rcp)), n3 = rintf(__fmul_rn(f.w, st.rcp));
-  exact &= (__fmaf_rn(n0, st.div, -f.x) == 0.f) & (__fmaf_rn(n1, st.div, -f.y) == 0.f) &
-           (__fmaf_rn(n2, st.div, -f.z) == 0.f) & (__fmaf_rn(n3, st.div, -f.w) == 0.f);
-  return code(n0) | code(n1) << 8 | code(n2) << 16 | code(n3) << 24;
+  const float4 q = stg::quotients4(f, st, exact);
+  return code(q.x) | code(q.y) << 8 | code(q.z) << 16 | code(q.w) << 24;
 }
 
 __device__ __forceinline__ uint32_t codes4_div(float4 f, float div) {
-  return code(__fdiv_rn(f.x, div)) | code(__fdiv_rn(f.y, div)) << 8 |
-         code(__fdiv_rn(f.z, div)) << 16 | code(__fdiv_rn(f.w, div)) << 24;
+  const float4 q = stg::divide4(f, div);
+  return code(q.x) | code(q.y) << 8 | code(q.z) << 16 | code(q.w) << 24;
 }
 
 // a packed byte's two sign-extended nibbles as int8 bytes: low (row 2r)
@@ -277,44 +264,12 @@ __device__ __forceinline__ uint32_t nibbles(uint32_t byte) {
   return (uint32_t)(uint8_t)lo | ((uint32_t)(uint8_t)hi << 8);
 }
 
-// B3 as this body runs it: b3::int_epilogue's function on 32-bit integers
-// wherever no intermediate can leave int32 (an act Quant with 0 <=
-// act_shift <= 31 and |act_zp · 2^act_shift| < 2^30, checked on the host,
-// and every |acc · mult| of the thread below 2^30, checked once per thread),
-// with the rounding mode a template parameter; else b3::int_epilogue
-// itself for the thread's outputs.
-struct Req {
-  b3::IntReq rq;
-  int fast;          // the host's half of the 32-bit condition
-  int zp_s;          // act_zp · 2^act_shift
-  uint32_t mask;     // 2^act_shift - 1
-  uint32_t half;     // 2^(act_shift - 1); 1 at act_shift 0, where mask 0 rounds nothing
-};
-
-// b3::int_epilogue with an act Quant on 32-bit integers (the caller has
-// checked the ranges), rounding mode MODE
-template <int MODE>
-__device__ __forceinline__ float int_epilogue32(int p, const Req& e) {
-  const b3::IntReq& rq = e.rq;
-  if (rq.relu && p < 0) p = 0;
-  const int v = p + e.zp_s;
-  int q = v >> rq.act_shift;                            // floor, as b3::round_shift
-  const uint32_t r = (uint32_t)v & e.mask;
-  bool up;
-  switch (MODE) {
-    case b3::FLOOR: up = false; break;
-    case b3::CEIL: up = r != 0; break;
-    case b3::DOWN: up = r != 0 && v < 0; break;
-    case b3::UP: up = r != 0 && v > 0; break;
-    case b3::HALF_UP: up = v >= 0 ? r >= e.half : r > e.half; break;
-    case b3::HALF_DOWN: up = v >= 0 ? r > e.half : r >= e.half; break;
-    default: up = r > e.half || (r == e.half && (q & 1) != 0); break;   // ROUND
-  }
-  q += up ? 1 : 0;
-  q = q < rq.act_lo ? rq.act_lo : q;
-  q = q > rq.act_hi ? rq.act_hi : q;
-  return __fmul_rn(__int2float_rn(q - rq.act_zp), rq.out_mul);
-}
+// B3 as this body runs it: int_epilogue.cuh's 32-bit path (Req32) wherever
+// no intermediate can leave int32 (the host's check of the zero point and
+// shift, and every |acc · mult| of the thread below 2^30, checked once per
+// thread), with the rounding mode a template parameter; else
+// b3::int_epilogue itself for the thread's outputs.
+using Req = b3::Req32;
 
 // the warp's 32x32 of C fragments through the epilogue into out.  MODE:
 // a rounding mode for B3 on 32-bit integers, or -1 for the general path
@@ -353,8 +308,8 @@ __device__ __forceinline__ void write_tile(const int (&acc)[2][4][4], float* __r
           else if (MODE < 0)
             o[cc] = b3::int_epilogue(a, mult[cc], e.rq);
           else
-            o[cc] = int_epilogue32<MODE < 0 ? 0 : MODE>((int)((uint32_t)a * (uint32_t)mult[cc]),
-                                                        e);
+            o[cc] = b3::int_epilogue32<MODE < 0 ? 0 : MODE>(
+                (int)((uint32_t)a * (uint32_t)mult[cc]), e);
           if (bias != nullptr) o[cc] = __fadd_rn(o[cc], b[cc]);
         }
         float* dst = out + (long long)r * N + c;
@@ -385,8 +340,7 @@ __device__ __forceinline__ bool fits32(const int (&acc)[2][4][4], int N, int c0,
       for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
-          const uint32_t p = (uint32_t)acc[i][j][2 * hh + cc] * (uint32_t)mult;
-          ok = ok && p + (1u << 30) < (1u << 31);
+          ok = ok && b3::fits32((int)((uint32_t)acc[i][j][2 * hh + cc] * (uint32_t)mult));
         }
     }
   return ok;
@@ -566,6 +520,13 @@ int launch_i8_k(dim3 grid, cudaStream_t st, const float* x, const int8_t* w, con
 
 }  // namespace tc
 
+// the IntRequant's nine ints (read on the host) and the output scale, or
+// none off the B3 body
+b3::IntReq int_req(int epi, const int* rq, float out_mul) {
+  if (epi != EPI_B3) return b3::IntReq{};
+  return b3::IntReq{rq[0], rq[1], rq[2], rq[3], rq[4], rq[5], rq[6], rq[7], rq[8], out_mul};
+}
+
 }  // namespace
 
 // K is the logical depth (the packed weight has K / 2 rows).  bias may be
@@ -578,10 +539,7 @@ extern "C" int qmm_launch(const float* x, const int8_t* w, const void* s, const 
                           float* out, int M, int K, int N, int s_stride, int packed, int epi,
                           float in_div, const int* rq, float out_mul, void* stream) {
   if (epi < EPI_F32 || epi > EPI_B3) return (int)cudaErrorInvalidValue;
-  b3::IntReq r{};
-  if (epi == EPI_B3) {
-    r = b3::IntReq{rq[0], rq[1], rq[2], rq[3], rq[4], rq[5], rq[6], rq[7], rq[8], out_mul};
-  }
+  const b3::IntReq r = int_req(epi, rq, out_mul);
   if (M > 0 && N > 0) {
     const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -604,21 +562,10 @@ extern "C" int qmm_i8_launch(const float* x, const int8_t* w, const void* s, con
                              float in_div, float in_mul, const int* rq, float out_mul,
                              void* stream) {
   if ((epi != EPI_I32 && epi != EPI_B3) || (K & 1)) return (int)cudaErrorInvalidValue;
-  tc::Req e{};
-  if (epi == EPI_B3) {
-    e.rq = b3::IntReq{rq[0], rq[1], rq[2], rq[3], rq[4], rq[5], rq[6], rq[7], rq[8], out_mul};
-    const int sh = e.rq.act_shift;
-    if (e.rq.has_act && sh >= 0 && sh <= 31) {
-      const long long zp_s = (long long)e.rq.act_zp * (1LL << sh);
-      if (zp_s > -(1LL << 30) && zp_s < (1LL << 30)) {
-        e.fast = 1;
-        e.zp_s = (int)zp_s;
-        e.mask = sh == 0 ? 0u : 0xFFFFFFFFu >> (32 - sh);
-        e.half = sh == 0 ? 1u : 1u << (sh - 1);
-      }
-    }
-  }
-  const tc::Stage xst{in_div, in_mul, 1.0f / in_div};
+  const tc::Req e =
+      b3::make_req32(int_req(epi, rq, out_mul));
+  const tc::Stage xst =
+      stg::make_stage(in_div, in_mul, in_mul != 0.f ? stg::RECIPROCAL : stg::QUOTIENT);
   if (M <= 0 || N <= 0) return (int)cudaGetLastError();
   const dim3 grid((M + tc::BM - 1) / tc::BM, (N + tc::BN - 1) / tc::BN);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -18,12 +18,13 @@ from .quant_conv import (  # noqa: F401
     extract_patches, im2col_weights, quant_conv2d)
 from .quant_dequant import quant_dequant, quant_dequant_plain  # noqa: F401
 from .quant_grouped_conv import (  # noqa: F401
-    depthwise_weights, extract_depthwise_taps, grouped_weights,
+    depthwise_weights, dw_launch_plan, extract_depthwise_taps, gqmm_launch_plan,
+    grouped_weights,
     pack_int4_grouped, quant_depthwise_conv2d, quant_depthwise_conv2d_plain,
     quant_grouped_conv2d, quant_grouped_matmul, quant_grouped_matmul_plain,
     unpack_int4_grouped)
 from .quant_matmul import (  # noqa: F401
-    exact_reciprocal, pack_int4, quant_matmul, quant_matmul_int4,
+    exact_reciprocal, pack_int4, staged_values, staging, quant_matmul, quant_matmul_int4,
     quant_matmul_int4_plain, quant_matmul_plain, unpack_int4)
 
 
@@ -39,10 +40,18 @@ def b2_body_counts() -> dict:
     return dict(_qmm.body_launches)
 
 
+def staging_counts() -> dict:
+    """B5's and B6's integer-body launches so far per staging mode of x
+    (``reciprocal``, ``quotient``, ``division``), per kernel."""
+    return {k: dict(v) for k, v in _gconv.staging_launches.items()}
+
+
 def reset_launch_counts() -> None:
-    """Zero every launch count, B2's per-body counts included."""
+    """Zero every launch count, B2's per-body counts and B5's / B6's
+    per-staging counts included."""
     _qdq.launches = 0
     _fa.launches = 0
-    for counts in (_qmm.launches, _qmm.body_launches, _gconv.launches):
+    for counts in (_qmm.launches, _qmm.body_launches, _gconv.launches,
+                   *_gconv.staging_launches.values()):
         for k in counts:
             counts[k] = 0

@@ -17,17 +17,27 @@ These kernels do the true contraction:
   * **B6** ``quant_depthwise_conv2d`` — the ``group == C`` case: a
     per-channel kH·kW tap sum, then dequant, bias, ReLU and the activation
     requant fused (the requant is B4's rounding, shared through
-    ``csrc/qdq_round.cuh``).  The kernel reads the taps straight from the
-    NCHW input; only the plain twin builds the reference's (T, M, C) tap
-    tensor.
+    ``csrc/qdq_round.cuh``).  The kernel stages the NCHW input into shared
+    memory tile by tile; only the plain twin builds the reference's
+    (T, M, C) tap tensor.
 
 Both have B1's three bodies (``quant_matmul``): the float32 dot, the
 int32 dot with the float32 epilogue (``acc_dtype=torch.int32``), and the
 int32 dot with the integer epilogue B3 (``requant=IntRequant``, the scale
-slot carrying int32 multipliers); on the integer bodies ``in_scale``
-divides x (an IEEE division) as the kernel reads it.  On B6's B3 body the
-IntRequant replaces the whole fused epilogue, as in the reference's
+slot carrying int32 multipliers); on the integer bodies x is staged as
+``x / in_scale`` rounded, with the IEEE division's bits, by B2's staging
+(``quant_matmul.staging``: a reciprocal multiply at a power-of-two scale,
+else an exact-quotient check, else the division); ``staging_launches``
+counts the integer launches per kernel and staging mode.  On B6's B3 body
+the IntRequant replaces the whole fused epilogue, as in the reference's
 ``_dw_kernel``: bias, ``relu`` and ``act_*`` must then be left unset.
+
+Both are bound by bytes on the card (2–4 operations per byte), so their
+geometry is planned on the host from the shapes alone: ``dw_launch_plan``
+(B6's tiles, planes per block, staged window, shared-memory pitches and
+grid) and ``gqmm_launch_plan`` (B5's column tile, K slice and pitch).
+The CUDA launches take their geometry from these plans and nothing else,
+so the CPU tests can hold it (coverage, halo reads, limits).
 
 Layouts and signatures are the reference's: NCHW in and out, (G, M, Kg) /
 (G, Kg[/2], Ng) for B5, taps (kH·kW, C) for B6.  On CPU tensors the
@@ -36,6 +46,10 @@ the kernel or raise.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+import math
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
@@ -44,10 +58,16 @@ import torch
 from ._build import check, load
 from .quant_conv import conv_tap_slices, conv_out_hw, extract_patches
 from .quant_dequant import ROUNDING_MODE_IDS, quant_dequant_plain, static_bounds
-from .quant_matmul import (check_epilogue, epilogue_args, int_values,
-                           pack_int4, plain_epilogue, unpack_int4)
+from .quant_matmul import (STAGING_MODES, check_epilogue, epilogue_args,
+                           int_values, pack_int4, plain_epilogue, staging,
+                           unpack_int4)
 
 launches = {"quant_grouped_matmul": 0, "quant_depthwise_conv2d": 0}
+# the integer-body launches of each kernel per staging mode of x
+staging_launches = {k: dict.fromkeys(STAGING_MODES, 0) for k in launches}
+
+SMEM_MAX = 232_448             # shared memory one block may use (H100)
+SMS = 132                      # streaming multiprocessors (H100 SXM)
 
 
 # --------------------------------------------------- weight-layout helpers
@@ -147,6 +167,75 @@ def quant_grouped_matmul_plain(xg, wg, w_scale, bias=None, *,
     return plain_epilogue(acc, w_scale, bias, acc_dtype, requant, (g, 1, ng))
 
 
+GQ_BM = 128                    # B5's rows per block, one per thread
+GQ_KS_MAX = 128                # B5's largest K slice staged at once
+GQ_GEO_FIELDS = ("G", "M", "Kg", "Ng", "BN", "KS", "pitch", "vec", "ovec",
+                 "col_tiles", "smem_bytes")
+
+
+@dataclass(frozen=True)
+class GqPlan:
+    """B5's launch geometry, in the order of the kernel's ``GqGeo``: block
+    columns ``BN`` (8, 16 or 32; ``col_tiles`` of them cover Ng), the K
+    slice ``KS`` staged at once (a multiple of 4, zero-filled past Kg), the
+    shared row pitch, whether x rows go by 16-byte copies (``vec``) and
+    outputs by 16-byte stores (``ovec``), and the dynamic shared bytes;
+    ``grid`` = (M / GQ_BM blocks, col_tiles, G), GQ_BM threads each."""
+    G: int
+    M: int
+    Kg: int
+    Ng: int
+    BN: int
+    KS: int
+    pitch: int
+    vec: int
+    ovec: int
+    col_tiles: int
+    smem_bytes: int
+
+    @property
+    def grid(self) -> tuple[int, int, int]:
+        return (-(-self.M // GQ_BM), self.col_tiles, self.G)
+
+    @functools.cached_property
+    def ints(self):
+        """The C interface's geometry array (built once per plan)."""
+        return (ctypes.c_int * len(GQ_GEO_FIELDS))(
+            *(getattr(self, f) for f in GQ_GEO_FIELDS))
+
+
+@functools.lru_cache(maxsize=1024)
+def gqmm_launch_plan(G: int, M: int, Kg: int, Ng: int, x_vec: bool = True,
+                     o_vec: bool = True) -> GqPlan:
+    """B5's geometry for a (G, M, Kg) x (G, Kg, Ng) product.  ``x_vec``:
+    Kg % 4 == 0 and x's pointer, group and row strides on 16 bytes (the
+    caller checks the strides); ``o_vec`` likewise for the output."""
+    bn = 8 if Ng <= 8 else (16 if Ng <= 16 else 32)
+    ks = min(max(4, -(-Kg // 4) * 4), GQ_KS_MAX)
+    # a pitch of 4·odd words keeps eight lanes' 16-byte row reads on
+    # distinct banks
+    pitch = ks + (4 if (ks // 4) % 2 == 0 else 8)
+    plan = GqPlan(G, M, Kg, Ng, bn, ks, pitch, int(x_vec and Kg % 4 == 0),
+                  int(o_vec), -(-Ng // bn), 4 * (GQ_BM * pitch + ks * bn))
+    gx, gy, gz = plan.grid
+    if gx >= 2 ** 31 or gy > 65535 or gz > 65535:
+        raise ValueError(f"quant_grouped_matmul: grid {plan.grid} beyond the "
+                         "launch limits")
+    return plan
+
+
+def _vec_ok(t: torch.Tensor, *strides) -> bool:
+    return t.data_ptr() % 16 == 0 and all(int(v) % 4 == 0 for v in strides)
+
+
+def _counted(name: str, epi: int, mode: int) -> None:
+    """One launch of ``name`` done: its count and, on an integer body, its
+    staging mode's."""
+    launches[name] += 1
+    if epi != 0:
+        staging_launches[name][STAGING_MODES[mode]] += 1
+
+
 def quant_grouped_matmul(xg: torch.Tensor, wg: torch.Tensor, w_scale,
                          bias: Optional[torch.Tensor] = None, *,
                          packed: bool = False, acc_dtype=torch.float32,
@@ -162,7 +251,8 @@ def quant_grouped_matmul(xg: torch.Tensor, wg: torch.Tensor, w_scale,
     bias: optional (G·Ng,) float32, added after the epilogue;
     acc_dtype / requant / in_scale: the body, as ``quant_matmul``'s;
     int8_codes is accepted (the lowering passes it to every body) and B5
-    keeps its body.
+        keeps its body on the CUDA cores: at 3–4 operations per byte of x
+        it is bound by bytes, where the int8 tensor cores gain nothing.
     Returns (G, M, Ng) float32.  On CUDA its memory is laid out (M, G, Ng),
     so ``out.permute(1, 0, 2).reshape(M, G·Ng)`` is a view."""
     name = "quant_grouped_matmul"
@@ -184,20 +274,23 @@ def quant_grouped_matmul(xg: torch.Tensor, wg: torch.Tensor, w_scale,
                          "along Kg")
     if wg.dtype != torch.int8 or not wg.is_contiguous():
         raise ValueError(f"{name}: weights must be a contiguous int8 tensor")
-    epi, s, in_div, rq, out_mul = epilogue_args(name, w_scale=w_scale,
-                                                n=g * ng, device=xg.device,
-                                                **kw)
+    epi, s, _, rq, out_mul = epilogue_args(name, w_scale=w_scale,
+                                           n=g * ng, device=xg.device, **kw)
     b = _bias_vec(bias, g * ng, name)
     out = torch.empty((m, g, ng), dtype=torch.float32,
                       device=xg.device).permute(1, 0, 2)
+    plan = gqmm_launch_plan(g, m, kg, ng,
+                            _vec_ok(xg, xg.stride(0), xg.stride(1)),
+                            _vec_ok(out, out.stride(0), out.stride(1)))
+    mode, div, mul = staging(in_scale)
     err = load().gqmm_launch(
         xg.data_ptr(), wg.data_ptr(), s.data_ptr(),
-        None if b is None else b.data_ptr(), out.data_ptr(), g, m, kg, ng,
+        None if b is None else b.data_ptr(), out.data_ptr(), plan.ints,
         xg.stride(0), xg.stride(1), out.stride(0), out.stride(1),
-        int(s.numel() > 1), int(packed), epi, in_div, rq, out_mul,
+        int(s.numel() > 1), int(packed), epi, div, mul, mode, rq, out_mul,
         torch.cuda.current_stream(xg.device).cuda_stream)
     check(err, "gqmm_launch")
-    launches[name] += 1
+    _counted(name, epi, mode)
     return out
 
 
@@ -282,6 +375,217 @@ def _check_dw_epilogue(bias, relu, act_bits, acc_dtype, requant,
                          "epilogue; bias, relu and act_* must be unset")
 
 
+DW_ROWS_PER_THREAD = (4, 7)    # outputs down a column per thread (templates)
+DW_MAX_THREADS = 256            # the kernel's launch bound (DW_MAX_THREADS, 4)
+DW_FLAT_MAX = 1024             # whole planes per block up to this many outputs
+DW_GEO_FIELDS = ("N", "C", "H", "W", "OH", "OW", "kh", "kw", "sh", "sw",
+                 "pt", "pl", "dh", "dw", "planes", "tile_h", "tile_w",
+                 "rows_per_thread", "row_groups", "tiles_h", "tiles_w",
+                 "rows", "cols", "pitch", "plane_pitch", "vec", "flat",
+                 "buffer", "threads", "blocks", "smem_bytes", "fast")
+
+
+@dataclass(frozen=True)
+class DwPlan:
+    """B6's launch geometry, in the order of the kernel's ``DwGeo``.
+
+    A block owns ``planes`` consecutive (n, c) planes (``flat``: whole
+    planes, copied as one contiguous span and read as they lie, pitch W and
+    plane pitch H·W, the padding read as zeros by predicate) or a
+    ``tile_h`` x ``tile_w`` output tile of one plane (``tiles_h`` x
+    ``tiles_w`` tiles a plane), whose staged input window of ``rows`` x
+    ``cols`` holds its zero padding at pitch ``pitch`` (elements); with
+    ``vec`` the window's first column is floored to 16 bytes and rows go
+    by 16-byte copies.  In either mode staged (r, c) is input row r0 + r,
+    column c0 + c of the block (``window_origin``).  Shared memory holds
+    ``buffer`` elements.  ``threads`` = planes x ``row_groups`` x tile_w
+    (rounded up to a warp) each compute ``rows_per_thread`` outputs down
+    one column; ``fast`` 1 / 2 marks a 3x3 kernel at row stride 1 / 2
+    (row dilation 1), 0 any other.  The grid is ``blocks`` x 1 x 1.
+    """
+    N: int
+    C: int
+    H: int
+    W: int
+    OH: int
+    OW: int
+    kh: int
+    kw: int
+    sh: int
+    sw: int
+    pt: int
+    pl: int
+    dh: int
+    dw: int
+    planes: int
+    tile_h: int
+    tile_w: int
+    rows_per_thread: int
+    row_groups: int
+    tiles_h: int
+    tiles_w: int
+    rows: int
+    cols: int
+    pitch: int
+    plane_pitch: int
+    vec: int
+    flat: int
+    buffer: int
+    threads: int
+    blocks: int
+    smem_bytes: int
+    fast: int
+
+    @property
+    def grid(self) -> tuple[int, int, int]:
+        return (self.blocks, 1, 1)
+
+    @functools.cached_property
+    def ints(self):
+        """The C interface's geometry array (built once per plan)."""
+        return (ctypes.c_int * len(DW_GEO_FIELDS))(
+            *(getattr(self, f) for f in DW_GEO_FIELDS))
+
+    def block_origin(self, b: int) -> tuple[int, int, int, int]:
+        """(first plane, planes, first output row, first output column) of
+        block ``b``, as the kernel derives them."""
+        nc = self.N * self.C
+        if self.flat:
+            return b * self.planes, min(self.planes, nc - b * self.planes), 0, 0
+        tiles = self.tiles_h * self.tiles_w
+        t = b % tiles
+        return (b // tiles, 1, t // self.tiles_w * self.tile_h,
+                t % self.tiles_w * self.tile_w)
+
+    def window_origin(self, oh0: int, ow0: int) -> tuple[int, int, int]:
+        """(input row, input column) of window element (0, 0) and the window
+        column of the tile's first tap column (the 16-byte floor)."""
+        r0 = oh0 * self.sh - self.pt
+        c0 = ow0 * self.sw - self.pl
+        off = c0 & 3 if self.vec and not self.flat else 0
+        return r0, c0 - off, off
+
+
+def _bank_ways(addr: np.ndarray) -> int:
+    """Shared-memory wavefronts of one 4-byte read by every warp: per warp,
+    the most distinct words that fall on one of the 32 banks."""
+    a = np.concatenate([addr, np.full((-len(addr)) % 32, addr[-1])])
+    a = np.sort(a.reshape(-1, 32), axis=1)
+    distinct = np.ones(a.shape, bool)
+    distinct[:, 1:] = a[:, 1:] != a[:, :-1]
+    banks = a % 32 + 32 * np.arange(a.shape[0])[:, None]
+    per_bank = np.bincount(banks[distinct], minlength=a.size).reshape(-1, 32)
+    return int(per_bank.max(axis=1).sum())
+
+
+def _dw_pitches(RG, TW, R, sh, sw, cols, step) -> int:
+    """The tile pitch (a multiple of ``step``) that spreads a warp's first
+    tap read over the banks (ties: the smallest)."""
+    t = np.arange(RG * TW)
+    rg, col = t // TW, t % TW
+    base = -(-cols // step) * step
+    ways = {pitch: _bank_ways(rg * R * sh * pitch + col * sw)
+            for pitch in range(base, base + 32, step)}
+    return min(ways, key=lambda pitch: (ways[pitch], pitch))
+
+
+def _dw_cost(blocks, staged, slots, vec) -> float:
+    """A relative time: each block's fixed cost, its staged elements (half
+    price by 16-byte copies) and computed output slots, with a penalty
+    when the grid gives an SM fewer than eight blocks."""
+    per = 256 + staged * (0.5 if vec else 1.0) + slots
+    return blocks * per * max(1.0, 8 * SMS / blocks)
+
+
+@functools.lru_cache(maxsize=1024)
+def dw_launch_plan(N: int, C: int, H: int, W: int, OH: int, OW: int, kh: int,
+                   kw: int, strides=(1, 1), dilations=(1, 1),
+                   pads=(0, 0, 0, 0), aligned: bool = True) -> DwPlan:
+    """B6's geometry for an (N, C, H, W) -> (N, C, OH, OW) depthwise conv
+    with ONNX [t, l, b, r] ``pads``; ``aligned``: x's pointer is on 16
+    bytes.  Candidates: whole planes, several per block, where a plane has
+    at most DW_FLAT_MAX outputs, OW <= 32 and the plane fits shared memory
+    (MobileNet's 28x28, 14x14 and 7x7 maps); else 2-D tiles whose width
+    divides OW into nearly equal parts (or 8 / 16 / 32); each with 4 or 7
+    rows per thread.  The cheapest by ``_dw_cost`` wins; a tile's pitch
+    then comes from ``_dw_pitches``."""
+    sh, sw = (int(v) for v in strides)
+    dh, dw = (int(v) for v in dilations)
+    pt, pl = int(pads[0]), int(pads[1])
+    nc = N * C
+    if nc <= 0 or OH <= 0 or OW <= 0:
+        raise ValueError("quant_depthwise_conv2d: empty launch")
+    fast = sh if (kh, kw, dh) == (3, 3, 1) and sh in (1, 2) else 0
+    span = (kh - 1) * dh + 1
+    best = None
+    flat_ok = OW <= 32 and OH * OW <= DW_FLAT_MAX and 4 * (H * W + 3) <= SMEM_MAX
+    for R in DW_ROWS_PER_THREAD:
+        if flat_ok:
+            RG = -(-OH // R)
+            rows = (RG * R - 1) * sh + span
+            cols = (OW - 1) * sw + (kw - 1) * dw + 1
+            vec = int(aligned)
+            for P in range(1, min(nc, DW_MAX_THREADS // (RG * OW)) + 1):
+                if 4 * (P * H * W + 3) > SMEM_MAX:
+                    break
+                blocks = -(-nc // P)
+                cost = _dw_cost(blocks, P * H * W, P * RG * OW * R,
+                                vec and (P * H * W) % 4 == 0)
+                if best is None or cost < best[0]:
+                    best = (cost, dict(planes=P, tile_h=OH, tile_w=OW,
+                                       rows_per_thread=R, row_groups=RG,
+                                       tiles_h=1, tiles_w=1, rows=rows,
+                                       cols=cols, flat=1, blocks=blocks,
+                                       vec=int(vec and (P * H * W) % 4 == 0)))
+            continue
+        vec = int(aligned and W % 4 == 0)
+        widths = {-(-OW // k) for k in range(1, OW + 1)}
+        widths = sorted(w_ for w_ in widths | {8, 16, 32}
+                        if 8 <= w_ <= 32 or w_ == OW <= 32)
+        for TW in widths:
+            cols = (TW - 1) * sw + (kw - 1) * dw + 1
+            if vec:
+                cols = -(-(cols + 3) // 4) * 4
+            tiles_w = -(-OW // TW)
+            for RG in range(1, DW_MAX_THREADS // TW + 1):
+                TH = RG * R
+                if TH > -(-OH // R) * R:
+                    break
+                rows = (TH - 1) * sh + span
+                if 4 * rows * (cols + 32) > SMEM_MAX:
+                    break
+                tiles_h = -(-OH // TH)
+                blocks = nc * tiles_h * tiles_w
+                cost = _dw_cost(blocks, rows * cols, TH * TW, vec)
+                if best is None or cost < best[0]:
+                    best = (cost, dict(planes=1, tile_h=TH, tile_w=TW,
+                                       rows_per_thread=R, row_groups=RG,
+                                       tiles_h=tiles_h, tiles_w=tiles_w,
+                                       rows=rows, cols=cols, flat=0,
+                                       blocks=blocks, vec=vec))
+    if best is None:
+        raise ValueError(f"quant_depthwise_conv2d: no tile of a {H}x{W} plane "
+                         f"fits {SMEM_MAX} bytes of shared memory")
+    g = best[1]
+    P, RG, TW, R = g["planes"], g["row_groups"], g["tile_w"], g["rows_per_thread"]
+    if g["flat"]:
+        pitch, plane_pitch = W, H * W
+    else:
+        pitch = _dw_pitches(RG, TW, R, sh, sw, g["cols"], 4 if g["vec"] else 1)
+        plane_pitch = g["rows"] * pitch
+    buffer = -(-(P * plane_pitch) // 4) * 4
+    smem = 4 * buffer
+    if smem > SMEM_MAX:
+        raise ValueError(f"quant_depthwise_conv2d: a {H}x{W} plane needs "
+                         f"{smem} bytes of shared memory (at most {SMEM_MAX})")
+    if g["blocks"] >= 2 ** 31:
+        raise ValueError("quant_depthwise_conv2d: too many blocks")
+    threads = -(-(P * RG * TW) // 32) * 32
+    return DwPlan(N, C, H, W, OH, OW, kh, kw, sh, sw, pt, pl, dh, dw,
+                  threads=threads, pitch=pitch, plane_pitch=plane_pitch,
+                  buffer=buffer, smem_bytes=smem, fast=fast, **g)
+
+
 def quant_depthwise_conv2d(x: torch.Tensor, w_taps: torch.Tensor, w_scale,
                            bias: Optional[torch.Tensor] = None,
                            act_scale=None, act_zero_point=None, *,
@@ -307,7 +611,9 @@ def quant_depthwise_conv2d(x: torch.Tensor, w_taps: torch.Tensor, w_scale,
     acc_dtype / requant / in_scale — the body, as ``quant_matmul``'s; with
                  ``requant`` the IntRequant is the whole epilogue.
     int8_codes — accepted (the lowering passes it to every body); B6
-                 keeps its body.
+                 keeps its body on the CUDA cores: at ~2 operations per
+                 byte it is bound by bytes, where the int8 tensor cores
+                 gain nothing.
     Returns (N, C, OH, OW) float32."""
     name = "quant_depthwise_conv2d"
     mode = act_rounding.upper()
@@ -338,8 +644,8 @@ def quant_depthwise_conv2d(x: torch.Tensor, w_taps: torch.Tensor, w_scale,
     _check_dw_epilogue(bias, relu, act_bits, **body)
     n, c, h, w = x.shape
     oh, ow = conv_out_hw(h, w, kernel_shape, strides, pads, dilations)
-    epi, s, in_div, rq, out_mul = epilogue_args(name, w_scale=w_scale, n=c,
-                                                device=x.device, **body)
+    epi, s, _, rq, out_mul = epilogue_args(name, w_scale=w_scale, n=c,
+                                           device=x.device, **body)
     b = _bias_vec(bias, c, name)
     qs = qz = None
     lo = hi = 0.0
@@ -349,18 +655,21 @@ def quant_depthwise_conv2d(x: torch.Tensor, w_taps: torch.Tensor, w_scale,
         lo, hi = static_bounds(act_signed, act_narrow, act_bits)
     out = torch.empty((n, c, max(oh, 0), max(ow, 0)), dtype=torch.float32,
                       device=x.device)
-    sh, sw = (int(v) for v in strides)
-    dh, dw = (int(v) for v in dilations)
-    pt, pl = int(pads[0]), int(pads[1])
+    if out.numel() == 0:
+        return out
+    plan = dw_launch_plan(n, c, h, w, oh, ow, kh, kw,
+                          *(tuple(int(v) for v in t)
+                            for t in (strides, dilations, pads)),
+                          x.data_ptr() % 16 == 0)
+    mode_s, div, mul = staging(in_scale)
     err = load().dw_launch(
         x.data_ptr(), w_taps.data_ptr(), s.data_ptr(),
         None if b is None else b.data_ptr(),
         None if qs is None else qs.data_ptr(),
-        None if qz is None else qz.data_ptr(), out.data_ptr(),
-        n, c, h, w, oh, ow, kh, kw, sh, sw, pt, pl, dh, dw,
+        None if qz is None else qz.data_ptr(), out.data_ptr(), plan.ints,
         int(s.numel() > 1), int(relu), int(act_bits is not None), lo, hi,
-        ROUNDING_MODE_IDS[mode], epi, in_div, rq, out_mul,
+        ROUNDING_MODE_IDS[mode], epi, div, mul, mode_s, rq, out_mul,
         torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "dw_launch")
-    launches[name] += 1
+    _counted(name, epi, mode_s)
     return out

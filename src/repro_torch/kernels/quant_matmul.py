@@ -42,10 +42,12 @@ design (in the source) shortens each step's chain of latencies: 16-byte
 stages, each converted once per block to int8 codes in shared memory
 while the previous step's ``mma.sync`` products run, one barrier a step,
 and the B3 epilogue on 32-bit integers where that is exact.  The staging
-keeps the IEEE division's bits: when ``in_scale`` is a power of two whose
-reciprocal is a finite normal float32 (``exact_reciprocal``) it
-multiplies by that reciprocal; otherwise a quotient that is exactly an
-integer is staged without dividing and any other x is divided.  Integer
+(``csrc/int_staging.cuh``, shared with B5 / B6; its host half is
+``staging`` and ``staged_values``) keeps the IEEE division's bits: when
+``in_scale`` is a power of two whose reciprocal is a finite normal
+float32 (``exact_reciprocal``) it multiplies by that reciprocal;
+otherwise a quotient that is exactly an integer is staged without
+dividing and any other x is divided.  Integer
 sums are exact, so both integer forms equal the twin bit for bit.  With
 the proof the twin raises on a staged code outside int8, so a wrong proof
 shows on the CPU.  ``int8_codes`` without ``acc_dtype=torch.int32``
@@ -58,6 +60,7 @@ tensors they launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -94,6 +97,52 @@ def exact_reciprocal(scale) -> Optional[float]:
     if not float(f32.tiny) <= abs(r) <= float(f32.max):
         return None
     return r
+
+
+# the integer bodies' staging modes (``csrc/int_staging.cuh``), by id
+STAGING_MODES = ("reciprocal", "quotient", "division")
+
+
+@functools.lru_cache(maxsize=256)
+def staging(in_scale) -> tuple[int, float, float]:
+    """How an integer body stages ``x / in_scale`` (``csrc/int_staging.cuh``,
+    shared by B2's int8 body and B5 / B6): ``(mode, div, mul)``, mode an
+    index of ``STAGING_MODES``.  ``reciprocal`` where ``exact_reciprocal``
+    holds (``mul`` that reciprocal; no in_scale is a division by 1);
+    ``quotient`` where 1 / in_scale is a finite normal float32, so that the
+    guess ``rint(x · float32(1 / in_scale))`` is worth checking; else
+    ``division``.  All three give the IEEE division's integers."""
+    div = 1.0 if in_scale is None else float(np.float32(in_scale))
+    mul = exact_reciprocal(div)
+    if mul is not None:
+        return 0, div, mul
+    d = np.float32(div)
+    with np.errstate(all="ignore"):
+        rcp = np.float32(1) / d
+    if np.isfinite(d) and d != 0 and np.isfinite(rcp) and \
+            abs(float(rcp)) >= float(np.finfo(np.float32).tiny):
+        return 1, div, 0.0
+    return 2, div, 0.0
+
+
+def staged_values(x: torch.Tensor, in_scale) -> torch.Tensor:
+    """The host half of ``csrc/int_staging.cuh``: the integers the kernels
+    stage for float32 ``x``, computed their way in float32 (the reciprocal
+    multiply, or the guess kept where ``n · div - x`` is exactly 0, else the
+    division), in float64 as ``int_values`` returns them."""
+    mode, div, mul = staging(in_scale)
+    x = x.to(torch.float32)
+    d = torch.tensor(div, dtype=torch.float32)
+    if mode == 0:
+        q = x * torch.tensor(mul, dtype=torch.float32)
+    else:
+        q = x / d
+        if mode == 1:
+            n = torch.round(x * (torch.tensor(1.0, dtype=torch.float32) / d))
+            # n · div exact in float64 (48 bits); the difference is 0 only
+            # where the float32 FMA's is
+            q = torch.where(n.double() * div - x.double() == 0, n, q)
+    return torch.round(q).to(torch.float64)
 
 
 def pack_int4(w_int: torch.Tensor) -> torch.Tensor:
@@ -261,8 +310,8 @@ def _launch(name, x, w, w_scale, bias, k, packed, acc_dtype, requant,
     if int8_codes:
         err = load().qmm_i8_launch(
             x.data_ptr(), w.data_ptr(), s.data_ptr(), bias_ptr, out.data_ptr(),
-            m, k, n, int(s.numel() > 1), epi, in_div,
-            exact_reciprocal(in_div) or 0.0, rq, out_mul, stream)
+            m, k, n, int(s.numel() > 1), epi, in_div, staging(in_scale)[2], rq,
+            out_mul, stream)
         check(err, "qmm_i8_launch")
     else:
         err = load().qmm_launch(

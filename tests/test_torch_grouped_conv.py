@@ -408,3 +408,36 @@ def test_mobilenet_224_census_equals_img_32():
     plan = t_compile(tzoo.build_mobilenet(4, 4, img=224), device="cpu")
     assert plan.fused_counts == MOBILENET_CENSUS[True]
     assert plan.grouped_conv_stats() == MOBILENET_STATS[224]
+
+
+# ------------------------------------------- ROADMAP C2's fuzz graph, pinned
+
+def test_fuzz_seed_210664_port_plan_pinned():
+    """``build_fuzz_graph(210664)`` (Quant -> depthwise Conv -> Relu ->
+    Quant -> Trunc -> two grouped Convs -> Relu -> Quant, float scales): B6's
+    and B5's own path.  The port's compiled plan on both tiers equals the
+    reference's plan and the port's oracle bit for bit; the reference's
+    oracle, whose XLA float32 grouped-conv sums differ from these by an ulp
+    at some entries, may differ from the port's by one code step of the
+    last quantizer (CEIL: a sum on a grid point flips a code), no more."""
+    from repro.core import serialize as rser
+    from repro_torch.core import serialize as tser
+    from test_fuzz_compile import build_fuzz_graph
+
+    g_ref, x = build_fuzz_graph(210664)
+    g_port = tser.graph_from_json(rser.graph_to_json(g_ref))
+    r_plan = _out(r_compile(g_ref, use_fusion=False)({"x": x}), g_ref)
+    t_oracle = _out(t_execute(ttr.cleanup(g_port), {"x": x}, device="cpu"),
+                    g_port)
+    for kw in (dict(use_analysis=False), {}):
+        plan = compile_graph(g_port, device="cpu", **kw)
+        assert plan.fused_counts.get("quant_conv_dw") == 1
+        assert plan.grouped_conv_stats()["grouped_segments"] == 3
+        got = _out(plan({"x": x}), g_port)
+        np.testing.assert_array_equal(got, r_plan)
+        np.testing.assert_array_equal(got, t_oracle)
+    last = [n for n in g_ref.toposort() if n.op_type == "Quant"][-1]
+    step = float(np.asarray(g_ref.initializers[last.inputs[1]]))
+    r_oracle = _out(r_execute(rtr.cleanup(g_ref), {"x": x}), g_ref)
+    diff = np.abs(r_oracle - t_oracle)
+    assert diff.max() <= np.float32(step)

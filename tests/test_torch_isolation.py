@@ -59,8 +59,9 @@ def test_kernel_sources_are_cuda_cpp_for_sm90a():
     from repro_torch.kernels import _build
     csrc = PKG / "kernels" / "csrc"
     srcs = sorted(p.name for p in csrc.glob("*.cu*"))
-    assert srcs == ["flash_attention.cu", "int_epilogue.cuh", "qdq_round.cuh",
-                    "quant_dequant.cu", "quant_grouped_conv.cu", "quant_matmul.cu"]
+    assert srcs == ["flash_attention.cu", "int_epilogue.cuh", "int_staging.cuh",
+                    "qdq_round.cuh", "quant_dequant.cu", "quant_grouped_conv.cu",
+                    "quant_matmul.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert set(_build.SIGNATURES) == {"qdq_launch", "qmm_launch",

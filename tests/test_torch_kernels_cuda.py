@@ -303,6 +303,170 @@ def test_integer_accumulators_at_the_limit(cuda):
             assert float(want.abs().max()) > 2 ** 23 * 2.0 ** -9
 
 
+# ------------------------- B5 / B6 redesigned: geometries and stagings
+
+CS = _chip_smoke()
+# (in_scale, x off its grid): the reciprocal, the exact-quotient check, its
+# division fallback, and the division throughout (TINY_SCALE)
+STAGINGS = CS.STAGINGS + ((CS.TINY_SCALE, False),)
+
+
+def _staged(rng, shape, in_scale, off_grid):
+    x = rng.randint(-8, 9, shape).astype(np.float32) * np.float32(in_scale)
+    if off_grid:
+        x.reshape(-1)[::7] += np.float32(in_scale / 3)
+    return torch.from_numpy(x)
+
+
+def _dw_all_bodies(cuda, rng, x, taps, geo, modes, specs, on_card_twin):
+    """B6 in the float32 body (every mode in ``modes``, at a power-of-two
+    act scale and another) and in the integer bodies at every staging,
+    each torch.equal to its twin (on the card where ``on_card_twin``, else
+    on the CPU, whose division keeps TINY_SCALE's subnormals)."""
+    c = x.shape[1]
+    s = torch.from_numpy((rng.rand(c) * 0.1 + 0.01).astype(np.float32))
+    b = torch.from_numpy(rng.randn(c).astype(np.float32))
+    for i, mode in enumerate(modes):
+        qs, qz = torch.tensor(0.125 if i % 2 else 0.173), torch.tensor(1.0)
+        kw = dict(geo, relu=True, act_bits=4, act_signed=False,
+                  act_rounding=mode)
+        args = (x, taps, s, b if i % 3 else None, qs, qz)
+        dev_args = _on(cuda, *args)
+        want = tops.quant_depthwise_conv2d_plain(
+            *(dev_args if on_card_twin else args), **kw)
+        got = tops.quant_depthwise_conv2d(*dev_args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want.cpu()), (mode, geo)
+    for k, (in_scale, off_grid) in enumerate(STAGINGS):
+        for spec in specs[k]:
+            xi = _staged(rng, tuple(x.shape), in_scale, off_grid)
+            si = s if spec is None else \
+                torch.from_numpy((2 * rng.randint(0, 5, c) + 1).astype(np.int32))
+            kw = dict(geo, acc_dtype=torch.int32, in_scale=in_scale)
+            if spec is not None:
+                kw["requant"] = spec
+            card = on_card_twin and in_scale != CS.TINY_SCALE
+            dev_args = _on(cuda, xi, taps, si)
+            want = tops.quant_depthwise_conv2d_plain(
+                *(dev_args if card else (xi, taps, si)), **kw)
+            got = tops.quant_depthwise_conv2d(*dev_args, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want.cpu()), (in_scale, off_grid, spec, geo)
+
+
+@pytest.mark.parametrize("geo", range(len(CS.DW_GEOMETRIES)))
+def test_depthwise_redesign_geometries_match_twin(cuda, geo):
+    """Planes of 1x1, 7x7 and 13x13, C off the planes per block, N = 1, odd
+    H at stride 2, asymmetric pads, dilation 2, 5x5 and 1x3 kernels, tiles
+    off 16 bytes: every rounding mode, every staging."""
+    n, c, h, w, ks, st, dil, pads = CS.DW_GEOMETRIES[geo]
+    rng = np.random.RandomState(300 + geo)
+    taps = torch.from_numpy(rng.randint(-7, 8, (ks[0] * ks[1], c)).astype(np.int8))
+    x = torch.from_numpy((rng.randn(n, c, h, w) * 3).astype(np.float32))
+    specs = [(None, INT_SPECS[3 + (geo + k) % 24]) for k in range(len(STAGINGS))]
+    _dw_all_bodies(cuda, rng, x, taps, dict(kernel_shape=ks, strides=st,
+                                            dilations=dil, pads=pads),
+                   MODES, specs, on_card_twin=False)
+
+
+@pytest.mark.parametrize("layer", range(13))
+def test_depthwise_mobilenet_224_layer_all_bodies(cuda, layer):
+    """One MobileNet-224 depthwise layer at 8 rows: the float32 body in
+    every rounding mode, the integer bodies at every staging."""
+    dw = [(cin, st, h) for kind, cin, _, st, h in CS._mobilenet_layers()
+          if kind == "dw"]
+    cin, st, h = dw[layer]
+    rng = np.random.RandomState(400 + layer)
+    taps = torch.from_numpy(rng.randint(-8, 8, (9, cin)).astype(np.int8))
+    x = torch.randn(CS.SLOT, cin, h, h,
+                    generator=torch.Generator().manual_seed(layer))
+    specs = [(INT_SPECS[3 + layer],)] * 3 + [(INT_SPECS[1],)]
+    _dw_all_bodies(cuda, rng, x, taps, dict(kernel_shape=(3, 3),
+                                            strides=(st, st), pads=(1, 1, 1, 1)),
+                   MODES, specs, on_card_twin=True)
+
+
+def test_depthwise_x_off_16_bytes_matches_twin(cuda):
+    """x starting 4 bytes past 16: the plans take their scalar staging (no
+    16-byte copies) in tile and flat mode alike."""
+    rng = np.random.RandomState(600)
+    for n, c, h in ((1, 3, 40), (2, 16, 14)):
+        buf = torch.randn(n * c * h * h + 1, generator=torch.Generator().manual_seed(h))
+        x = buf[1:].view(n, c, h, h)
+        taps = torch.from_numpy(rng.randint(-7, 8, (9, c)).astype(np.int8))
+        xd = buf.to(cuda)[1:].view(n, c, h, h)
+        assert xd.data_ptr() % 16 != 0
+        plan = tops.dw_launch_plan(n, c, h, h, h, h, 3, 3, (1, 1), (1, 1),
+                                   (1, 1, 1, 1), False)
+        assert plan.vec == 0
+        geo = dict(kernel_shape=(3, 3), pads=(1, 1, 1, 1))
+        want = tops.quant_depthwise_conv2d(x, taps, 0.125, **geo)
+        got = tops.quant_depthwise_conv2d(xd, taps.to(cuda), 0.125, **geo)
+        xi = _staged(rng, (n, c, h, h), IN_SCALE, False)
+        bi = torch.cat([torch.zeros(1), xi.reshape(-1)])
+        kw = dict(geo, acc_dtype=torch.int32, in_scale=IN_SCALE)
+        want_i = tops.quant_depthwise_conv2d(xi, taps, 0.125, **kw)
+        got_i = tops.quant_depthwise_conv2d(bi.to(cuda)[1:].view(n, c, h, h),
+                                            taps.to(cuda), 0.125, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want) and torch.equal(got_i.cpu(), want_i)
+
+
+GQ_CASES = [(i, int4) for i, (_, _, kg, _) in enumerate(CS.GQ_SHAPES)
+            for int4 in (False, True) if kg % 2 == 0 or not int4]
+
+
+@pytest.mark.parametrize("case", GQ_CASES)
+def test_grouped_matmul_redesign_shapes_match_twin(cuda, case):
+    """Ng 1, 8, 12, 16 and 40, Kg off 4 and above the staged slice, int8 and
+    int4: the float32 body exact on dyadic x, the integer bodies at every
+    staging torch.equal."""
+    i, int4 = case
+    g, m, kg, ng = CS.GQ_SHAPES[i]
+    rng = np.random.RandomState(500 + i)
+    w = torch.from_numpy(rng.randint(-7, 8, (g, kg, ng)).astype(np.int8))
+    wk = tops.pack_int4_grouped(w) if int4 else w
+    s = torch.from_numpy((2.0 ** -rng.randint(2, 6, g * ng)).astype(np.float32))
+    x = torch.from_numpy((rng.randint(-64, 65, (g, m, kg)) / 64.0).astype(np.float32))
+    want = tops.quant_grouped_matmul(x, wk, s, packed=int4)
+    got = tops.quant_grouped_matmul(*_on(cuda, x, wk, s), packed=int4)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    for k, (in_scale, off_grid) in enumerate(STAGINGS):
+        for spec in (None, INT_SPECS[3 + (i + k) % 24]):
+            xi = _staged(rng, (g, m, kg), in_scale, off_grid)
+            si = s if spec is None else \
+                torch.from_numpy((2 * rng.randint(0, 5, g * ng) + 1).astype(np.int32))
+            kw = dict(acc_dtype=torch.int32, in_scale=in_scale, packed=int4)
+            if spec is not None:
+                kw["requant"] = spec
+            want = tops.quant_grouped_matmul(xi, wk, si, **kw)
+            got = tops.quant_grouped_matmul(*_on(cuda, xi, wk, si), **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (in_scale, off_grid, spec)
+
+
+def test_staging_counts_follow_the_scale(cuda):
+    """Each integer launch of B5 / B6 is counted under the staging its
+    scale picks; float32 launches are not counted."""
+    x = torch.ones(1, 4, 6, 6, device=cuda) * 0.125
+    taps = torch.ones(9, 4, dtype=torch.int8, device=cuda)
+    xg = torch.ones(2, 5, 8, device=cuda) * 0.125
+    wg = torch.ones(2, 8, 3, dtype=torch.int8, device=cuda)
+    before = tops.staging_counts()
+    for in_scale in (0.125, IN_SCALE, CS.TINY_SCALE):
+        kw = dict(acc_dtype=torch.int32, in_scale=in_scale)
+        tops.quant_depthwise_conv2d(x, taps, torch.ones(4, device=cuda),
+                                    kernel_shape=(3, 3), **kw)
+        tops.quant_grouped_matmul(xg, wg, torch.ones(6, device=cuda), **kw)
+    tops.quant_depthwise_conv2d(x, taps, 1.0, kernel_shape=(3, 3))
+    tops.quant_grouped_matmul(xg, wg, 1.0)
+    after = tops.staging_counts()
+    for name in ("quant_depthwise_conv2d", "quant_grouped_matmul"):
+        assert {k: after[name][k] - before[name][k] for k in after[name]} == \
+            {"reciprocal": 1, "quotient": 1, "division": 1}
+
+
 # ------------------------------------------- B2 on the int8 tensor cores
 
 TC_IN_SCALES = {"pow2": 2.0 ** -3, "dyadic": IN_SCALE}
