@@ -2,6 +2,7 @@
 """GPU smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py          # on a host with one CUDA GPU (sm_90a)
+    python3 chip_smoke.py --plan-profiles   # only the integer plan calls' profiles
 
 Phases, in order; any failure raises and the script exits non-zero without
 printing a result:
@@ -43,6 +44,18 @@ printing a result:
    TINY_SCALE: the division), all ``torch.equal``; B5 at GQ_SHAPES (Ng 1,
    8, 12, 16, 40, Kg off 4 and above the staged slice, int8 and int4) in
    all three bodies and stagings; the per-staging launch counts checked.
+   Then the B4 / B1 redesign's boundaries (``check_b4_b1_redesign``): B4
+   torch.equal to its twin (NaN as NaN) in every mode, width and output
+   kind at the scales of QDQ_SCALES (reciprocals subnormal, overflowing or
+   negative; powers of two; 0.37) and a per-channel row mixing them, on
+   ±0, ±inf, NaN, subnormals, ties and clip-bound neighbours, on views
+   1-3 elements off 16 bytes, at numel 1, 3, 5 and on a tensor larger than
+   one grid sweep; B1 / B2's CUDA-core body at every cluster size (1-8)
+   and tile (16x64, 64x64, 128x32) its plan chooses, K in {1, 27, 98, 130,
+   785} at M in {1, 16} and odd N, and misaligned x views: the float32
+   body exact on dyadic x, within the order bound on randn and the same
+   bits on a repeated call, the integer bodies torch.equal with B3 in all
+   three stagings of x.
    Last B7
    (flash_attention; bf16 on its tensor-core body) against its twin at
    qwen2-1.5B's heads (12 over 2 KV heads, hd 128) and olmo-1B's (16 over
@@ -88,15 +101,20 @@ printing a result:
    at the shapes of one MobileNet-w4a4 forward at img 224 with 8 rows
    (B5 at the grouped conv's shape), for the float32 bodies and for the
    integer ones (their library call is ``torch._int_mm`` on the int8
-   operands where its shape rules allow, the epilogue not included; B2 on
+   operands where its shape rules allow, else ``torch.matmul`` on the
+   float32 codes, exact sums, the epilogue not included either way; B2 on
    the body the lowering picks, and its 13 MobileNet pointwise layers also
    on the int8 body at a power-of-two scale and on the IMAD body; B6's
    13 depthwise layers also at a power-of-two scale; the library call of
    B5's / B6's integer rows is ``torch.bmm`` / ``F.conv2d(groups=C)`` on
    the float32 codes, the same exact sums without the epilogue);
-   one MobileNet plan call's device time by kernel name (torch.profiler)
-   and the device's busy share, on each path; then each engine's requests
-   per second;
+   B4's largest MobileNet row also at a scale that is no power of two
+   (0.37: the division); one MobileNet plan call's device time by kernel
+   name (torch.profiler) and the device's busy share, on each path, and
+   one TFC-w2a2 integer plan call of 16 rows; then each engine's requests
+   per second (``--plan-profiles`` runs only the build and the two
+   integer plan calls' profiles, three times each, so that a copy of the
+   script in another tree measures that tree in the same call);
 6. the LM serving path: first qwen2's SMOKE config on the card against
    the CPU (prefill logits, greedy tokens); then qwen2-1.5B at full width
    (28 layers, W8A8 with an 8-bit KV cache, bf16 activations, seeded
@@ -893,6 +911,223 @@ def check_redesign(ops, torch, np, dev, err):
     return n_cases
 
 
+# ----------------------------------- phase 2, the B4 / B1 redesign's cases
+
+# B4's scales: reciprocals that are subnormal (2^127), overflow (2^-149, a
+# subnormal scale) or negative (-0.125), the normal extremes, the zoo's
+# powers of two and one that is no power of two (the division)
+QDQ_SCALES = (2.0 ** -149, 2.0 ** -126, 2.0 ** 126, 2.0 ** 127, -0.125, 0.125, 0.5,
+              2.0 ** -7, 0.37)
+# a per-channel row mixing powers of two (multiplied) and other scales
+# (divided); 11 columns, so vectors wrap columns
+QDQ_MIXED = (0.125, 0.37, 2.0 ** -126, 2.0 ** 127, -0.125, 1.0, 2.0 ** -149, 3.0, 0.5,
+             2.0 ** 126, 1e-3)
+# B4's widths: (bits, signed, narrow, zero point)
+QDQ_WIDTHS = ((8, True, False, 0.0), (4, False, True, 3.0), (2, True, True, -1.0),
+              (7.5, True, False, 0.0))
+# B1 / B2 (CUDA-core bodies): M in {1, 16}, the ragged K, odd N
+QMM_RAGGED = [(m, k, n) for m in (1, 16) for k, n in ((1, 9), (27, 33), (98, 65),
+                                                      (130, 9), (785, 33))]
+
+
+def qdq_edge_x(np, scale):
+    """Values a quantizer must keep its bits on: signed zeros, infinities,
+    NaN, subnormals, .5 ties and values near the clip bounds (in units of
+    ``scale``), then randn spread over the grid."""
+    tiny = 2.0 ** -149
+    base = [0.0, -0.0, np.inf, -np.inf, np.nan, tiny, -tiny, 2.0 ** -130, -(2.0 ** -127),
+            1.17549435e-38]
+    units = [0.5, -0.5, 1.5, -1.5, 2.5, -2.5, 6.5, 7.5, -7.5, -8.5, 7.49, 7.51, -8.49,
+             -8.51, 14.5, 15.5, 126.5, 127.5, -128.5, 300.0, -300.0, 0.25, 3.0]
+    with np.errstate(all="ignore"):
+        near = np.array(units, np.float32) * np.float32(scale)
+        spread = (np.random.RandomState(7).randn(66) * 9 * scale).astype(np.float32)
+    return np.concatenate([np.array(base, np.float32), near.astype(np.float32), spread])
+
+
+def equal_nan(torch, a, b) -> bool:
+    """torch.equal with every NaN equal to every NaN.  Zeros compare by
+    value, as torch.equal has them: the twin's clamp on the card (fmaxf)
+    turns a -0.0 at a lower bound of 0 into +0.0, where the kernel's
+    compare keeps -0.0, as the twin on the CPU does."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(torch.where(na, 0.0, a),
+                                               torch.where(nb, 0.0, b))
+
+
+def check_b4_b1_redesign(ops, torch, np, dev, err):
+    """B4 and B1 / B2's CUDA-core body at the redesign's boundaries, each
+    against its twin on the same inputs.  B4 torch.equal (NaN as NaN) in
+    every mode, width and output kind: the scales of QDQ_SCALES per tensor
+    and the mixed per-channel row on the edge values; views 1-3 elements
+    off 16 bytes; numel 1, 3, 5; one tensor larger than a grid sweep.  B1
+    and B2: every tile and cluster size the plan can choose, QMM_RAGGED,
+    misaligned x views; the float32 body exact on dyadic x, within the
+    order bound on randn and the same bits on a repeated call; the integer
+    bodies torch.equal with B3 on in all three stagings of x (and the
+    division at TINY_SCALE, its twin on the CPU).  Returns the number of
+    cases per kernel."""
+    from repro_torch.kernels import quant_dequant as qd
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels.quant_dequant import static_bounds
+    rng = np.random.RandomState(41)
+    specs = int_specs()
+    n_cases = {"quant_dequant": 0, "quant_matmul": 0, "quant_matmul_int4": 0}
+
+    def qdq(x, s, z, what, **kw):
+        got = ops.quant_dequant(x, s, z, **kw)
+        want = ops.quant_dequant_plain(x, s, z, **kw)
+        torch.cuda.synchronize()
+        if not equal_nan(torch, got, want):
+            raise AssertionError(f"quant_dequant differs from its twin: {what} {kw}")
+        n_cases["quant_dequant"] += 1
+
+    def widths(x, s, z_scalar, what, codes_x=None):
+        for mode in MODES:
+            for bits, signed, narrow, zp in QDQ_WIDTHS:
+                z = torch.tensor(zp, device=dev) if z_scalar is None else z_scalar
+                kw = dict(bit_width=bits, signed=signed, narrow=narrow, rounding_mode=mode)
+                qdq(x, s, z, what, **kw)
+                if static_bounds(signed, narrow, bits)[1] <= 127:
+                    qdq(x if codes_x is None else codes_x, s, z, what + " codes",
+                        emit_codes=True, **kw)
+
+    for scale in QDQ_SCALES:
+        xe = torch.from_numpy(qdq_edge_x(np, scale if abs(scale) > 2.0 ** -120 else 1.0)
+                              .reshape(3, 33)).to(dev)
+        # the code of a NaN is the cast's (undefined in C++): codes take the
+        # finite edge values
+        xc = torch.where(torch.isfinite(xe), xe, torch.zeros_like(xe))
+        widths(xe, torch.tensor(scale, device=dev), None, f"scale {scale}", xc)
+    s_mix = torch.tensor(QDQ_MIXED, device=dev)
+    z_mix = torch.tensor([0, 1, -2, 0, 3, 0, 0, -1, 2, 0, 1], dtype=torch.float32,
+                         device=dev)
+    xe = torch.from_numpy(np.concatenate([qdq_edge_x(np, 1.0), qdq_edge_x(np, 0.125),
+                                          qdq_edge_x(np, 0.37)])[:11 * 27]
+                          .reshape(27, 11)).to(dev)
+    xe[5] = xe[5] * s_mix
+    widths(xe, s_mix, z_mix, "mixed per-channel row",
+           torch.where(torch.isfinite(xe), xe, torch.zeros_like(xe)))
+    # views 1-3 elements off 16 bytes, and numel 1, 3, 5, per tensor and
+    # per channel (the scalar head and tail, the column wrap)
+    for off in (1, 2, 3):
+        for rows, cols in ((1, 1), (1, 3), (1, 5), (7, 13), (97, 130)):
+            buf = torch.randn(rows * cols + off, generator=torch.Generator().manual_seed(off))
+            x = (buf * 3).to(dev)[off:].view(rows, cols)
+            s_ch = torch.from_numpy((2.0 ** -rng.randint(1, 5, cols)).astype(np.float32))
+            s_ch[::3] = 0.37
+            for s, z in ((torch.tensor(0.125, device=dev), torch.tensor(1.0, device=dev)),
+                         (s_ch.to(dev), torch.from_numpy(rng.randint(-2, 3, cols)
+                                                         .astype(np.float32)).to(dev))):
+                for mode in MODES[::2]:
+                    for codes in (False, True):
+                        qdq(x, s, z, f"view +{off} {rows}x{cols}", bit_width=4,
+                            rounding_mode=mode, emit_codes=codes)
+    # larger than one sweep of the grid (QDQ_MAX_BLOCKS blocks), per tensor
+    # and per channel (cols odd)
+    big = torch.randn(5003, 3501, generator=torch.Generator().manual_seed(9)).to(dev) * 4
+    assert big.numel() > 4 * qd.QDQ_MAX_BLOCKS * qd.QDQ_THREADS * qd.QDQ_UMAX
+    s_big = torch.from_numpy((2.0 ** -rng.randint(1, 5, 3501)).astype(np.float32)).to(dev)
+    for s in (torch.tensor(0.125, device=dev), s_big):
+        for codes in (False, True):
+            qdq(big, s, torch.tensor(0.0, device=dev), "beyond a grid sweep", bit_width=4,
+                emit_codes=codes)
+    err["quant_dequant"] = 0.0
+
+    # B1 / B2 on the CUDA cores
+    def staged(shape, in_scale, off_grid):
+        return _staged_x(torch, np, rng, shape, dev, in_scale, off_grid)
+
+    def twin(plain, args, kw, cpu):
+        if not cpu:
+            return plain(*args, **kw)
+        return plain(*(a.cpu() if torch.is_tensor(a) else a for a in args), **kw).to(dev)
+
+    def mm_case(m, k, n, int4, x_view=0, want_plan=None):
+        name = "quant_matmul_int4" if int4 else "quant_matmul"
+        fn, plain = ((ops.quant_matmul_int4, ops.quant_matmul_int4_plain) if int4
+                     else (ops.quant_matmul, ops.quant_matmul_plain))
+        what = f"{name} {m}x{k}x{n} view+{x_view}"
+        lo, hi = (-8, 7) if int4 else (-127, 127)
+        w = torch.from_numpy(rng.randint(lo, hi + 1, (k, n)).astype(np.int8))
+        wk = (ops.pack_int4(w) if int4 else w).to(dev)
+        s = torch.from_numpy((2.0 ** -rng.randint(2, 6, n)).astype(np.float32)).to(dev)
+        b = torch.from_numpy((rng.randint(-64, 64, n) / 16.0).astype(np.float32)).to(dev)
+
+        def place(x):          # x as it is, or a view x_view elements off 16 bytes
+            if not x_view:
+                return x
+            buf = torch.zeros(x.numel() + x_view, device=dev)
+            buf[x_view:] = x.reshape(-1)
+            return buf[x_view:].view(x.shape)
+        plan = qm.qmm_launch_plan(m, k, n, int4, 0, not x_view)
+        if want_plan is not None and (qm.QMM_TILE_NAMES[plan.tile], plan.split) != want_plan:
+            raise AssertionError(f"{what}: plan {plan}, expected {want_plan}")
+        xd = place(torch.from_numpy((rng.randint(-128, 129, (m, k)) / 128.0)
+                                    .astype(np.float32)).to(dev))
+        got = fn(xd, wk, s, b)
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain(xd, wk, s, b)):
+            raise AssertionError(f"{what} differs on dyadic x")
+        xr = place(torch.randn(m, k, generator=torch.Generator().manual_seed(m + k + n))
+                   .to(dev))
+        got = fn(xr, wk, s, b)
+        again = fn(xr, wk, s, b)
+        want = plain(xr, wk, s, b)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{what}: two calls on the same x differ")
+        mag = (xr.abs() @ w.to(dev).float().abs()) * s.abs()
+        diff = (got - want).abs()
+        if bool((diff > 2 * k * 2.0 ** -24 * mag + 2.0 ** -23 * want.abs()).any()):
+            raise AssertionError(f"{what} beyond the order bound")
+        err[name] = max(err[name], float(diff.max()))
+        n_cases[name] += 3
+        for j, (in_scale, off_grid) in enumerate(STAGINGS + ((TINY_SCALE, False),)):
+            spec = specs[3 + (j + k + n) % 24] if j % 2 == 0 else specs[1 + j % 2]
+            si = torch.from_numpy((2 * rng.randint(0, 5, n) + 1).astype(np.int32)).to(dev)
+            xi = place(staged((m, k), in_scale, off_grid))
+            kw = dict(acc_dtype=torch.int32, requant=spec, in_scale=in_scale)
+            got = fn(xi, wk, si, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, twin(plain, (xi, wk, si), kw, in_scale == TINY_SCALE)):
+                raise AssertionError(f"{what} integer body, in_scale={in_scale} "
+                                     f"off_grid={off_grid} {spec}")
+            n_cases[name] += 1
+        xi = place(staged((m, k), 1.0, False))
+        kw = dict(acc_dtype=torch.int32)
+        got = fn(xi, wk, s, b, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain(xi, wk, s, b, **kw)):
+            raise AssertionError(f"{what} int32 body, float32 epilogue")
+        n_cases[name] += 1
+
+    # every cluster size (K = 64 s at one 16x64 tile), then the two large tiles
+    for split in range(1, 9):
+        for int4 in (False, True):
+            mm_case(16, 64 * split, 33, int4, want_plan=("small", split))
+    for int4 in (False, True):
+        mm_case(4300, 98, 65, int4, want_plan=("wide", 1))
+        mm_case(8500, 28, 31, int4, want_plan=("tall", 1))
+    mm_case(8500, 27, 31, False, want_plan=("tall", 1))
+    mm_case(256, 784, 64, False, want_plan=("small", 7))
+    for m, k, n in QMM_RAGGED:
+        for int4 in (False, True) if k % 2 == 0 else (False,):
+            mm_case(m, k, n, int4)
+    for m, k, n in ((256, 784, 64), (16, 27, 33), (100, 130, 9)):
+        for off in (1, 3):
+            mm_case(m, k, n, False, x_view=off)
+            mm_case(m, k + k % 2, n, True, x_view=off)
+    for k in INT_KERNELS:
+        err[k + "/int32"] = 0.0
+    print(f"B4 / B1 redesign cases: {n_cases}", flush=True)
+    return n_cases
+
+
 # ------------------------------------------------------------ phases 3 + 4
 
 _ORACLES: dict = {}
@@ -1379,6 +1614,18 @@ def timings(ops, torch, dev):
     return rows
 
 
+QDQ_DIV = "quant_dequant (scale 0.37, the division)"
+
+
+def timings_qdq_division(ops, torch, dev):
+    """B4's division path: its largest MobileNet-224 row (the act Quant of
+    the first pointwise conv, SLOT rows) at a scale that is no power of
+    two.  Outside the sums: the zoo's act scales are powers of two."""
+    g = torch.Generator().manual_seed(16)
+    return {QDQ_DIV: [_qdq_row(ops, torch, dev, g, SLOT, 64 * 112 * 112, 4, False, 0.37,
+                               f"{SLOT}x{64 * 112 * 112}")]}
+
+
 def timings_mobilenet(ops, torch, dev):
     """Per kernel, the rows of one MobileNet-w4a4 forward at img 224 with
     SLOT rows (B5: the grouped conv of phase 3)."""
@@ -1463,7 +1710,10 @@ def _int_matmul_row(ops, torch, dev, g, m, k, n, int4, shape, int8_codes=False,
     """One integer-body row; for B2 ``int8_codes`` picks the int8 tensor-core
     body (else IMAD), ``in_scale`` the staging division (IN_SCALE) or the
     exact reciprocal multiply (a power of two), and ``spec`` the epilogue
-    (B3 by default; None: the float32 epilogue over the same int32 sums)."""
+    (B3 by default; None: the float32 epilogue over the same int32 sums).
+    Its library yardstick is ``torch._int_mm`` on the int8 operands where
+    that call's shape rules allow, else ``torch.matmul`` on the float32
+    codes (the same exact sums), the epilogue left out either way."""
     q = torch.randint(-8, 9, (m, k), generator=g, dtype=torch.int8)
     x = (q.float() * in_scale).to(dev)
     w = torch.randint(-8 if int4 else -127, 8 if int4 else 128, (k, n), generator=g,
@@ -1486,12 +1736,13 @@ def _int_matmul_row(ops, torch, dev, g, m, k, n, int4, shape, int8_codes=False,
     if _int_mm_ok(m, k, n):
         q8, w8 = q.to(dev), w.to(dev)
         fns["library_ms"] = lambda: torch._int_mm(q8, w8)
+    else:                   # the same sums on the float32 codes, exact below 2^24
+        qf, wf = q.float().to(dev), w.float().to(dev)
+        fns["library_ms"] = lambda: torch.matmul(qf, wf)
     row = dict(shape=shape, **_timed(**fns),
                bytes_ms=(4 * m * k + (k * n // 2 if int4 else k * n) + 4 * n + 4 * m * n)
                / HBM_BYTES_PER_S * 1e3,
                ops_ms=2 * m * k * n / INT8_OPS * 1e3)
-    row.setdefault("library_ms", None)
-    row.setdefault("library_call_ms", None)
     return row
 
 
@@ -1597,7 +1848,7 @@ def _int_dw_row(ops, torch, dev, q, taps, stride, in_scale, spec):
                 ops_ms=18 * n_out / INT8_OPS * 1e3)
 
 
-def profile_forward(torch, plan, x, label, reps=5):
+def profile_forward(torch, plan, x, label, model="MobileNet-224", reps=5):
     """One plan call's device time by kernel name (torch.profiler), beside
     its wall time without the profiler: the device's busy share."""
     from torch.profiler import ProfilerActivity, profile
@@ -1620,11 +1871,29 @@ def profile_forward(torch, plan, x, label, reps=5):
             t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
             by_name[e.key] = (t / reps / 1e3, e.count / reps)
     busy = sum(t for t, _ in by_name.values())
-    print(f"profile[{label}]: one MobileNet-224 plan call of {len(x)} rows: wall "
+    print(f"profile[{label}]: one {model} plan call of {len(x)} rows: wall "
           f"{wall_ms:.6f} ms (no profiler), kernels {busy:.6f} ms (profiler), device busy "
           f"share {busy / wall_ms:.3f}", flush=True)
     for key, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]:
         print(f"profile[{label}]:   {t:.6f} ms in {n:g} launches  {key[:110]}", flush=True)
+
+
+def plan_profiles(torch, np, dev, turns=3):
+    """``--plan-profiles``: only the integer plan calls' device time by
+    kernel (profile_forward), TFC-w2a2 at 16 rows and the rescaled
+    MobileNet-w4a4 at img 224 with SLOT rows, on the inputs of phases 3'
+    and 4', ``turns`` times each.  A copy of this script in another tree
+    profiles that tree's kernels, so one call can compare two trees."""
+    from repro_torch.core import compile_graph
+    from repro_torch.models import zoo
+    tfc = compile_graph(zoo.build_tfc(2, 2), device=dev)
+    mob = compile_graph(zoo.rescale_conv_gains(zoo.build_mobilenet(4, 4, img=224)),
+                        device=dev)
+    xt = np.random.RandomState(3).randn(16, 784).astype(np.float32)
+    xm = np.random.RandomState(13).randn(SLOT, 3, 224, 224).astype(np.float32)
+    for i in range(turns):
+        profile_forward(torch, tfc, xt, f"integer path, turn {i}", "TFC-w2a2")
+        profile_forward(torch, mob, xm, f"integer path, turn {i}")
 
 
 def walls_in_turns(torch, plans: dict, x, pairs=10, reps=5):
@@ -1661,7 +1930,7 @@ def report(rows, launches, err, label):
     for name, rs in rows.items():
         if not rs:
             continue
-        base = name.split("/")[0]
+        base = name.split("/")[0].split(" (")[0]
         for r in rs:
             bound = max(r["bytes_ms"], r["ops_ms"])
             print(f"time[{label}] {name} {r['shape']}: device kernel {r['ms']:.6f} ms, plain "
@@ -2030,6 +2299,9 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_info.get('seconds', 0.0):.2f} s)", flush=True)
     print(_build.build_info.get("log", "(library reused)"), flush=True)
+    if sys.argv[1:] == ["--plan-profiles"]:
+        plan_profiles(torch, np, dev)
+        return 0
 
     # phase 2: each kernel against its twin
     err = {k: 0.0 for k in REPLACES}
@@ -2043,6 +2315,7 @@ def main() -> int:
     n_int = check_integer(ops, torch, np, dev, err)
     print(f"integer bodies vs twins (torch.equal): {n_int} cases", flush=True)
     check_redesign(ops, torch, np, dev, err)
+    check_b4_b1_redesign(ops, torch, np, dev, err)
     check_flash_attention(ops, torch, dev, err)
 
     # phases 3 + 4: the float32-epilogue path (use_analysis=False), counted
@@ -2075,6 +2348,11 @@ def main() -> int:
     kernels = report(rows, launches, err, f"MobileNet-224 N={SLOT}")
     print(f"(sums above: one MobileNet-w4a4 forward at img 224 with {SLOT} rows; "
           "B5 over the grouped conv's one layer)", flush=True)
+    report(timings_qdq_division(ops, torch, dev), {QDQ_DIV: launches["quant_dequant"]},
+           {QDQ_DIV: err["quant_dequant"]},
+           f"MobileNet-224 N={SLOT}, B4 division")
+    print("(above: B4's largest MobileNet-224 row at a scale that is no power of two, "
+          "timed in the same run)", flush=True)
     tfc_int, mob_int, b2_rows, b6_rows = int_timings(ops, torch, dev)
     report(tfc_int, launches, err, "TFC M=256, integer")
     print("(sums above: one TFC forward at M=256 on the integer bodies)", flush=True)
@@ -2095,6 +2373,7 @@ def main() -> int:
           "staging of the main path's scales, timed in the same run)", flush=True)
     profile_forward(torch, lplan, x8, "float32 epilogue")
     profile_forward(torch, iplan, ix8, "integer path")
+    profile_forward(torch, ieng.plan, ixt[:16], "integer path", "TFC-w2a2")
     walls_in_turns(torch, {"float32 epilogue": lplan, "integer path": iplan}, x8)
     # engines in turns: float32, integer, integer, float32
     for model, pair in (("TFC-w2a2, max_batch=16", ((eng, xt), (ieng, ixt))),

@@ -26,25 +26,31 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+# the card the host plans size their grids and shared memory for (H100 SXM)
+SMS = 132                      # streaming multiprocessors
+SMEM_MAX = 232_448             # shared memory one block may use
 # -Xptxas -v only adds the register / shared-memory report to the build log
 NVCC_FLAGS = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # the C interface: (name, argument types); each entry returns cudaError_t
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# the epilogue's tail of B1 / B2 / B5 / B6: body (epi), x divisor (in_div),
+# the epilogue's tail of B1 / B2 (CUDA cores) / B5 / B6: body (epi), x
+# divisor (in_div), its exact reciprocal (in_mul), the staging mode of x,
 # the IntRequant ints (rq, a host pointer or null) and the output scale
-_EPI = [_I, _F, _P, _F]
 _STAGE = [_I, _F, _F, _I, _P, _F]
 SIGNATURES = {
-    "qdq_launch": [_P, _P, _P, _P, _LL, _I, _I, _I, _F, _F, _I, _I, _P],
-    "qmm_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + _EPI + [_P],
+    # B4: x, s, z, out, the plan's geometry (a long long array), s_stride,
+    # z_stride, lo, hi, mode, codes
+    "qdq_launch": [_P] * 5 + [_I, _I, _F, _F, _I, _I, _P],
+    # B1 / B2 on the CUDA cores: x, w, s, bias, out, the plan's geometry (an
+    # int array), s_stride, packed, then the epilogue tail
+    "qmm_launch": [_P] * 6 + [_I, _I] + _STAGE + [_P],
     # B2 on the int8 tensor cores: M, K, N, s_stride, epi; in_div, in_mul;
     # rq; out_mul
     "qmm_i8_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _F,
                       _P],
     # B5 / B6: x, w, s, bias, [qs, qz,] out, the plan's geometry (an int
-    # array), ...; their epilogue tail adds the staging mode after in_div
-    # and in_mul: epi, in_div, in_mul, stage_mode, rq, out_mul
+    # array), ..., then the epilogue tail
     "gqmm_launch": [_P] * 6 + [_LL] * 4 + [_I, _I] + _STAGE + [_P],
     "dw_launch": [_P] * 8 + [_I, _I, _I, _F, _F, _I] + _STAGE + [_P],
     # q, k, v, out; B, H, KV, Sq, Sk, hd, dtype, causal; scale; 12 strides

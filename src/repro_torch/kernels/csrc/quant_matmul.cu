@@ -8,28 +8,58 @@
 // nibble and row 2r+1 in the high nibble, both sign-extended; s scalar
 // (stride 0) or per column; bias per column or absent.
 //
-// qmm_kernel: three bodies, chosen by the EPI template parameter as the
-// reference chooses by `acc_dtype` and `requant`:
+// cc::qmm_kernel (B1, and B2's float32 and IMAD bodies): three bodies,
+// chosen by the EPI template parameter as the reference chooses by
+// `acc_dtype` and `requant`:
 //   EPI_F32  a true float32 dot, as the reference's: FMA on the CUDA
 //            cores, no TF32 or tensor-core path; (acc * s) rounded, + bias;
-//   EPI_I32  an int32 dot of integer values: x (divided by in_div, an IEEE
-//            __fdiv_rn, unless in_div is 1) is converted with
-//            __float2int_rn as its tile is staged, the weights as int8 or
-//            unpacked nibbles, IMAD on the CUDA cores; then float(acc) * s,
-//            + bias;
+//   EPI_I32  an int32 dot of integer values: x is staged as round(x /
+//            in_div) by int_staging.cuh (shared with B2's int8 body, B5 and
+//            B6: a reciprocal multiply at a power-of-two in_div, else an
+//            exact-quotient check, else __fdiv_rn, all with the IEEE
+//            division's bits), the weights as int8 or unpacked nibbles,
+//            IMAD on the CUDA cores; then float(acc) * s, + bias;
 //   EPI_B3   the same int32 dot, then the integer requant epilogue B3
-//            (int_epilogue.cuh) with s carrying int32 multipliers, + bias.
+//            (int_epilogue.cuh; its 32-bit path where no intermediate can
+//            leave int32) with s carrying int32 multipliers, + bias.
 // On the integer path the lowering divides x by the activation scale here,
-// in the staging load: it proved the quotient an integer (q - z), which a
+// in the staging: it proved the quotient an integer (q - z), which a
 // correctly rounded division returns exactly.
-// Each block owns a 32x32 output tile and walks the whole K axis itself
-// (K is not a grid axis, so no partial sums cross blocks); 256 threads
-// each keep 2x2 accumulators.  A K step stages a 32x32 slice of x and of
-// the weights in shared memory; B2 unpacks the nibbles while it stages
-// them, so the packed bytes are what device memory serves.  Ragged edges
-// load zeros instead of padding copies.  At the TFC shapes (M <= 256,
-// K <= 784, N <= 64) the work is small: the bound is the FMA / IMAD rate for
-// the 784-wide layer and the bytes of x for the rest.
+// Bound on the card: at TFC's shapes (M <= 256, K <= 784, N <= 64) a few
+// hundred nanoseconds of FMA, IMAD or bytes; at the first convs of CNV and
+// MobileNet (K = 27, M up to 100352) the bytes of x and the output.  What
+// a simple kernel pays at TFC is the chain of latencies of too few blocks
+// (a 32x32 tile gave 16 blocks on 132 SMs at 256x784x64, each walking all
+// 25 K steps), so the design fills the card and shortens each block's chain:
+//   - the geometry is the host plan's (quant_matmul.py · qmm_launch_plan):
+//     a 16x64 output tile at small M, 64x64 or 128x32 (N <= 32) where those
+//     give half a wave of blocks or more; 256 threads, each 1x4 or 4x4
+//     outputs;
+//   - where the tiles do not fill the card, K is split across a thread
+//     block cluster of up to 8 CTAs (the portable limit): CTA r of a
+//     cluster sums the contiguous range [r kc, (r + 1) kc) of K, the
+//     partial tiles meet in shared memory, and each CTA reduces its slice
+//     of the tile over the cluster's CTAs through distributed shared
+//     memory in rank order 0, 1, ..., then runs the epilogue on it: one
+//     launch, no atomics, the same bits on every call.  A float32 split
+//     only reorders the sums (within the order bound 2 K 2^-24 (|x| @ |w|)
+//     |s|; exact on dyadic x); int32 sums wrap alike in any order;
+//   - x comes by 16-byte cp.async (rows where K % 4 == 0 and x lies on 16
+//     bytes; where K < BK the block's rows are one contiguous span, copied
+//     flat and read with pitch K, as at K = 27), else element by element;
+//     the weight bytes by 16-byte cp.async where N % 16 == 0; into a ring
+//     of 3 raw stages, so the loads run 2 K steps ahead;
+//   - each raw stage is converted once per block into one of two buffers:
+//     the weights (int8 or unpacked nibbles) to float32 or int32, x on the
+//     integer bodies to its staged integers; the float32 body reads x as
+//     it landed.  Step s computes buffer s & 1 and then converts step
+//     s + 1 into the other, so one barrier a step serves both;
+//   - ragged M, N and K are zero-filled while loading (a zero weight adds
+//     nothing); the flat span is read only up to K;
+//   - B3 runs with its rounding mode chosen once per thread (a template
+//     constant) and its int64 path out of line: a mode switch at every
+//     output and the int64 code inlined at each took the 128x32 integer
+//     tile to 128 registers a thread.
 //
 // qmm_i8_kernel: B2's integer body on the int8 tensor cores (EPI_I32 and
 // EPI_B3), taken where the lowering proved every staged code q - z in
@@ -75,117 +105,23 @@
 // of the integer path is such a multiple.  The int32
 // sums of integer products are exact in any order, so this body equals the
 // IMAD body and the twin bit for bit.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "int_epilogue.cuh"
 #include "int_staging.cuh"
 
 namespace {
 
-constexpr int BM = 32, BN = 32, BK = 32, THREADS = 256;
 enum Epi { EPI_F32 = 0, EPI_I32 = 1, EPI_B3 = 2 };
 
 template <int EPI>
 struct Acc { using T = int; };
 template <>
 struct Acc<EPI_F32> { using T = float; };
-
-// one staged x element: float32 as it is, or its integer value
-template <int EPI>
-__device__ __forceinline__ typename Acc<EPI>::T stage_x(float v, float in_div) {
-  if (EPI == EPI_F32) return v;
-  if (in_div != 1.0f) v = __fdiv_rn(v, in_div);
-  return __float2int_rn(v);
-}
-
-template <bool PACKED, int EPI>
-__global__ void __launch_bounds__(THREADS)
-qmm_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
-           const void* __restrict__ s, const float* __restrict__ bias,
-           float* __restrict__ out, int M, int K, int N, int s_stride, float in_div,
-           b3::IntReq rq) {
-  using T = typename Acc<EPI>::T;
-  __shared__ T xs[BM][BK + 1];
-  __shared__ T ws[BK][BN + 1];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
-  T acc[2][2] = {{0, 0}, {0, 0}};
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int e = threadIdx.x; e < BM * BK; e += THREADS) {
-      const int r = e / BK, c = e % BK;
-      const int gr = row0 + r, gk = k0 + c;
-      xs[r][c] = (gr < M && gk < K) ? stage_x<EPI>(x[(long long)gr * K + gk], in_div) : T(0);
-    }
-    for (int e = threadIdx.x; e < BK * BN; e += THREADS) {
-      const int r = e / BN, c = e % BN;
-      const int gk = k0 + r, gc = col0 + c;
-      int v = 0;
-      if (gk < K && gc < N) {
-        if (PACKED) {
-          const int b = w[(long long)(gk >> 1) * N + gc];
-          v = (gk & 1) ? (b >> 4) : ((int)(int8_t)(b << 4) >> 4);
-        } else {
-          v = w[(long long)gk * N + gc];
-        }
-      }
-      ws[r][c] = T(v);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const T a0 = xs[ty][kk], a1 = xs[ty + 16][kk];
-      const T b0 = ws[kk][tx], b1 = ws[kk][tx + 16];
-      if (EPI == EPI_F32) {
-        acc[0][0] = fmaf(a0, b0, acc[0][0]);
-        acc[0][1] = fmaf(a0, b1, acc[0][1]);
-        acc[1][0] = fmaf(a1, b0, acc[1][0]);
-        acc[1][1] = fmaf(a1, b1, acc[1][1]);
-      } else {
-        acc[0][0] += a0 * b0;
-        acc[0][1] += a0 * b1;
-        acc[1][0] += a1 * b0;
-        acc[1][1] += a1 * b1;
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int r = row0 + ty + 16 * i, c = col0 + tx + 16 * j;
-      if (r < M && c < N) {
-        float o;
-        if (EPI == EPI_B3) {
-          o = b3::int_epilogue((int)acc[i][j], static_cast<const int*>(s)[c * s_stride], rq);
-        } else {
-          const float a = EPI == EPI_F32 ? (float)acc[i][j] : __int2float_rn((int)acc[i][j]);
-          o = __fmul_rn(a, static_cast<const float*>(s)[c * s_stride]);
-        }
-        if (bias != nullptr) o = __fadd_rn(o, bias[c]);
-        out[(long long)r * N + c] = o;
-      }
-    }
-  }
-}
-
-template <bool PACKED>
-void qmm_epi(int epi, dim3 grid, cudaStream_t st, const float* x, const int8_t* w,
-             const void* s, const float* bias, float* out, int M, int K, int N, int s_stride,
-             float in_div, const b3::IntReq& rq) {
-  if (epi == EPI_F32)
-    qmm_kernel<PACKED, EPI_F32><<<grid, THREADS, 0, st>>>(x, w, s, bias, out, M, K, N,
-                                                          s_stride, in_div, rq);
-  else if (epi == EPI_I32)
-    qmm_kernel<PACKED, EPI_I32><<<grid, THREADS, 0, st>>>(x, w, s, bias, out, M, K, N,
-                                                          s_stride, in_div, rq);
-  else
-    qmm_kernel<PACKED, EPI_B3><<<grid, THREADS, 0, st>>>(x, w, s, bias, out, M, K, N,
-                                                         s_stride, in_div, rq);
-}
 
 // ------------------------------------------- B2 on the int8 tensor cores
 
@@ -520,6 +456,374 @@ int launch_i8_k(dim3 grid, cudaStream_t st, const float* x, const int8_t* w, con
 
 }  // namespace tc
 
+// ----------------------------------- B1 / B2 on the CUDA cores (FMA, IMAD)
+
+namespace cc {
+
+namespace cg = cooperative_groups;
+
+constexpr int THREADS = 256, BK = 32, STAGES = 3;
+constexpr int XP = BK + 4;            // x row pitch in row mode: 16-byte rows, 4 banks apart
+enum Tile { SMALL = 0, WIDE = 1, TALL = 2 };
+enum XMode { X_SCALAR = 0, X_VEC = 1, X_FLAT = 2 };
+
+// the host plan's geometry (quant_matmul.py · qmm_launch_plan, QMM_GEO_FIELDS)
+struct Geo {
+  int M, K, N, tile, tiles_m, tiles_n, split, kc, stages, bufs, xmode, wvec, ovec, smem;
+};
+
+template <int EPI>
+struct Vec { using T = int4; };
+template <>
+struct Vec<EPI_F32> { using T = float4; };
+
+// shared memory of one block, in bytes (each part a multiple of 16): a ring
+// of `stages` raw slots (x as loaded, then the weight bytes), then `bufs`
+// converted buffers (the weights as T, [k][n], then x staged to integers
+// on the integer bodies).  A launch whose CTAs take fewer K steps than 3
+// allocates only the slots they use (quant_matmul.py · qmm_smem_bytes), so
+// more blocks fit an SM; the partial tiles of a split reuse the ring.
+template <int BM, int BN, bool PACKED, int EPI>
+struct Layout {
+  static constexpr int WR = PACKED ? BK / 2 : BK;        // weight byte rows a step
+  static constexpr int XSLOT = 4 * BM * XP, WSLOT = WR * BN;
+  static constexpr int WCBUF = 4 * BK * BN, XCBUF = EPI == EPI_F32 ? 0 : 4 * BM * XP;
+  static constexpr int RAW = XSLOT + WSLOT, BUF = WCBUF + XCBUF;
+  static constexpr int bytes(int stages, int bufs) { return stages * RAW + bufs * BUF; }
+  static_assert(XSLOT % 16 == 0 && WSLOT % 16 == 0 && WCBUF % 16 == 0, "16-byte parts");
+};
+
+__device__ __forceinline__ void mac(float& acc, float a, float b) { acc = fmaf(a, b, acc); }
+__device__ __forceinline__ void mac(int& acc, int a, int b) {
+  acc = (int)((uint32_t)acc + (uint32_t)a * (uint32_t)b);          // wraps as int32
+}
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ int add(int a, int b) { return (int)((uint32_t)a + (uint32_t)b); }
+
+// B3's general path (int64), out of line: an act Quant whose values may
+// leave int32, taken at few outputs or none
+__device__ __noinline__ float b3_general(int acc, int mult, const b3::IntReq rq) {
+  return b3::int_epilogue(acc, mult, rq);
+}
+
+// one output through the epilogue, then the bias.  B3 without an act
+// Quant is int_epilogue's first lines; with one, its 32-bit path in
+// rounding mode MODE where the host's check (e.fast) and |acc * mult| <
+// 2^30 hold, else the general path
+template <int EPI, int MODE>
+__device__ __forceinline__ float epi1(typename Acc<EPI>::T a, int c, const void* s, int s_stride,
+                                      const float* bias, const b3::Req32& e) {
+  float o;
+  if constexpr (EPI == EPI_B3) {
+    const int mult = static_cast<const int*>(s)[c * s_stride];
+    int p = (int)((uint32_t)a * (uint32_t)mult);
+    if (!e.rq.has_act) {
+      if (e.rq.relu && p < 0) p = 0;
+      o = __fmul_rn(__int2float_rn(p), e.rq.out_mul);
+    } else {
+      o = e.fast && b3::fits32(p) ? b3::int_epilogue32<MODE>(p, e) : b3_general(a, mult, e.rq);
+    }
+  } else if constexpr (EPI == EPI_I32) {
+    o = __fmul_rn(__int2float_rn(a), static_cast<const float*>(s)[c * s_stride]);
+  } else {
+    o = __fmul_rn(a, static_cast<const float*>(s)[c * s_stride]);
+  }
+  if (bias != nullptr) o = __fadd_rn(o, bias[c]);
+  return o;
+}
+
+// f(std::integral_constant<int, MODE>) with B3's rounding mode as MODE,
+// chosen once for a thread's outputs (0 off the B3 body)
+template <int EPI, typename F>
+__device__ __forceinline__ void with_mode(const b3::Req32& e, F&& f) {
+  using std::integral_constant;
+  if constexpr (EPI != EPI_B3) {
+    f(integral_constant<int, 0>{});
+  } else {
+    switch (e.rq.mode) {
+      case b3::CEIL: f(integral_constant<int, b3::CEIL>{}); break;
+      case b3::FLOOR: f(integral_constant<int, b3::FLOOR>{}); break;
+      case b3::UP: f(integral_constant<int, b3::UP>{}); break;
+      case b3::DOWN: f(integral_constant<int, b3::DOWN>{}); break;
+      case b3::HALF_UP: f(integral_constant<int, b3::HALF_UP>{}); break;
+      case b3::HALF_DOWN: f(integral_constant<int, b3::HALF_DOWN>{}); break;
+      default: f(integral_constant<int, b3::ROUND>{}); break;
+    }
+  }
+}
+
+// four weight values (int8 bytes, or nibbles as ints) as a T vector
+template <typename V, typename T>
+__device__ __forceinline__ V vec4(int a, int b, int c, int d) {
+  return V{T(a), T(b), T(c), T(d)};
+}
+
+// Each block: one BM x BN output tile, or with a split (cluster) the K range
+// of its cluster rank; TX x TY threads, thread (tx, ty) owning rows
+// ty + TY i (i < TM) and columns TN tx .. TN tx + 3.
+template <int BM, int BN, int TM, int TN, bool PACKED, int EPI>
+__global__ void __launch_bounds__(THREADS)
+qmm_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
+           const void* __restrict__ s, const float* __restrict__ bias,
+           float* __restrict__ out, Geo g, int s_stride, stg::Stage xst, b3::Req32 rq) {
+  using T = typename Acc<EPI>::T;
+  using V = typename Vec<EPI>::T;
+  using L = Layout<BM, BN, PACKED, EPI>;
+  constexpr int TX = BN / TN, TY = THREADS / TX, WR = L::WR;
+  static_assert(TN == 4 && TY * TM == BM, "tile");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* const bufs = smem_raw + g.stages * L::RAW;
+  auto xraw = [&](int slot) { return reinterpret_cast<float*>(smem_raw + slot * L::RAW); };
+  auto wraw = [&](int slot) { return smem_raw + slot * L::RAW + L::XSLOT; };
+  auto wconv = [&](int buf) { return reinterpret_cast<T*>(bufs + buf * L::BUF); };
+  auto xconv = [&](int buf) { return reinterpret_cast<int*>(bufs + buf * L::BUF + L::WCBUF); };
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int split = g.split;
+  const int rank = split > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int row0 = (blockIdx.x / split) * BM, col0 = blockIdx.y * BN;
+  const int k_lo = rank * g.kc, k_hi = min(g.K, k_lo + g.kc);
+  const int steps = k_hi > k_lo ? (k_hi - k_lo + BK - 1) / BK : 0;
+  const int xp = g.xmode == X_FLAT ? g.K : XP;
+  const uint8_t* wb = reinterpret_cast<const uint8_t*>(w);
+  const int wr_hi = PACKED ? k_hi / 2 : k_hi;           // weight byte rows end
+
+  // the raw x and weight bytes of the K step at k0 into ring slot `slot`
+  auto load = [&](int slot, int k0) {
+    float* xs = xraw(slot);
+    if (g.xmode == X_FLAT) {                // one step: the tile's rows are one span
+      const int span = min(BM, g.M - row0) * g.K;
+      const float* src = x + (long long)row0 * g.K;
+      for (int c = tid; c < (BM * g.K + 3) / 4; c += THREADS) {
+        const int bytes = max(0, min(16, 4 * (span - 4 * c)));
+        tc::cp_async16(xs + 4 * c, bytes ? src + 4 * c : x, bytes);
+      }
+    } else if (g.xmode == X_VEC) {
+      for (int c = tid; c < BM * (BK / 4); c += THREADS) {
+        const int r = c / (BK / 4), kq = c % (BK / 4) * 4, gk = k0 + kq;
+        const bool in = row0 + r < g.M && gk < k_hi;
+        tc::cp_async16(xs + r * XP + kq, in ? x + (long long)(row0 + r) * g.K + gk : x,
+                       in ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < BM * BK; e += THREADS) {
+        const int r = e / BK, kk = e % BK, gk = k0 + kk;
+        xs[r * XP + kk] = row0 + r < g.M && gk < k_hi ? x[(long long)(row0 + r) * g.K + gk] : 0.f;
+      }
+    }
+    uint8_t* ws = wraw(slot);
+    const int pr0 = PACKED ? k0 / 2 : k0;
+    if (g.wvec) {
+      for (int c = tid; c < WR * (BN / 16); c += THREADS) {
+        const int r = c / (BN / 16), cb = c % (BN / 16) * 16, pr = pr0 + r;
+        const bool in = pr < wr_hi && col0 + cb < g.N;
+        tc::cp_async16(ws + r * BN + cb, in ? wb + (long long)pr * g.N + col0 + cb : wb,
+                       in ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < WR * BN; e += THREADS) {
+        const int r = e / BN, n = e % BN, pr = pr0 + r;
+        ws[e] = pr < wr_hi && col0 + n < g.N ? wb[(long long)pr * g.N + col0 + n] : 0;
+      }
+    }
+  };
+
+  // raw slot -> buffer `buf`: the weights as T, x staged (integer bodies)
+  auto convert = [&](int slot, int buf) {
+    const uint8_t* ws = wraw(slot);
+    T* wc = wconv(buf);
+    for (int i = tid; i < WR * BN / 4; i += THREADS) {
+      const uint32_t b4 = *reinterpret_cast<const uint32_t*>(ws + 4 * i);
+      int v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = (int)(int8_t)(uint8_t)(b4 >> (8 * k));
+      if (PACKED) {           // byte row r: logical rows 2r (low nibble), 2r + 1 (high)
+        const int r = i / (BN / 4), n = i % (BN / 4) * 4;
+        int lo[4], hi[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          lo[k] = (int)(int8_t)(uint8_t)((uint32_t)v[k] << 4) >> 4;
+          hi[k] = v[k] >> 4;
+        }
+        *reinterpret_cast<V*>(wc + 2 * r * BN + n) = vec4<V, T>(lo[0], lo[1], lo[2], lo[3]);
+        *reinterpret_cast<V*>(wc + (2 * r + 1) * BN + n) = vec4<V, T>(hi[0], hi[1], hi[2], hi[3]);
+      } else {
+        *reinterpret_cast<V*>(wc + 4 * i) = vec4<V, T>(v[0], v[1], v[2], v[3]);
+      }
+    }
+    if constexpr (EPI != EPI_F32) {
+      const float* xs = xraw(slot);
+      int* xc = xconv(buf);
+      const bool flat = g.xmode == X_FLAT;
+      const int pieces = flat ? (BM * g.K + 3) / 4 : BM * (BK / 4);
+      for (int i = tid; i < pieces; i += THREADS) {
+        const int off = flat ? 4 * i : i / (BK / 4) * XP + i % (BK / 4) * 4;
+        *reinterpret_cast<int4*>(xc + off) =
+            stg::stage_int4(*reinterpret_cast<const float4*>(xs + off), xst);
+      }
+    }
+  };
+
+  T acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = T(0);
+
+  // kn of the step's BK columns hold K (the flat span's pitch is K, so it
+  // is read only that far)
+  auto compute = [&](int slot, int buf, int kn) {
+    const T* xr;
+    if constexpr (EPI == EPI_F32)
+      xr = xraw(slot) + ty * xp;          // the float32 body reads x as it landed
+    else
+      xr = xconv(buf) + ty * xp;
+    const T* wc = wconv(buf) + tx * TN;
+#pragma unroll 4
+    for (int kk = 0; kk < kn; ++kk) {
+      const V b = *reinterpret_cast<const V*>(wc + kk * BN);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const T a = xr[i * TY * xp + kk];
+        mac(acc[i][0], a, b.x);
+        mac(acc[i][1], a, b.y);
+        mac(acc[i][2], a, b.z);
+        mac(acc[i][3], a, b.w);
+      }
+    }
+  };
+
+  if (steps > 0) {
+    load(0, k_lo);
+    tc::cp_async_commit();
+    if (steps > 1) load(1, k_lo + BK);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();                   // step 0 has landed (this thread's copies)
+    __syncthreads();
+    convert(0, 0);
+    for (int st = 0; st < steps; ++st) {
+      tc::cp_async_wait<0>();                 // step st + 1 has landed
+      __syncthreads();                        // buffer st converted; step st - 1 done with
+      if (st + 2 < steps) load((st + 2) % STAGES, k_lo + (st + 2) * BK);
+      tc::cp_async_commit();
+      compute(st % STAGES, st & 1, min(BK, k_hi - k_lo - st * BK));
+      if (st + 1 < steps) convert((st + 1) % STAGES, (st + 1) & 1);
+    }
+  }
+
+  if (split > 1) {
+    // the partial tiles meet over the cluster: each CTA reduces its slice
+    // of the tile in rank order and runs the epilogue on it
+    cg::cluster_group cluster = cg::this_cluster();
+    tc::cp_async_wait<0>();
+    __syncthreads();                          // the ring is free
+    T* red = reinterpret_cast<T*>(smem_raw);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) red[(ty + TY * i) * BN + tx * TN + j] = acc[i][j];
+    cluster.sync();                           // every partial written and visible
+    const int per = (BM * BN + split - 1) / split;
+    const int e1 = min(BM * BN, (rank + 1) * per);
+    with_mode<EPI>(rq, [&](auto mode) {
+      constexpr int MODE = decltype(mode)::value;
+      for (int e = rank * per + tid; e < e1; e += THREADS) {
+        T v = *cluster.map_shared_rank(red + e, 0);
+        for (int q = 1; q < split; ++q) v = add(v, *cluster.map_shared_rank(red + e, q));
+        const int r = row0 + e / BN, c = col0 + e % BN;
+        if (r < g.M && c < g.N)
+          out[(long long)r * g.N + c] = epi1<EPI, MODE>(v, c, s, s_stride, bias, rq);
+      }
+    });
+    cluster.sync();                           // no CTA leaves while its partials are read
+    return;
+  }
+
+  with_mode<EPI>(rq, [&](auto mode) {
+    constexpr int MODE = decltype(mode)::value;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = row0 + ty + TY * i, c = col0 + tx * TN;
+      if (r >= g.M) continue;
+      float o[TN];
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        o[j] = c + j < g.N ? epi1<EPI, MODE>(acc[i][j], c + j, s, s_stride, bias, rq) : 0.f;
+      float* dst = out + (long long)r * g.N + c;
+      if (g.ovec && c + TN <= g.N) {
+        *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          if (c + j < g.N) dst[j] = o[j];
+      }
+    }
+  });
+}
+
+template <int BM, int BN, int TM, int TN, bool PACKED, int EPI>
+int launch(const Geo& g, cudaStream_t st, const float* x, const int8_t* w, const void* s,
+           const float* bias, float* out, int s_stride, const stg::Stage& xst,
+           const b3::Req32& rq) {
+  using L = Layout<BM, BN, PACKED, EPI>;
+  auto kernel = qmm_kernel<BM, BN, TM, TN, PACKED, EPI>;
+  // the plan's size is the kernel's, and a split's partials fit it
+  if (g.smem != L::bytes(g.stages, g.bufs) ||
+      (g.split > 1 && BM * BN * 4 > g.stages * L::RAW))
+    return (int)cudaErrorInvalidValue;
+  static bool attr_set = false;  // one device per process: opt in to the largest once
+  constexpr int most = L::bytes(STAGES, 2);
+  if (!attr_set && most > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (e != cudaSuccess) return (int)e;
+  }
+  attr_set = true;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g.tiles_m * g.split, g.tiles_n, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = g.smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = g.split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = g.split > 1 ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, x, w, s, bias, out, g, s_stride, xst, rq);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <bool PACKED, int EPI>
+int launch_tile(const Geo& g, cudaStream_t st, const float* x, const int8_t* w, const void* s,
+                const float* bias, float* out, int s_stride, const stg::Stage& xst,
+                const b3::Req32& rq) {
+  switch (g.tile) {
+    case SMALL:
+      return launch<16, 64, 1, 4, PACKED, EPI>(g, st, x, w, s, bias, out, s_stride, xst, rq);
+    case WIDE:
+      return launch<64, 64, 4, 4, PACKED, EPI>(g, st, x, w, s, bias, out, s_stride, xst, rq);
+    case TALL:
+      return launch<128, 32, 4, 4, PACKED, EPI>(g, st, x, w, s, bias, out, s_stride, xst, rq);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool PACKED>
+int launch_epi(int epi, const Geo& g, cudaStream_t st, const float* x, const int8_t* w,
+               const void* s, const float* bias, float* out, int s_stride,
+               const stg::Stage& xst, const b3::Req32& rq) {
+  if (epi == EPI_F32)
+    return launch_tile<PACKED, EPI_F32>(g, st, x, w, s, bias, out, s_stride, xst, rq);
+  if (epi == EPI_I32)
+    return launch_tile<PACKED, EPI_I32>(g, st, x, w, s, bias, out, s_stride, xst, rq);
+  return launch_tile<PACKED, EPI_B3>(g, st, x, w, s, bias, out, s_stride, xst, rq);
+}
+
+}  // namespace cc
+
 // the IntRequant's nine ints (read on the host) and the output scale, or
 // none off the B3 body
 b3::IntReq int_req(int epi, const int* rq, float out_mul) {
@@ -530,25 +834,34 @@ b3::IntReq int_req(int epi, const int* rq, float out_mul) {
 }  // namespace
 
 // K is the logical depth (the packed weight has K / 2 rows).  bias may be
-// null.  epi: 0 float32 body, 1 int32 body with the float32 epilogue, 2
-// int32 body with B3 (s then holds int32 multipliers and rq points at the 9
-// IntRequant ints, read on the host).  On the integer bodies x is divided
-// by in_div while staged (1 = no division).  Returns cudaGetLastError()
-// after the launch (0 = launched).
+// null.  geo: the plan's QMM_GEO_FIELDS.  epi: 0 float32 body, 1 int32
+// body with the float32 epilogue, 2 int32 body with B3 (s then holds int32
+// multipliers and rq points at the 9 IntRequant ints, read on the host).
+// On the integer bodies x is staged as round(x / in_div) by
+// int_staging.cuh in mode stage_mode (in_mul: the exact reciprocal, read
+// in RECIPROCAL mode).  Returns the launch's error, or cudaGetLastError()
+// after it (0 = launched; a cluster the card refuses is an error).
 extern "C" int qmm_launch(const float* x, const int8_t* w, const void* s, const float* bias,
-                          float* out, int M, int K, int N, int s_stride, int packed, int epi,
-                          float in_div, const int* rq, float out_mul, void* stream) {
+                          float* out, const int* geo, int s_stride, int packed, int epi,
+                          float in_div, float in_mul, int stage_mode, const int* rq,
+                          float out_mul, void* stream) {
   if (epi < EPI_F32 || epi > EPI_B3) return (int)cudaErrorInvalidValue;
-  const b3::IntReq r = int_req(epi, rq, out_mul);
-  if (M > 0 && N > 0) {
-    const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (packed)
-      qmm_epi<true>(epi, grid, st, x, w, s, bias, out, M, K, N, s_stride, in_div, r);
-    else
-      qmm_epi<false>(epi, grid, st, x, w, s, bias, out, M, K, N, s_stride, in_div, r);
-  }
-  return (int)cudaGetLastError();
+  const cc::Geo g{geo[0], geo[1], geo[2], geo[3], geo[4], geo[5], geo[6],
+                  geo[7], geo[8], geo[9], geo[10], geo[11], geo[12], geo[13]};
+  if (g.M <= 0 || g.N <= 0) return (int)cudaGetLastError();
+  // every CTA's K steps must fit the ring: at most `stages` of them unless
+  // the ring is whole (3 slots, 2 buffers)
+  const int most_steps = (g.kc + cc::BK - 1) / cc::BK;
+  if (g.split < 1 || g.split > 8 || g.kc < cc::BK || g.kc % cc::BK != 0 ||
+      g.stages < 1 || g.stages > cc::STAGES || g.bufs != (g.stages < 2 ? 1 : 2) ||
+      (g.stages < cc::STAGES && most_steps > g.stages) ||
+      (g.xmode == cc::X_FLAT && (g.split != 1 || g.K >= cc::BK)))
+    return (int)cudaErrorInvalidValue;
+  const b3::Req32 r = b3::make_req32(int_req(epi, rq, out_mul));
+  const stg::Stage xst = stg::make_stage(in_div, in_mul, stage_mode);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (packed) return cc::launch_epi<true>(epi, g, st, x, w, s, bias, out, s_stride, xst, r);
+  return cc::launch_epi<false>(epi, g, st, x, w, s, bias, out, s_stride, xst, r);
 }
 
 // B2's integer body on the int8 tensor cores (qmm_i8_kernel): w is the

@@ -16,7 +16,8 @@ from . import quant_matmul as _qmm
 from .flash_attention import flash_attention, flash_attention_plain  # noqa: F401
 from .quant_conv import (  # noqa: F401
     extract_patches, im2col_weights, quant_conv2d)
-from .quant_dequant import quant_dequant, quant_dequant_plain  # noqa: F401
+from .quant_dequant import (  # noqa: F401
+    qdq_launch_plan, quant_dequant, quant_dequant_plain)
 from .quant_grouped_conv import (  # noqa: F401
     depthwise_weights, dw_launch_plan, extract_depthwise_taps, gqmm_launch_plan,
     grouped_weights,
@@ -24,8 +25,8 @@ from .quant_grouped_conv import (  # noqa: F401
     quant_grouped_conv2d, quant_grouped_matmul, quant_grouped_matmul_plain,
     unpack_int4_grouped)
 from .quant_matmul import (  # noqa: F401
-    exact_reciprocal, pack_int4, staged_values, staging, quant_matmul, quant_matmul_int4,
-    quant_matmul_int4_plain, quant_matmul_plain, unpack_int4)
+    exact_reciprocal, pack_int4, qmm_launch_plan, staged_values, staging, quant_matmul,
+    quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_plain, unpack_int4)
 
 
 def launch_counts() -> dict:

@@ -55,7 +55,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ._build import check, load
+from ._build import SMEM_MAX, SMS, check, load
 from .quant_conv import conv_tap_slices, conv_out_hw, extract_patches
 from .quant_dequant import ROUNDING_MODE_IDS, quant_dequant_plain, static_bounds
 from .quant_matmul import (STAGING_MODES, check_epilogue, epilogue_args,
@@ -66,8 +66,6 @@ launches = {"quant_grouped_matmul": 0, "quant_depthwise_conv2d": 0}
 # the integer-body launches of each kernel per staging mode of x
 staging_launches = {k: dict.fromkeys(STAGING_MODES, 0) for k in launches}
 
-SMEM_MAX = 232_448             # shared memory one block may use (H100)
-SMS = 132                      # streaming multiprocessors (H100 SXM)
 
 
 # --------------------------------------------------- weight-layout helpers

@@ -20,16 +20,28 @@ the reference chooses them:
     carries the int32 multipliers ``M_x * M_w``.
 
 On the integer bodies ``in_scale`` (a float32 value) divides x as it is
-staged, an IEEE division: the lowering passes the activation scale, whose
-quotients it proved to be the integers ``q - z``.
+staged, with an IEEE division's bits: the lowering passes the activation
+scale, whose quotients it proved to be the integers ``q - z``.
 
 Bound on the card: at the TFC shapes (M <= 256, (K, N) in {(784, 64),
-(64, 64), (64, 10)}) the 784-wide layer is bound by operations (the
-float32 FMA or int32 IMAD rate of the CUDA cores) and the narrow layers by
-the bytes of x and the output.  Design: each block owns a 32x32 output
-tile and loops over K itself; the weight tile is staged in shared memory,
-and B2 unpacks the nibbles while staging, so device memory serves only
-the packed bytes.  Ragged edges are masked, with no padding copies.
+(64, 64), (64, 10)}) a few hundred nanoseconds of FMA, IMAD or bytes; at
+the first convs of CNV and MobileNet (K = 27) the bytes of x and the
+output.  What a launch pays at TFC is the chain of latencies of too few
+blocks, so the design (in the source) fills the card and shortens each
+block's chain.  Its geometry is a host plan, ``qmm_launch_plan``: the
+output tile (16x64 at small M; 64x64, or 128x32 where N <= 32, where those
+give half a wave of blocks) and, where the tiles do not fill the 132 SMs,
+a split of K over a thread-block cluster of up to 8 CTAs, whose partial
+tiles are reduced through distributed shared memory in a fixed rank order
+inside the launch (no atomics; the same bits on every call).  x and the
+weight bytes come by 16-byte ``cp.async`` into a ring of 3 stages where
+alignment allows (the rows of K < 32 as one flat span), each stage is
+converted once per block (weights to float32 / int32, nibbles unpacked;
+x to its staged integers on the integer bodies, by
+``csrc/int_staging.cuh``), one barrier a step.  A split reorders only the
+float32 sums, within the order bound ``2·K·2^-24·(|x|@|w|)·|s|`` and
+exact on dyadic x; int32 sums wrap alike in any order.  Ragged edges are
+masked, with no padding copies.
 
 B2's integer body has a second form on the int8 tensor cores, taken when
 the caller passes ``int8_codes=True``: the lowering's proof
@@ -62,12 +74,13 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ._build import check, load
+from ._build import SMEM_MAX, SMS, check, load
 from .quant_dequant import ROUNDING_MODE_IDS
 from .requant import IntRequant, int_epilogue_plain
 
@@ -285,6 +298,145 @@ def quant_matmul_int4_plain(x, w_packed, w_scale, bias=None, *,
     return quant_matmul_plain(x, unpack_int4(w_packed), w_scale, bias, **kw)
 
 
+# ------------------------------------------------- B1 / B2's launch plan
+
+QMM_THREADS = 256              # threads per block (the kernel's THREADS)
+QMM_BK = 32                    # K step
+QMM_STAGES = 3                 # raw stages of the ring
+QMM_XP = QMM_BK + 4            # x row pitch in shared memory (row mode)
+QMM_CLUSTER_MAX = 8            # the portable cluster size
+# tiles by id (the kernel's Tile): (BM, BN, TM, TN), 256 threads of TM x TN
+QMM_TILES = {0: (16, 64, 1, 4), 1: (64, 64, 4, 4), 2: (128, 32, 4, 4)}
+QMM_TILE_NAMES = ("small", "wide", "tall")
+QMM_XMODES = ("scalar", "vec", "flat")      # x staging (the kernel's XMode)
+QMM_GEO_FIELDS = ("M", "K", "N", "tile", "tiles_m", "tiles_n", "split", "kc",
+                  "stages", "bufs", "xmode", "wvec", "ovec", "smem")
+
+
+def qmm_smem_bytes(tile: int, packed: bool, epi: int, stages: int = QMM_STAGES,
+                   bufs: int = 2) -> int:
+    """The kernel's ``Layout::bytes``: ``stages`` raw slots (x as float32,
+    the weight bytes) and ``bufs`` converted buffers (the weights as
+    float32 / int32 and, on the integer bodies, x staged), every part a
+    multiple of 16 bytes."""
+    bm, bn = QMM_TILES[tile][:2]
+    wr = QMM_BK // 2 if packed else QMM_BK
+    raw = 4 * bm * QMM_XP + wr * bn
+    buf = 4 * QMM_BK * bn + (4 * bm * QMM_XP if epi else 0)
+    return stages * raw + bufs * buf
+
+
+@dataclass(frozen=True)
+class QmmPlan:
+    """B1 / B2's CUDA-core launch geometry, in the order of the kernel's
+    ``Geo`` (``QMM_GEO_FIELDS``): ``tile`` (a key of ``QMM_TILES``),
+    ``tiles_m`` x ``tiles_n`` output tiles, each summed by ``split`` CTAs
+    of one cluster over consecutive K ranges of ``kc`` (a multiple of the
+    K step), a ring of ``stages`` raw slots (fewer than 3 where no CTA
+    takes more K steps) and ``bufs`` converted buffers, x staged by
+    ``xmode`` (``QMM_XMODES``), the weight bytes by 16-byte copies where
+    ``wvec``, outputs stored 16 bytes at a time where ``ovec``; ``smem``
+    dynamic shared bytes."""
+    M: int
+    K: int
+    N: int
+    tile: int
+    tiles_m: int
+    tiles_n: int
+    split: int
+    kc: int
+    stages: int
+    bufs: int
+    xmode: int
+    wvec: int
+    ovec: int
+    smem: int
+
+    @property
+    def block(self) -> tuple[int, int]:
+        """The output tile (BM, BN)."""
+        return QMM_TILES[self.tile][:2]
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        return (self.tiles_m * self.split, self.tiles_n)
+
+    @functools.cached_property
+    def ints(self):
+        """The C interface's geometry array (built once per plan)."""
+        return (ctypes.c_int * len(QMM_GEO_FIELDS))(
+            *(getattr(self, f) for f in QMM_GEO_FIELDS))
+
+    def k_range(self, rank: int) -> tuple[int, int]:
+        """The K columns [lo, hi) that cluster rank ``rank`` sums."""
+        lo = rank * self.kc
+        return lo, min(self.K, lo + self.kc)
+
+    def reduce_slice(self, rank: int) -> tuple[int, int]:
+        """The elements [e0, e1) of the BM·BN tile (row-major) that cluster
+        rank ``rank`` reduces over the cluster and writes (split > 1)."""
+        bm, bn = self.block
+        per = -(-bm * bn // self.split)
+        return min(bm * bn, rank * per), min(bm * bn, (rank + 1) * per)
+
+    def block_tile(self, bx: int, by: int) -> tuple[int, int, int]:
+        """Block (bx, by)'s output tile origin (row0, col0) and its rank."""
+        bm, bn = self.block
+        return bx // self.split * bm, by * bn, bx % self.split
+
+
+@functools.lru_cache(maxsize=1024)
+def qmm_launch_plan(M: int, K: int, N: int, packed: bool, epi: int,
+                    x_vec: bool = True, w_vec: bool = True,
+                    o_vec: bool = True) -> QmmPlan:
+    """The CUDA-core body's geometry for (M, K) @ (K, N); ``epi`` the body
+    (0 float32, 1 int32, 2 int32 + B3); ``x_vec`` / ``w_vec`` / ``o_vec``:
+    x / the weights / the output lie on 16 bytes.
+
+    The tile: 64x64 (128x32 where N <= 32) where that gives at least half a
+    wave of blocks (SMS / 2), else 16x64, the smallest, so small M gets the
+    most blocks.  Where the tiles are fewer than the SMs, K is split over a
+    cluster of ``split`` <= 8 CTAs, as many as fill one wave, while every
+    CTA keeps two K steps or more (a shorter range saves less than the
+    reduction costs); ranges are whole K steps, so a split may come out
+    below its target (784 = 6 · 128 + 16: 7 CTAs).  The ring has as many
+    slots as a CTA takes K steps, up to 3, so a one-step launch (the first
+    convs, K = 27) takes a third of the shared memory and fits 2-4 times as
+    many blocks on an SM.  x goes flat where K < BK (one step covers whole
+    rows, so the block's rows are one span), by 16-byte row pieces where
+    K % 4 == 0, else element by element; both copies need x on 16 bytes.
+    The weights go by 16-byte pieces where N % 16 == 0 and w is on 16
+    bytes; outputs by float4 where N % 4 == 0."""
+    if min(M, K, N) < 0 or epi not in (0, 1, 2) or (packed and K % 2):
+        raise ValueError(f"qmm_launch_plan: bad problem {M}x{K}x{N} packed={packed} "
+                         f"epi={epi}")
+    big = 2 if N <= 32 else 1
+    bm, bn = QMM_TILES[big][:2]
+    tile = big if -(-M // bm) * -(-N // bn) >= SMS // 2 else 0
+    bm, bn = QMM_TILES[tile][:2]
+    tiles_m, tiles_n = -(-M // bm), -(-N // bn)
+    tiles = max(1, tiles_m * tiles_n)
+    split = 1
+    if tiles < SMS:
+        split = max(1, min(QMM_CLUSTER_MAX, SMS // tiles, K // (2 * QMM_BK)))
+    kc = max(QMM_BK, -(-(-(-K // split)) // QMM_BK) * QMM_BK)
+    split = max(1, -(-K // kc))
+    stages = min(QMM_STAGES, -(-min(kc, max(K, 1)) // QMM_BK))
+    bufs = min(2, stages)
+    if x_vec and 0 < K < QMM_BK:
+        xmode = 2
+    elif x_vec and K % 4 == 0:
+        xmode = 1
+    else:
+        xmode = 0
+    plan = QmmPlan(M, K, N, tile, tiles_m, tiles_n, split, kc, stages, bufs, xmode,
+                   int(w_vec and N % 16 == 0), int(o_vec and N % 4 == 0),
+                   qmm_smem_bytes(tile, packed, epi, stages, bufs))
+    if plan.grid[0] >= 2 ** 31 or plan.grid[1] > 65535:
+        raise ValueError(f"qmm_launch_plan: grid {plan.grid} beyond the launch limits")
+    return plan
+
+
 def _launch(name, x, w, w_scale, bias, k, packed, acc_dtype, requant,
             in_scale, int8_codes=False) -> torch.Tensor:
     if x.device.type != "cuda":
@@ -305,6 +457,8 @@ def _launch(name, x, w, w_scale, bias, k, packed, acc_dtype, requant,
         if t.device != x.device:
             raise ValueError(f"{name}: every operand must lie on {x.device}")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0 or n == 0:
+        return out
     stream = torch.cuda.current_stream(x.device).cuda_stream
     bias_ptr = None if b is None else b.data_ptr()
     if int8_codes:
@@ -314,10 +468,13 @@ def _launch(name, x, w, w_scale, bias, k, packed, acc_dtype, requant,
             out_mul, stream)
         check(err, "qmm_i8_launch")
     else:
+        plan = qmm_launch_plan(m, k, n, bool(packed), epi, x.data_ptr() % 16 == 0,
+                               w.data_ptr() % 16 == 0, out.data_ptr() % 16 == 0)
+        mode, div, mul = staging(in_scale)
         err = load().qmm_launch(
             x.data_ptr(), w.data_ptr(), s.data_ptr(), bias_ptr, out.data_ptr(),
-            m, k, n, int(s.numel() > 1), int(packed), epi, in_div, rq, out_mul,
-            stream)
+            plan.ints, int(s.numel() > 1), int(packed), epi, div, mul, mode, rq,
+            out_mul, stream)
         check(err, "qmm_launch")
     launches[name] += 1
     if packed:

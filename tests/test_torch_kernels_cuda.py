@@ -8,7 +8,8 @@ runs on a GPU host that has only PyTorch:
 
 B4 and B6 are bit-exact (B6's twin sums its taps in the kernel's order);
 B1/B2/B5 are bit-exact on dyadic activations, where every float32 partial
-sum is exact in any summation order.
+sum is exact in any summation order, and give the same bits on repeated
+calls (B1 / B2 split K over a cluster and reduce in a fixed order).
 """
 import importlib.util
 from pathlib import Path
@@ -465,6 +466,194 @@ def test_staging_counts_follow_the_scale(cuda):
     for name in ("quant_depthwise_conv2d", "quant_grouped_matmul"):
         assert {k: after[name][k] - before[name][k] for k in after[name]} == \
             {"reciprocal": 1, "quotient": 1, "division": 1}
+
+
+# ------------------------- B4 / B1 redesigned: plans, edges and clusters
+
+def _qdq_pair(cuda, x, s, z, **kw):
+    """The kernel on the card and the twin on the CPU, same inputs."""
+    want = tops.quant_dequant(x, s, z, **kw)
+    s, z = torch.as_tensor(s), torch.as_tensor(z)
+    got = tops.quant_dequant(*_on(cuda, x, s, z), **kw)
+    torch.cuda.synchronize()
+    return got.cpu(), want
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_quant_dequant_edge_values_at_every_scale_kind(cuda, mode):
+    """±0, ±inf, NaN, subnormals, ties and clip-bound neighbours at scales
+    whose reciprocal multiplies (powers of two) or whose division stays
+    (subnormal or overflowing reciprocal, no power of two): equal to the
+    twin, NaN as NaN; codes on the finite values."""
+    from repro_torch.kernels.quant_dequant import static_bounds
+    for scale in CS.QDQ_SCALES:
+        x = torch.from_numpy(CS.qdq_edge_x(np, scale if abs(scale) > 2.0 ** -120 else 1.0)
+                             .reshape(3, -1))
+        for bits, signed, narrow, zp in CS.QDQ_WIDTHS:
+            kw = dict(bit_width=bits, signed=signed, narrow=narrow, rounding_mode=mode)
+            got, want = _qdq_pair(cuda, x, scale, zp, **kw)
+            assert CS.equal_nan(torch, got, want), (scale, kw)
+            if static_bounds(signed, narrow, bits)[1] <= 127:
+                xc = torch.where(torch.isfinite(x), x, 0.0)
+                got, want = _qdq_pair(cuda, xc, scale, zp, emit_codes=True, **kw)
+                assert torch.equal(got, want), (scale, kw)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_quant_dequant_mixed_per_channel_row(cuda, mode):
+    s = torch.tensor(CS.QDQ_MIXED)
+    z = torch.tensor([0, 1, -2, 0, 3, 0, 0, -1, 2, 0, 1], dtype=torch.float32)
+    x = torch.from_numpy(np.concatenate([CS.qdq_edge_x(np, v) for v in (1.0, 0.125, 0.37)])
+                         [:11 * 27].reshape(27, 11))
+    x[4] = x[4] * s
+    for codes in (False, True):
+        xx = torch.where(torch.isfinite(x), x, 0.0) if codes else x
+        got, want = _qdq_pair(cuda, xx, s, z, bit_width=4, rounding_mode=mode,
+                              emit_codes=codes)
+        assert CS.equal_nan(torch, got, want)
+
+
+@pytest.mark.parametrize("off", [1, 2, 3])
+def test_quant_dequant_views_off_16_bytes(cuda, off):
+    """Storage offsets of 1-3 elements and numel 1, 3, 5: the scalar head
+    and tail; the output keeps x's phase, so the body stores vectors."""
+    rng = np.random.RandomState(off)
+    for rows, cols in ((1, 1), (1, 3), (1, 5), (7, 13), (33, 130)):
+        buf = torch.randn(rows * cols + off, generator=torch.Generator().manual_seed(cols))
+        x = buf[off:].view(rows, cols)
+        xd = buf.to(cuda)[off:].view(rows, cols)
+        s = torch.from_numpy((2.0 ** -rng.randint(1, 5, cols)).astype(np.float32))
+        s[::3] = 0.37
+        for sc, z in ((0.125, 1.0), (s, torch.from_numpy(rng.randint(-2, 3, cols)
+                                                         .astype(np.float32)))):
+            for codes in (False, True):
+                kw = dict(bit_width=4, rounding_mode="HALF_UP", emit_codes=codes)
+                want = tops.quant_dequant(x, sc, z, **kw)
+                got = tops.quant_dequant(xd, *_on(cuda, torch.as_tensor(sc),
+                                                  torch.as_tensor(z)), **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(got.cpu(), want)
+                if got.numel() > 1:
+                    phase = got.data_ptr() // got.element_size() % 4
+                    assert phase == xd.data_ptr() // 4 % 4
+
+
+def test_quant_dequant_beyond_one_grid_sweep(cuda):
+    from repro_torch.kernels import quant_dequant as qd
+    x = torch.randn(5003, 3501, generator=torch.Generator().manual_seed(2)) * 4
+    assert x.numel() > 4 * qd.QDQ_MAX_BLOCKS * qd.QDQ_THREADS * qd.QDQ_UMAX
+    s = torch.from_numpy((2.0 ** -np.random.RandomState(0).randint(1, 5, 3501))
+                         .astype(np.float32))
+    s[1::7] = 0.37
+    for sc in (0.125, s):
+        got, want = _qdq_pair(cuda, x, sc, 0.0, bit_width=4, emit_codes=True)
+        assert torch.equal(got, want)
+
+
+def _qmm_all_bodies(cuda, m, k, n, int4, x_off=0, seed=0):
+    """B1 / B2 (CUDA cores) against the CPU twins: the float32 body exact
+    on dyadic x and the same bits on two calls on randn x (within the
+    order bound of the twin), the integer bodies torch.equal with B3 in
+    every staging of x and with the float32 epilogue.  ``x_off``: x a
+    view that many elements off 16 bytes."""
+    rng = np.random.RandomState(seed + m + k + n)
+    lo, hi = (-8, 7) if int4 else (-127, 127)
+    w = torch.from_numpy(rng.randint(lo, hi + 1, (k, n)).astype(np.int8))
+    wk = tops.pack_int4(w) if int4 else w
+    fn = tops.quant_matmul_int4 if int4 else tops.quant_matmul
+    s = torch.from_numpy((2.0 ** -rng.randint(2, 6, n)).astype(np.float32))
+    b = torch.from_numpy((rng.randint(-64, 64, n) / 16.0).astype(np.float32))
+
+    def dev_x(x):
+        buf = torch.zeros(x.numel() + x_off, device=cuda)
+        buf[x_off:] = x.reshape(-1).to(cuda)
+        return buf[x_off:].view(x.shape)
+    xd = torch.from_numpy((rng.randint(-128, 129, (m, k)) / 128.0).astype(np.float32))
+    got = fn(dev_x(xd), *_on(cuda, wk, s, b))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), fn(xd, wk, s, b))
+    xr = torch.randn(m, k, generator=torch.Generator().manual_seed(seed))
+    xrd = dev_x(xr)
+    got, again = fn(xrd, *_on(cuda, wk, s, b)), fn(xrd, *_on(cuda, wk, s, b))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = fn(xr, wk, s, b)
+    bound = 2 * k * 2.0 ** -24 * (xr.abs() @ w.float().abs()) * s + 2.0 ** -23 * want.abs()
+    assert bool(((got.cpu() - want).abs() <= bound).all())
+    for j, (in_scale, off_grid) in enumerate(STAGINGS):
+        spec = INT_SPECS[3 + (j + k) % 24]
+        mult = torch.from_numpy((2 * rng.randint(0, 5, n) + 1).astype(np.int32))
+        xi = _staged(rng, (m, k), in_scale, off_grid)
+        kw = dict(acc_dtype=torch.int32, requant=spec, in_scale=in_scale)
+        got = fn(dev_x(xi), *_on(cuda, wk, mult), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), fn(xi, wk, mult, **kw)), (in_scale, off_grid, spec)
+    xi = _staged(rng, (m, k), 1.0, False)
+    got = fn(dev_x(xi), *_on(cuda, wk, s, b), acc_dtype=torch.int32)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), fn(xi, wk, s, b, acc_dtype=torch.int32))
+
+
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("split", range(1, 9))
+def test_qmm_every_cluster_size(cuda, split, int4):
+    from repro_torch.kernels import quant_matmul as qm
+    assert qm.qmm_launch_plan(16, 64 * split, 33, int4, 0).split == split
+    _qmm_all_bodies(cuda, 16, 64 * split, 33, int4)
+
+
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("m,k,n,tile", [(4300, 98, 65, "wide"), (8500, 28, 31, "tall"),
+                                        (7200, 26, 64, "wide"), (256, 784, 64, "small")])
+def test_qmm_each_tile(cuda, m, k, n, tile, int4):
+    from repro_torch.kernels import quant_matmul as qm
+    assert qm.QMM_TILE_NAMES[qm.qmm_launch_plan(m, k, n, int4, 0).tile] == tile
+    _qmm_all_bodies(cuda, m, k, n, int4)
+
+
+@pytest.mark.parametrize("m,k,n", CS.QMM_RAGGED)
+def test_qmm_ragged_k_and_odd_n(cuda, m, k, n):
+    for int4 in (False, True) if k % 2 == 0 else (False,):
+        _qmm_all_bodies(cuda, m, k, n, int4)
+
+
+@pytest.mark.parametrize("off", [1, 3])
+@pytest.mark.parametrize("m,k,n", [(256, 784, 64), (16, 27, 33), (100, 130, 9)])
+def test_qmm_x_off_16_bytes(cuda, m, k, n, off):
+    """x a view off 16 bytes takes the element-wise staging; on randn it
+    gives the aligned call's bits (the same sums in the same order)."""
+    _qmm_all_bodies(cuda, m, k, n, False, x_off=off)
+    x = torch.randn(m, k, generator=torch.Generator().manual_seed(off))
+    w = torch.from_numpy(np.random.RandomState(off).randint(-127, 128, (k, n))
+                         .astype(np.int8)).to(cuda)
+    buf = torch.zeros(m * k + off, device=cuda)
+    buf[off:] = x.reshape(-1).to(cuda)
+    a = tops.quant_matmul(x.to(cuda), w, 0.5)
+    b = tops.quant_matmul(buf[off:].view(m, k), w, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_qmm_launch_refuses_a_plan_it_cannot_run(cuda):
+    """A geometry the kernel does not take (a cluster of 9, a shared size
+    off the kernel's) comes back as a CUDA error, which the wrapper's
+    check raises."""
+    import dataclasses
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import quant_matmul as qm
+    x = torch.randn(16, 576, device=cuda)
+    w = torch.zeros(576, 33, dtype=torch.int8, device=cuda)
+    s = torch.ones(1, device=cuda)
+    out = torch.empty(16, 33, device=cuda)
+    plan = qm.qmm_launch_plan(16, 576, 33, False, 0)
+    for bad in (dataclasses.replace(plan, split=9, kc=64),
+                dataclasses.replace(plan, smem=plan.smem + 16)):
+        err = _build.load().qmm_launch(
+            x.data_ptr(), w.data_ptr(), s.data_ptr(), None, out.data_ptr(), bad.ints, 0,
+            0, 0, 1.0, 1.0, 0, None, 0.0, torch.cuda.current_stream().cuda_stream)
+        assert err != 0
+        with pytest.raises(RuntimeError):
+            _build.check(err, "qmm_launch")
 
 
 # ------------------------------------------- B2 on the int8 tensor cores
