@@ -22,7 +22,14 @@ printing a result:
    (its twin sums the taps in the kernel's order) with no epilogue, ReLU
    only, bias, per-channel scale, act bits {2, 4, 8} in every rounding
    mode, stride 2, asymmetric pads, dilation 2 and channel counts off the
-   block, at MobileNet-224 shapes among others.  Then the integer bodies
+   block, at MobileNet-224 shapes among others.  The boundary glue of
+   fusion (``check_glue``): ``maxpool2d_codes``, ``avgpool2d_codes``, the
+   float32 pools, ``pack`` / ``unpack_codes_int4``, ``boundary_values``
+   and the code recovery on the card ``torch.equal`` to the CPU, at CNV's
+   pool shapes, padded and strided windows, both ``count_include_pad``
+   values, zero points 0 and not, odd last dims (no packing) and the full
+   int8 code range; B4 with ``emit_codes`` at the zoo's act widths.  Then
+   the integer bodies
    of B1 / B2 / B5 / B6 (int32 sums, the integer epilogue B3) against their
    twins with ``torch.equal``: every rounding mode, ReLU on and off, the
    act Quant on and off, act_shift -3 / 0 / 5, zero points, signed,
@@ -81,19 +88,33 @@ printing a result:
    MobileNet-w4a4 at img 224 in 8-row slots, 16 submitted requests and one
    ragged 5-row batch, each row bit-exact against the compiled plan's rows
    and within the order bound of the CPU oracle;
-3'. + 4'. the same on the integer path, ``compile_graph``'s defaults (the
-   analysis tier and B3): TFC-w1a1 / w1a2 / w2a2 (4 of 4 int32 segments),
+3'. + 4'. the same on the integer path, ``compile_graph``'s defaults but
+   ``use_fusion=False`` (the analysis tier and B3): TFC-w1a1 / w1a2 / w2a2 (4 of 4 int32 segments),
    CNV-w1a1 / w2a2 (9 of 9), MobileNet-w4a4 at img 224 as the zoo builds it
    and rescaled (27 of 28: the final MatMul stays float32) and the grouped
    conv (B5 on int32), each with the reference's census and
    ``requant_stats()`` and bit-exact against the CPU oracle (MobileNet's
    final MatMul within the order bound); then both engines on integer
-   plans, with the load-time cost report.  B2's launches are counted per
+   plans (fused: the engines compile with the defaults), with the
+   load-time cost report.  B2's launches are counted per
    body around every forward: each launches B2's int8 tensor-core body
    once per segment whose meta chose it, exactly 13 per MobileNet-224
    forward (its pointwise convs; TFC's count is printed); B6's 13
    MobileNet-224 launches must all take the reciprocal staging (the zoo's
    activation scales are powers of two), B5's staging is printed;
+3''. the fused main path, ``compile_graph``'s defaults (fusion on), on both
+   tiers: all seven ``ZOO`` keys (TFC at 64 rows, CNV at 8, MobileNet-w4a4
+   at img 224 with 8 rows as built and rescaled) and the grouped conv,
+   each with the reference's fusion census (``CENSUS_FUSION``:
+   ``fusion_stats()``, the fusion segments, the ops left interpreted),
+   every negotiated boundary an int8 / uint8 tensor on the card and no
+   tensor off it, bit-exact against the CPU oracle (MobileNet's final
+   MatMul within the order bound) and bit for bit equal on the card to
+   the same plan with ``use_fusion=False``;
+3'''. the paper's formats on the card: ``qonnx_to_qcdq`` of TFC-w2a2,
+   CNV-w2a2 and the rescaled MobileNet-w4a4 at img 224 (every conv on a
+   kernel), ``qonnx_to_quantized_op`` of TFC-w2a2, each compiled on CUDA
+   and held against the CPU oracle of the converted graph;
 5. timings beside each kernel's bound, its twin and one library call
    computing the same function (CUDA events, median of 30 samples of 10
    calls after warm-up; device time from a replayed CUDA graph of the 10
@@ -111,8 +132,13 @@ printing a result:
    B4's largest MobileNet row also at a scale that is no power of two
    (0.37: the division); one MobileNet plan call's device time by kernel
    name (torch.profiler) and the device's busy share, on each path, and
-   one TFC-w2a2 integer plan call of 16 rows; then each engine's requests
-   per second (``--plan-profiles`` runs only the build and the two
+   one TFC-w2a2 integer plan call of 16 rows; the MobileNet-224 integer
+   plan call of 8 rows and the CNV-w1a1 integer plan call of 8 rows with
+   fusion on and off (walls in turns, then one profile each: busy, launches,
+   wall, busy share, by kernel name, and the boundary glue as its own rows:
+   the fusion segments, the dequantize-on-entry and the codes-out of the
+   kernel segments, labelled by ``record_function`` for that profile
+   only); then each engine's requests per second (``--plan-profiles`` runs only the build and the two
    integer plan calls' profiles, three times each, so that a copy of the
    script in another tree measures that tree in the same call);
 6. the LM serving path: first qwen2's SMOKE config on the card against
@@ -127,11 +153,14 @@ printing a result:
    beside its twin, F.scaled_dot_product_attention and its bound; prefill
    and decode-step wall times; one decode step by kernel name.
 
-Launch counts are reset just before phase 3 and read just after phase 4,
-again around phases 3' and 4', and around phase 6 (a) and (b); every
-kernel of each path must have launched there.  The last lines are the card, a JSON line of per-kernel
-numbers (summed over one MobileNet-224 forward of 8 rows; B5 over the
-grouped conv; the integer rows named ``<kernel>/int32``; B7 over one
+Launch counts are read in windows of their own: phase 3's plans, phase
+4's engines, phases 3' and 4' likewise, each fused plan's own call in
+3'' (its use_fusion=False twin runs outside the window), 3''', and phase
+6 (a) and (b); every kernel of each window's path must have launched in
+it.  The last lines are the card, a JSON line of per-kernel numbers
+(summed over one MobileNet-224 forward of 8 rows; B5 over the grouped
+conv; the integer rows named ``<kernel>/int32``; the launches those of
+the fused plans of 3'', the default path, per tier; B7 over one
 qwen2-1.5B prefill at B=4, S=2048, its launches those of phase 6 (b))
 and the JSON result line.  It imports nothing of JAX and nothing of the JAX package
 ``repro``.
@@ -174,6 +203,8 @@ SOURCES = {
 # the kernels of the zoo's compiled path (phases 3 + 4); B7 runs on the LM path
 ZOO_KERNELS = ("quant_matmul", "quant_matmul_int4", "quant_dequant", "quant_grouped_matmul",
                "quant_depthwise_conv2d")
+# what phase 4's engines (TFC-w2a2 and MobileNet-224, fused plans) launch
+SERVED_KERNELS = ("quant_matmul", "quant_matmul_int4", "quant_dequant", "quant_depthwise_conv2d")
 # the reference's census (use_analysis=False, use_fusion=False)
 CENSUS = {
     ("TFC-w2a2", True): {"quant_dequant": 4, "quant_matmul_int4": 4, "interp": 3},
@@ -204,6 +235,42 @@ CENSUS_ANALYSIS = {
     "MobileNet-w4a4 rescaled": _MOBILENET_INT,
     "GroupedConv-g8": {"quant_dequant": 1, "quant_conv_grouped_int4": 1},
 }
+
+
+
+
+def _fusion(fbs, ib, packed, saved, offers, declined, kinds, interp):
+    return {"stats": {"enabled": True, "fused_boundary_segments": fbs,
+                      "integer_boundaries": ib, "packed_boundaries": packed,
+                      "boundary_bytes_saved": saved, "offers": offers,
+                      "declined": declined},
+            "fusion_kinds": kinds, "interp": interp}
+
+
+# the reference's census with fusion on (compile_graph's default), per tier
+# ("int": the defaults, "f32": use_analysis=False): fusion_stats(), the
+# fusion rules' segments and the ops left interpreted; held against the
+# reference by tests/test_torch_fusion.py.  MobileNet at img 224, as built
+# and rescaled alike.
+FUSION_KINDS = ("bipolar_act", "quant_pool", "eltwise_add", "quant_concat")
+_TFC_RELU = {"Relu": 3}
+_CNV_REST = {"Flatten": 1, "Relu": 2}
+_MOB_REST = {"GlobalAveragePool": 1, "Flatten": 1}
+CENSUS_FUSION = {}
+for _tier in ("int", "f32"):
+    CENSUS_FUSION.update({
+        ("TFC-w1a1", _tier): _fusion(8, 4, 3, 3024, 4, 0, {"bipolar_act": 3}, _TFC_RELU),
+        ("TFC-w1a2", _tier): _fusion(8, 4, 3, 3024, 4, 0, {}, _TFC_RELU),
+        ("TFC-w2a2", _tier): _fusion(8, 4, 3, 3024, 4, 0, {}, _TFC_RELU),
+        ("CNV-w1a1", _tier): _fusion(19, 10, 7, 559744, 11, 1,
+                                     {"bipolar_act": 8, "quant_pool": 2}, _CNV_REST),
+        ("CNV-w1a2", _tier): _fusion(13, 10, 7, 559744, 11, 1, {"quant_pool": 2}, _CNV_REST),
+        ("CNV-w2a2", _tier): _fusion(13, 10, 7, 559744, 11, 1, {"quant_pool": 2}, _CNV_REST),
+        ("GroupedConv-g8", _tier): _fusion(2, 1, 0, 4816896, 2, 1, {}, {}),
+    })
+# the float32 depthwise body (B6) realizes its act Quant inside: no codes
+CENSUS_FUSION[("MobileNet-w4a4", "f32")] = _fusion(27, 14, 0, 9633792, 15, 1, {}, _MOB_REST)
+CENSUS_FUSION[("MobileNet-w4a4", "int")] = _fusion(28, 27, 0, 15429120, 28, 1, {}, _MOB_REST)
 
 
 def _rq_stats(kernel, int32, eliminated):
@@ -1189,6 +1256,15 @@ def order_bound(xf, wf, ref):
     return 2 * k * 2.0 ** -24 * (xf.abs() @ wf.abs()) + 2.0 ** -23 * ref.abs()
 
 
+def fused_engine(eng, label) -> str:
+    """Phase 4 / 4': an engine compiles with the defaults, so it serves a
+    fused plan with integer boundaries."""
+    fs = eng.plan.fusion_stats()
+    if not fs["enabled"] or fs["integer_boundaries"] <= 0:
+        raise AssertionError(f"{label}: the engine's plan is not fused ({fs})")
+    return f"fused plan, {fs['integer_boundaries']} integer boundaries"
+
+
 def run_main_path(torch, np, dev):
     from repro_torch.core import compile_graph
     from repro_torch.core.executor import to_tensor
@@ -1208,7 +1284,8 @@ def run_main_path(torch, np, dev):
         g = zoo.ZOO[key]()
         x = xs[key[:3]]
         before = ops.launch_counts()
-        plan = compile_graph(g, device=dev, use_int4=int4, use_analysis=False)
+        plan = compile_graph(g, device=dev, use_int4=int4, use_analysis=False,
+                             use_fusion=False)
         out = plan({"x": x})[plan.graph.output_names[0]]
         torch.cuda.synchronize()
         ref = _oracle(g, x, key=key)[g.output_names[0]]
@@ -1229,7 +1306,7 @@ def run_main_path(torch, np, dev):
     x16 = np.random.RandomState(13).randn(2 * SLOT, 3, 224, 224).astype(np.float32)
     g = zoo.build_mobilenet(4, 4, img=224)
     before = ops.launch_counts()
-    plan = compile_graph(g, device=dev, use_analysis=False)
+    plan = compile_graph(g, device=dev, use_analysis=False, use_fusion=False)
     out = plan({"x": x16[:SLOT]})[g.output_names[0]]
     torch.cuda.synchronize()
     if not torch.equal(out.cpu(), _oracle(g, x16[:SLOT], key="MobileNet-w4a4")[
@@ -1249,7 +1326,7 @@ def run_main_path(torch, np, dev):
     ref = oracle[live.output_names[0]]
     t_oracle = time.perf_counter() - t0
     before = ops.launch_counts()
-    lplan = compile_graph(live, device=dev, use_analysis=False)
+    lplan = compile_graph(live, device=dev, use_analysis=False, use_fusion=False)
     pre, w_name = _final_matmul(lplan.graph)
     rows = []
     for i in (0, SLOT):
@@ -1285,7 +1362,7 @@ def run_main_path(torch, np, dev):
     gg = grouped_conv_graph()
     xg = np.random.RandomState(14).randn(*gg.inputs[0].shape).astype(np.float32)
     before = ops.launch_counts()
-    gplan = compile_graph(gg, device=dev, use_analysis=False)
+    gplan = compile_graph(gg, device=dev, use_analysis=False, use_fusion=False)
     gout = gplan({"x": xg})[gg.output_names[0]]
     torch.cuda.synchronize()
     want = {"quant_dequant": 1, "quant_conv_grouped_int4": 1}
@@ -1301,6 +1378,10 @@ def run_main_path(torch, np, dev):
           f"{gplan.fused_counts}, grouped_conv_stats={gplan.grouped_conv_stats()}",
           flush=True)
 
+    # phase 3's window ends here; phase 4 (the engines, serving fused plans)
+    # is counted in a window of its own
+    plans = ops.launch_counts()
+    ops.reset_launch_counts()
     # phase 4: serving TFC in 16-row slots, held against the oracle on the CPU
     tfc = zoo.build_tfc(2, 2)
     eng = CompiledGraphEngine(tfc, max_batch=16, device=dev, use_analysis=False,
@@ -1319,8 +1400,9 @@ def run_main_path(torch, np, dev):
         raise AssertionError("engine(x) differs from the oracle")
     if eng.n_completed != 64:
         raise AssertionError(f"engine completed {eng.n_completed}, not 64")
-    print(f"serving TFC-w2a2: 64 requests via run_pending + one 40-row call, all rows "
-          f"bit-exact vs the CPU oracle; completed={eng.n_completed}", flush=True)
+    print(f"serving TFC-w2a2 ({fused_engine(eng, 'TFC engine')}): 64 requests via "
+          f"run_pending + one 40-row call, all rows bit-exact vs the CPU oracle; "
+          f"completed={eng.n_completed}", flush=True)
 
     # serving MobileNet-224 (rescaled) in 8-row slots: rows equal the
     # plan's, which phase 3 held against the oracle
@@ -1337,11 +1419,13 @@ def run_main_path(torch, np, dev):
         raise AssertionError("served MobileNet rows differ from the compiled plan's")
     if bool(((served - ref).abs() > bound).any()):
         raise AssertionError("served MobileNet rows beyond the oracle's order bound")
-    print(f"serving MobileNet-w4a4 img 224 (rescaled): {2 * SLOT} requests via run_pending in "
-          f"{SLOT}-row slots + one ragged 5-row call, every row bit-exact vs the "
-          f"compiled plan and within the CPU oracle's order bound; "
+    print(f"serving MobileNet-w4a4 img 224 (rescaled; {fused_engine(meng, 'MobileNet engine')}): "
+          f"{2 * SLOT} requests via run_pending in {SLOT}-row slots + one ragged 5-row call, "
+          f"every row bit-exact vs the compiled plan (fusion off) and within the CPU "
+          f"oracle's order bound; "
           f"completed={meng.n_completed}", flush=True)
-    return (eng, xt), (meng, np.concatenate([x16] * 4)), (lplan, x16[:SLOT])
+    return plans, ops.launch_counts(), (eng, xt), (meng, np.concatenate([x16] * 4)), \
+        (lplan, x16[:SLOT])
 
 
 def _check_int_plan(plan, key, ops, before, needs):
@@ -1396,7 +1480,7 @@ def run_integer_path(torch, np, dev):
         g = zoo.ZOO[key]()
         x = xs[key[:3]]
         before = ops.launch_counts()
-        plan = compile_graph(g, device=dev)
+        plan = compile_graph(g, device=dev, use_fusion=False)
         bodies = ops.b2_body_counts()
         out = plan({"x": x})[plan.graph.output_names[0]]
         torch.cuda.synchronize()
@@ -1416,7 +1500,7 @@ def run_integer_path(torch, np, dev):
     x16 = np.random.RandomState(13).randn(2 * SLOT, 3, 224, 224).astype(np.float32)
     g = zoo.build_mobilenet(4, 4, img=224)
     before = ops.launch_counts()
-    plan = compile_graph(g, device=dev)
+    plan = compile_graph(g, device=dev, use_fusion=False)
     bodies = ops.b2_body_counts()
     staged = ops.staging_counts()["quant_depthwise_conv2d"]
     out = plan({"x": x16[:SLOT]})[g.output_names[0]]
@@ -1442,7 +1526,7 @@ def run_integer_path(torch, np, dev):
     oracle = _oracle(live, x16, return_all=True, key="MobileNet-w4a4 rescaled")
     ref = oracle[live.output_names[0]]
     before = ops.launch_counts()
-    iplan = compile_graph(live, device=dev)
+    iplan = compile_graph(live, device=dev, use_fusion=False)
     pre, w_name = _final_matmul(iplan.graph)
     final = [s for s in iplan.segments if s.kind == "quant_matmul_int4"]
     if len(final) != 1 or final[0].meta["requant_path"] != "fp32":
@@ -1477,7 +1561,7 @@ def run_integer_path(torch, np, dev):
     gg = grouped_conv_graph()
     xg = np.random.RandomState(14).randn(*gg.inputs[0].shape).astype(np.float32)
     before = ops.launch_counts()
-    gplan = compile_graph(gg, device=dev)
+    gplan = compile_graph(gg, device=dev, use_fusion=False)
     staged = ops.staging_counts()["quant_grouped_matmul"]
     gout = gplan({"x": xg})[gg.output_names[0]]
     torch.cuda.synchronize()
@@ -1493,6 +1577,8 @@ def run_integer_path(torch, np, dev):
     print(f"integer path {gg.name} {tuple(xg.shape)}: B5 segment on requant_path int32, "
           f"bit-exact vs oracle, launches={launched}, B5 by staging {staged}", flush=True)
 
+    plans = ops.launch_counts()          # phase 3's window ends; phase 4's starts
+    ops.reset_launch_counts()
     # phase 4 on the integer path: the engine serves TFC-w2a2 in 16-row slots
     # and the rescaled MobileNet-224 in 8-row slots; report_cost is on
     tfc = zoo.build_tfc(2, 2)
@@ -1514,7 +1600,8 @@ def run_integer_path(torch, np, dev):
             tfc.output_names[0]].numpy()):
         raise AssertionError("engine(x) on the integer path differs from the oracle")
     rep = eng.cost_report
-    print(f"serving TFC-w2a2 on the integer path: 64 requests via run_pending (4 slots of 16; "
+    print(f"serving TFC-w2a2 on the integer path ({fused_engine(eng, 'TFC engine (int)')}): "
+          f"64 requests via run_pending (4 slots of 16; "
           f"B2 launches by body {bodies}) + one 40-row "
           f"call, all rows bit-exact vs the CPU oracle; cost report at load: "
           f"{len(rep.layers)} layers, {rep.macs} MACs, {rep.bops:.6g} BOPs, "
@@ -1537,13 +1624,386 @@ def run_integer_path(torch, np, dev):
     if bool(((served - ref).abs() > bound).any()):
         raise AssertionError("served MobileNet rows beyond the oracle's order bound")
     rep = meng.cost_report
-    print(f"serving MobileNet-w4a4 img 224 (rescaled) on the integer path: {2 * SLOT} "
+    print(f"serving MobileNet-w4a4 img 224 (rescaled) on the integer path "
+          f"({fused_engine(meng, 'MobileNet engine (int)')}): {2 * SLOT} "
           f"requests in {SLOT}-row slots (B2 launches by body {bodies}) + one ragged 5-row "
           f"call, every row bit-exact vs "
-          f"the plan (whose rows are bit-exact vs the CPU oracle through the pool) and "
+          f"the plan (fusion off; its rows are bit-exact vs the CPU oracle through the pool) and "
           f"within the oracle's order bound; cost report at load: {len(rep.layers)} "
           f"layers, {rep.macs} MACs, {int(rep.total_weight_bits)} weight bits", flush=True)
-    return (eng, xt), (meng, np.concatenate([x16] * 4)), (iplan, x16[:SLOT])
+    return plans, ops.launch_counts(), (eng, xt), (meng, np.concatenate([x16] * 4)), \
+        (iplan, x16[:SLOT])
+
+
+# ------------------------------------------------ phase 2, the boundary glue
+
+# (N, C, H, W, kernel, strides, pads, count_include_pad, zero point): CNV's two
+# MaxPools (2x2 / 2 on its 28x28 and 10x10 maps of SLOT rows), padded and
+# strided windows, asymmetric pads, odd last dims
+POOL_CASES = [
+    (SLOT, 64, 28, 28, (2, 2), (2, 2), (0, 0, 0, 0), 0, 0),
+    (SLOT, 128, 10, 10, (2, 2), (2, 2), (0, 0, 0, 0), 0, 0),
+    (2, 16, 9, 9, (3, 3), (1, 1), (1, 1, 1, 1), 0, 0),
+    (2, 16, 9, 9, (3, 3), (1, 1), (1, 1, 1, 1), 1, 3),
+    (3, 8, 13, 11, (3, 3), (2, 2), (1, 0, 1, 0), 0, -2),
+    (3, 8, 13, 11, (3, 2), (1, 2), (0, 1, 0, 1), 1, 5),
+    (1, 5, 7, 7, (2, 2), (1, 1), (1, 1, 1, 1), 1, 0),
+]
+# B4 with emit_codes at the zoo's act widths: (bits, signed, scale, rows, cols):
+# the 8-bit input, CNV's 2-bit and MobileNet's 4-bit acts at their first
+# conv's output size
+GLUE_QDQ = [(8, True, 1 / 128, SLOT, 3 * 32 * 32), (2, False, 0.5, SLOT, 64 * 30 * 30),
+            (4, False, 0.125, SLOT, 32 * 112 * 112), (1, True, 1.0, 64, 64)]
+
+
+def check_glue(ops, torch, np, dev) -> int:
+    """The fused path's boundary glue on the card (``kernels.quant_pool``,
+    the carrier codecs of ``core/lowering/fusion.py``) ``torch.equal`` to
+    the same functions on the CPU, and B4's codes output at the zoo's act
+    widths equal to its twin; returns the number of cases."""
+    from repro_torch.core.lowering import fusion
+    from repro_torch.kernels import quant_pool as qp
+    rng = np.random.RandomState(21)
+    n = 0
+
+    def same(label, fn, *args):
+        nonlocal n
+        got = fn(*(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args))
+        want = fn(*args)
+        if got.device.type != "cuda" or not torch.equal(got.cpu(), want):
+            raise AssertionError(f"glue {label} differs on the card")
+        n += 1
+
+    for b, c, h, w, k, st, pads, cip, zp in POOL_CASES:
+        kw = dict(kernel_shape=k, strides=st, pads=pads)
+        codes = torch.from_numpy(rng.randint(-128, 128, (b, c, h, w)).astype(np.int8))
+        vals = (codes.float() - zp) * 2.0 ** -3              # dyadic: exact sums
+        label = f"{(b, c, h, w)} k{k} s{st} p{pads} cip{cip} z{zp}"
+        same(f"maxpool2d_codes {label}", lambda t: qp.maxpool2d_codes(t, **kw), codes)
+        same(f"maxpool2d {label}", lambda t: qp.maxpool2d(t, **kw), vals)
+        same(f"avgpool2d {label}", lambda t: qp.avgpool2d(t, count_include_pad=cip, **kw),
+             vals)
+        same(f"avgpool2d_codes {label}",
+             lambda t: qp.avgpool2d_codes(t, 2.0 ** -3, float(zp), count_include_pad=cip,
+                                          **kw), codes)
+        if not torch.equal(qp.avgpool2d_codes(codes.to(dev), 2.0 ** -3, float(zp),
+                                              count_include_pad=cip, **kw).cpu(),
+                           qp.avgpool2d(vals, count_include_pad=cip, **kw)):
+            raise AssertionError(f"glue avgpool2d_codes != avgpool2d on the card: {label}")
+        # nibble packing along W: even last dims pack, odd ones are left out
+        if w % 2 == 0:
+            nib = torch.from_numpy(rng.randint(-8, 8, (b, c, h, w)).astype(np.int8))
+            same(f"pack_codes_int4 {label}", qp.pack_codes_int4, nib)
+            packed = qp.pack_codes_int4(nib)
+            same(f"unpack_codes_int4 {label}", qp.unpack_codes_int4, packed)
+            if not torch.equal(qp.unpack_codes_int4(packed.to(dev)).cpu(), nib):
+                raise AssertionError(f"glue pack / unpack round trip on the card: {label}")
+            for packed_c in (False, True):
+                car = fusion.Carrier(0.5, float(zp % 3), 4, True, packed_c)
+                stored = qp.pack_codes_int4(nib) if packed_c else nib
+                same(f"boundary_values {car}", lambda t: fusion.boundary_values(t, car),
+                     stored)
+    every = torch.arange(256, dtype=torch.int32).to(torch.uint8).reshape(4, 64)
+    same("unpack_codes_int4 every byte", qp.unpack_codes_int4, every)
+    # the integer path's code recovery (y on a 2^-3 grid, zero point 2)
+    q = torch.from_numpy(rng.randint(0, 16, (SLOT, 4096)).astype(np.float32))
+    y = (q - 2.0) * 2.0 ** -3
+    for packed_c in (False, True):
+        car = fusion.Carrier(2.0 ** -3, 2.0, 4, False, packed_c)
+        same(f"carried_output {car}",
+             lambda t: fusion.carried_output(t, car, (8.0, 2.0)), y)
+    for bits, signed, scale, rows, cols in GLUE_QDQ:
+        x = torch.from_numpy((rng.randn(rows, cols) * 2).astype(np.float32)).to(dev)
+        s, z = torch.tensor(scale, device=dev), torch.tensor(0.0, device=dev)
+        kw = dict(bit_width=bits, signed=signed, emit_codes=True)
+        got = ops.quant_dequant(x, s, z, **kw)
+        if got.dtype != torch.int8 or not torch.equal(got, ops.quant_dequant_plain(x, s, z, **kw)):
+            raise AssertionError(f"quant_dequant emit_codes differs: {bits} bits {rows}x{cols}")
+        n += 1
+    torch.cuda.synchronize()
+    return n
+
+
+# ---------------------------------------------------- phase 3'', fused
+
+def check_launched(counts, names, window) -> None:
+    """Print one window's launch counts; fail unless each kernel of
+    ``names`` launched in it."""
+    print(f"launches in {window}: {counts}", flush=True)
+    for k in names:
+        if counts[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched in {window}")
+
+
+def fusion_census(plan) -> dict:
+    """What negotiation decided and what it left interpreted."""
+    return {"stats": plan.fusion_stats(),
+            "fusion_kinds": {k: v for k, v in plan.fused_counts.items()
+                             if k in FUSION_KINDS},
+            "interp": plan.interp_op_counts()}
+
+
+def step_plan(torch, plan, x, dev) -> dict:
+    """The plan's own loop, keeping every tensor it makes (env)."""
+    from repro_torch.core.executor import to_tensor
+    env = {plan.graph.input_names[0]: to_tensor(x, dev)}
+    for seg in plan.segments:
+        seg.run(plan.consts, env)
+    torch.cuda.synchronize()
+    return env
+
+
+def check_carried(torch, plan, env, label):
+    """Every negotiated boundary is int8 codes (uint8 when nibble-packed),
+    and no tensor the plan made left the card."""
+    for name, c in plan.fusion.carriers.items():
+        want = torch.uint8 if c.packed else torch.int8
+        if env[name].dtype != want:
+            raise AssertionError(f"{label}: boundary {name} is {env[name].dtype}, not {want}")
+    for name, v in env.items():
+        if isinstance(v, torch.Tensor) and v.device.type != "cuda":
+            raise AssertionError(f"{label}: {name} is on {v.device}")
+
+
+def run_fused_path(torch, np, dev):
+    """Phase 3'': the default plans (fusion on) on both tiers, every ZOO key
+    and the grouped conv: census as the reference's (CENSUS_FUSION),
+    carried boundaries int8 / uint8 on the card, bit-exact against the CPU
+    oracle (MobileNet's final MatMul within the order bound) and bit for
+    bit equal on the card to the same plan with use_fusion=False.
+    Launches are counted around each fused plan's own call only (the
+    use_fusion=False plan runs outside that window).  Returns the fused
+    integer MobileNet-224 (rescaled) and CNV-w1a1 plans, and the fused
+    plans' launches per tier."""
+    from repro_torch.core import compile_graph
+    from repro_torch.kernels import ops
+    from repro_torch.models import zoo
+
+    x16 = np.random.RandomState(13).randn(2 * SLOT, 3, 224, 224).astype(np.float32)
+    xs = {"TFC": np.random.RandomState(2).randn(64, 784).astype(np.float32),
+          "CNV": np.random.RandomState(12).randn(SLOT, 3, 32, 32).astype(np.float32),
+          "Mob": x16[:SLOT], "Gro": np.random.RandomState(14).randn(
+              GCONV["n"], GCONV["c"], GCONV["img"], GCONV["img"]).astype(np.float32)}
+    graphs = {k: zoo.ZOO[k] for k in zoo.ZOO}
+    graphs["MobileNet-w4a4 rescaled"] = \
+        lambda: zoo.rescale_conv_gains(zoo.build_mobilenet(4, 4, img=224))
+    graphs["GroupedConv-g8"] = grouped_conv_graph
+    keep, counts = {}, {}
+    for tier, kw in (("int", {}), ("f32", {"use_analysis": False})):
+        counts[tier] = dict.fromkeys(ops.launch_counts(), 0)
+        for key, build in graphs.items():
+            g = build()
+            x = xs[key[:3]]
+            plan = compile_graph(g, device=dev, **kw)
+            census = fusion_census(plan)
+            want = CENSUS_FUSION[(key.split(" ")[0], tier)]
+            if census != want:
+                raise AssertionError(f"{key} ({tier}, fused): census {census} != {want}")
+            ops.reset_launch_counts()
+            env = step_plan(torch, plan, x, dev)
+            launched = {k: v for k, v in ops.launch_counts().items() if v > 0}
+            for k, v in launched.items():
+                counts[tier][k] += v
+            check_carried(torch, plan, env, f"{key} ({tier}, fused)")
+            out = env[g.output_names[0]]
+            off = compile_graph(g, device=dev, use_fusion=False, **kw)
+            if not torch.equal(out, off({"x": x})[g.output_names[0]]):
+                raise AssertionError(f"{key} ({tier}): the fused plan differs from the "
+                                     "use_fusion=False plan on the card")
+            torch.cuda.synchronize()
+            if key == "MobileNet-w4a4 rescaled":
+                oracle = _oracle(g, x16, return_all=True, key=key)
+                pre, w_name = _final_matmul(plan.graph)
+                if not torch.equal(env[pre].cpu(), oracle[pre][:SLOT]):
+                    raise AssertionError(f"{key} ({tier}, fused): differs from the oracle "
+                                         f"before the final MatMul ({pre})")
+                ref = oracle[g.output_names[0]][:SLOT]
+                bound = order_bound(oracle[pre][:SLOT], oracle[w_name], ref)
+                if bool(((out.cpu() - ref).abs() > bound).any()):
+                    raise AssertionError(f"{key} ({tier}, fused): final MatMul beyond the "
+                                         "order bound")
+                exact = "bit-exact through the pool, final MatMul within the order bound"
+            else:
+                ref = _oracle(g, x, key=key)[g.output_names[0]]
+                if not bool(torch.isfinite(out).all()) or not torch.equal(out.cpu(), ref):
+                    raise AssertionError(f"{key} ({tier}, fused): differs from the CPU oracle")
+                exact = "bit-exact"
+            fs = census["stats"]
+            print(f"fused path {key} ({tier}): {exact} vs the CPU oracle, equal to "
+                  f"use_fusion=False on the card; {fs['integer_boundaries']} integer "
+                  f"boundaries ({fs['packed_boundaries']} packed), "
+                  f"{fs['fused_boundary_segments']} fused boundary segments, "
+                  f"{fs['boundary_bytes_saved']} boundary bytes saved a call, fusion "
+                  f"segments {census['fusion_kinds']}, interpreted {census['interp']}; "
+                  f"the fused plan's launches={launched}", flush=True)
+            if tier == "int" and key in ("MobileNet-w4a4 rescaled", "CNV-w1a1"):
+                keep[key] = (plan, off, x)
+    return keep, counts
+
+
+# -------------------------------------------------- phase 3''', formats
+
+def run_formats(torch, np, dev):
+    """Phase 3''': the paper's formats on the card.  ``qonnx_to_qcdq`` of
+    TFC-w2a2, CNV-w2a2 and the rescaled MobileNet-w4a4 at img 224 (every
+    conv on a kernel) and ``qonnx_to_quantized_op`` of TFC-w2a2, each
+    compiled on CUDA (defaults) and held against the port's CPU oracle of
+    the same converted graph."""
+    from repro_torch.core import compile_graph, formats, passes
+    from repro_torch.kernels import ops
+    from repro_torch.models import zoo
+
+    cases = [("TFC-w2a2 QCDQ", zoo.build_tfc(2, 2), formats.qonnx_to_qcdq,
+              np.random.RandomState(2).randn(64, 784)),
+             ("CNV-w2a2 QCDQ", zoo.build_cnv(2, 2), formats.qonnx_to_qcdq,
+              np.random.RandomState(12).randn(SLOT, 3, 32, 32)),
+             ("MobileNet-w4a4 (rescaled) QCDQ",
+              zoo.rescale_conv_gains(zoo.build_mobilenet(4, 4, img=224)),
+              formats.qonnx_to_qcdq, np.random.RandomState(13).randn(2, 3, 224, 224)),
+             ("TFC-w2a2 QOp", zoo.build_tfc(2, 2), formats.qonnx_to_quantized_op,
+              np.random.RandomState(2).randn(64, 784))]
+    for label, g, convert, x in cases:
+        x = x.astype(np.float32)
+        q = convert(passes.run_pipeline(g, "compile_prep"))
+        before = ops.launch_counts()
+        plan = compile_graph(q, device=dev)
+        n_convs = sum(n.op_type == "Conv" for n in q.nodes)
+        if plan.interp_op_counts().get("Conv", 0) or sum(
+                v for k, v in plan.fused_counts.items() if k.startswith("quant_conv")) != n_convs:
+            raise AssertionError(f"{label}: not every conv lowers ({plan.fused_counts})")
+        env = step_plan(torch, plan, x, dev)
+        check_carried(torch, plan, env, label)
+        out = env[q.output_names[0]]
+        oracle = _oracle(q, x, return_all=True)
+        if label.startswith("MobileNet"):
+            pre, w_name = _final_matmul(plan.graph)
+            if not torch.equal(env[pre].cpu(), oracle[pre]):
+                raise AssertionError(f"{label}: differs from the oracle before the final MatMul")
+            ref = oracle[q.output_names[0]]
+            bound = order_bound(oracle[pre], oracle[w_name], ref)
+            if bool(((out.cpu() - ref).abs() > bound).any()):
+                raise AssertionError(f"{label}: final MatMul beyond the order bound")
+        elif not torch.equal(out.cpu(), oracle[q.output_names[0]]):
+            raise AssertionError(f"{label}: compiled CUDA plan differs from the oracle")
+        after = ops.launch_counts()
+        launched = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        how = " through the pool, final MatMul within the order bound" \
+            if label.startswith("MobileNet") else ""
+        print(f"formats {label} {tuple(x.shape)}: compiled on CUDA ({n_convs} convs, all on "
+              f"kernels), equal to the CPU oracle of the converted graph{how}; "
+              f"fused_counts={plan.fused_counts}, launches={launched}", flush=True)
+
+
+# ------------------------------------------- phase 5, fusion on and off
+
+GLUE_FNS = ("boundary_values", "carried_output")   # kernel segments' glue
+GLUE_ROWS = {"glue/boundary_values": "dequantize on entry",
+             "glue/carried_output": "codes out (recovery, packing)",
+             **{f"segment/{k}": f"{k} segment" for k in FUSION_KINDS}}
+
+
+def _subtree(e):
+    """(kernels, device us) the aten ops under one profiler event launched
+    (a kernel launched through ctypes, outside any aten op, is not
+    attached to the event; the glue is aten ops only)."""
+    n, us = len(e.kernels), sum(k.duration for k in e.kernels)
+    for c in e.cpu_children:
+        cn, cu = _subtree(c)
+        n, us = n + cn, us + cu
+    return n, us
+
+
+def _under(e, names) -> bool:
+    """Whether a profiler event runs inside a range named in ``names``."""
+    p = e.cpu_parent
+    while p is not None:
+        if p.name in names:
+            return True
+        p = p.cpu_parent
+    return False
+
+
+def glue_profile(torch, plan, x, label, model, wall_ms, reps=5) -> dict:
+    """One plan call's device time by kernel name (torch.profiler), with
+    each segment and the boundary glue labelled by ``record_function``
+    ranges for this profile only: the fusion segments (bipolar / pool /
+    add / concat), the dequantize-on-entry and the codes-out of the kernel
+    segments.  Prints busy ms, launches, ``wall_ms`` (host clock, no
+    profiler, no labels) and the busy share, then the glue rows; returns
+    the numbers."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.core.lowering import fusion
+    xd = torch.from_numpy(x).cuda()
+
+    def labelled(name, fn):
+        def run(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return run
+
+    runs = [seg.run for seg in plan.segments]
+    try:
+        for seg, run in zip(plan.segments, runs):
+            seg.run = labelled(f"segment/{seg.kind}", run)
+        with mock.patch.multiple(fusion, **{n: labelled(f"glue/{n}", getattr(fusion, n))
+                                            for n in GLUE_FNS}):
+            for _ in range(2):
+                plan({"x": xd})
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    plan({"x": xd})
+                torch.cuda.synchronize()
+    finally:
+        for seg, run in zip(plan.segments, runs):
+            seg.run = run
+    by_name = {}
+    for e in prof.key_averages():
+        # device-side kernels only: the labels' own device ranges span idle
+        # time between their kernels
+        if str(e.device_type).endswith("CUDA") and not e.key.startswith(("segment/", "glue/")):
+            t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+            by_name[e.key] = (t / reps / 1e3, e.count / reps)
+    busy = sum(t for t, _ in by_name.values())
+    launches = sum(n for _, n in by_name.values())
+    print(f"fusion profile[{model}, {label}]: one plan call of {len(x)} rows: device busy "
+          f"{busy:.6f} ms in {launches:g} launches, wall {wall_ms:.6f} ms (no profiler), busy "
+          f"share {busy / wall_ms:.3f}", flush=True)
+    for key, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"fusion profile[{model}, {label}]:   {t:.6f} ms in {n:g} launches  "
+              f"{key[:100]}", flush=True)
+    rows = {}
+    for e in prof.events():
+        if e.name in GLUE_ROWS and not _under(e, GLUE_ROWS):
+            n, us = _subtree(e)
+            r = rows.setdefault(e.name, [0, 0.0])
+            r[0] += n
+            r[1] += us
+    glue_ms = sum(us for _, us in rows.values()) / reps / 1e3
+    glue_n = sum(n for n, _ in rows.values()) / reps
+    for name, (n, us) in sorted(rows.items(), key=lambda kv: -kv[1][1]):
+        print(f"fusion glue[{model}, {label}]: {GLUE_ROWS[name]}: {us / reps / 1e3:.6f} ms in "
+              f"{n / reps:g} launches", flush=True)
+    print(f"fusion glue[{model}, {label}]: total {glue_ms:.6f} ms in {glue_n:g} launches "
+          f"({glue_ms / busy if busy else 0.0:.3f} of busy)", flush=True)
+    return {"busy_ms": busy, "launches": launches, "wall_ms": wall_ms,
+            "glue_ms": glue_ms, "glue_launches": glue_n}
+
+
+def fusion_profiles(torch, keep):
+    """Phase 5 for the fused path: the MobileNet-224 integer plan call of
+    SLOT rows and the CNV-w1a1 integer plan call, fusion on and off: walls
+    in turns (on, off, off, on, ...), then one labelled profile of each."""
+    for key, (on, off, x) in keep.items():
+        model = "MobileNet-224" if key.startswith("MobileNet") else "CNV-w1a1"
+        walls = walls_in_turns(torch, {"fusion on": on, "fusion off": off}, x, model=model)
+        got = {lab: glue_profile(torch, p, x, lab, model, walls[lab])
+               for lab, p in (("fusion on", on), ("fusion off", off))}
+        a, b = got["fusion on"], got["fusion off"]
+        print(f"fusion on vs off [{model}, integer path, {len(x)} rows]: busy "
+              f"{a['busy_ms']:.6f} / {b['busy_ms']:.6f} ms, launches {a['launches']:g} / "
+              f"{b['launches']:g}, wall {a['wall_ms']:.6f} / {b['wall_ms']:.6f} ms, glue "
+              f"{a['glue_ms']:.6f} ms in {a['glue_launches']:g} launches (on)", flush=True)
 
 
 def requests_per_s(eng, xs) -> float:
@@ -1896,10 +2356,10 @@ def plan_profiles(torch, np, dev, turns=3):
         profile_forward(torch, mob, xm, f"integer path, turn {i}")
 
 
-def walls_in_turns(torch, plans: dict, x, pairs=10, reps=5):
+def walls_in_turns(torch, plans: dict, x, pairs=10, reps=5, model="MobileNet-224") -> dict:
     """Wall ms of one plan call (host clock around ``reps`` calls and a
     sync), the plans run in turns (A B, then B A, ...) ``pairs`` times;
-    prints each plan's median and quartiles."""
+    prints each plan's median and quartiles and returns the medians."""
     xd = torch.from_numpy(x).cuda()
     names = list(plans)
     walls = {n: [] for n in names}
@@ -1914,8 +2374,9 @@ def walls_in_turns(torch, plans: dict, x, pairs=10, reps=5):
             walls[name].append((time.perf_counter() - t0) / reps * 1e3)
     for name, ws in walls.items():
         q = statistics.quantiles(ws, n=4)
-        print(f"plan call wall[{name}], MobileNet-224 {len(x)} rows, {pairs} turns: median "
+        print(f"plan call wall[{name}], {model} {len(x)} rows, {pairs} turns: median "
               f"{statistics.median(ws):.6f} ms, quartiles {q[0]:.6f} / {q[2]:.6f} ms", flush=True)
+    return {name: statistics.median(ws) for name, ws in walls.items()}
 
 
 def _fmt(v) -> str:
@@ -2316,28 +2777,37 @@ def main() -> int:
     print(f"integer bodies vs twins (torch.equal): {n_int} cases", flush=True)
     check_redesign(ops, torch, np, dev, err)
     check_b4_b1_redesign(ops, torch, np, dev, err)
+    n_glue = check_glue(ops, torch, np, dev)
+    print(f"boundary glue on the card vs the CPU (torch.equal): {n_glue} cases", flush=True)
     check_flash_attention(ops, torch, dev, err)
 
-    # phases 3 + 4: the float32-epilogue path (use_analysis=False), counted
+    # phases 3 + 4: the float32-epilogue path (use_analysis=False); phase 3's
+    # plans (fusion off) and phase 4's engines (fused plans) in windows of
+    # their own
     ops.reset_launch_counts()
-    (eng, xt), (meng, xm), (lplan, x8) = run_main_path(torch, np, dev)
-    launches = ops.launch_counts()
-    print(f"main-path launches (float32 epilogue): {launches}", flush=True)
-    for k in ZOO_KERNELS:
-        if launches[k] <= 0:
-            raise AssertionError(f"kernel {k} never launched on the main path")
+    plans, served, (eng, xt), (meng, xm), (lplan, x8) = run_main_path(torch, np, dev)
+    check_launched(plans, ZOO_KERNELS, "phase 3 (float32 epilogue, fusion off)")
+    check_launched(served, SERVED_KERNELS, "phase 4 (float32 epilogue, fused engines)")
 
-    # phases 3 + 4 again on the integer path (compile_graph's defaults),
-    # counted on their own
+    # phases 3 + 4 again on the integer path (compile_graph's defaults)
     ops.reset_launch_counts()
-    (ieng, ixt), (imeng, ixm), (iplan, ix8) = run_integer_path(torch, np, dev)
-    int_counts = ops.launch_counts()
-    print(f"main-path launches (integer path): {int_counts}; B2 by body "
-          f"{ops.b2_body_counts()}", flush=True)
-    for k in ZOO_KERNELS:
-        if int_counts[k] <= 0:
-            raise AssertionError(f"kernel {k} never launched on the integer path")
-    launches.update({k + "/int32": int_counts[k] for k in INT_KERNELS})
+    plans, served, (ieng, ixt), (imeng, ixm), (iplan, ix8) = run_integer_path(torch, np, dev)
+    check_launched(plans, ZOO_KERNELS, "phase 3 (integer path, fusion off)")
+    check_launched(served, SERVED_KERNELS, "phase 4 (integer path, fused engines)")
+
+    # phase 3'': the fused path, compile_graph's defaults on both tiers; each
+    # fused plan's launches are read around its own call.  These are the
+    # main path's launches in the kernels line (the float32 tier under the
+    # kernel's name, the integer tier under name/int32)
+    keep, fused = run_fused_path(torch, np, dev)
+    check_launched(fused["f32"], ZOO_KERNELS, "phase 3'' (fused plans, float32 epilogue)")
+    check_launched(fused["int"], ZOO_KERNELS, "phase 3'' (fused plans, integer path)")
+    launches = dict(fused["f32"])
+    launches.update({k + "/int32": fused["int"][k] for k in INT_KERNELS})
+    # phase 3''': the formats
+    ops.reset_launch_counts()
+    run_formats(torch, np, dev)
+    check_launched(ops.launch_counts(), SERVED_KERNELS, "phase 3''' (the formats' plans)")
 
     # phase 5: times
     rows = timings(ops, torch, dev)
@@ -2375,6 +2845,7 @@ def main() -> int:
     profile_forward(torch, iplan, ix8, "integer path")
     profile_forward(torch, ieng.plan, ixt[:16], "integer path", "TFC-w2a2")
     walls_in_turns(torch, {"float32 epilogue": lplan, "integer path": iplan}, x8)
+    fusion_profiles(torch, keep)
     # engines in turns: float32, integer, integer, float32
     for model, pair in (("TFC-w2a2, max_batch=16", ((eng, xt), (ieng, ixt))),
                         (f"MobileNet-w4a4 img 224, max_batch={SLOT}", ((meng, xm), (imeng, ixm)))):

@@ -1,8 +1,7 @@
 """Quantization-consistency validation over QonnxGraph.
 
-Counterpart of ``repro.analysis.validate``.  It keeps its own copy of
-``bitwidth_from_bounds`` (``repro.core.formats``), whose module is not
-ported yet (ROADMAP.md A12).
+Counterpart of ``repro.analysis.validate``; the Clip-bound check uses
+``core.formats.bitwidth_from_bounds``.
 
 Structural well-formedness (SSA, DAG) lives in ``QonnxGraph.validate``;
 this module checks *quantization semantics* — the class of inconsistencies
@@ -32,6 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..core import quant_ops
+from ..core.formats import bitwidth_from_bounds
 from ..core.graph import Node, QonnxGraph
 
 
@@ -54,30 +54,6 @@ class ValidationIssue:
 
     def __str__(self):
         return f"[{self.code}] {self.node}: {self.message}"
-
-
-def bitwidth_from_bounds(lo: float, hi: float, signed: bool):
-    """Invert Eqs. 2-3: integer clip bounds -> (bit_width, narrow), or None
-    when the bounds match no integer bit width (a copy of
-    ``repro.core.formats.bitwidth_from_bounds``)."""
-    if signed:
-        nb = np.log2(hi + 1) + 1
-        narrow = bool(lo == -(2 ** (nb - 1)) + 1)
-    else:
-        narrow = False
-        nb = np.log2(hi + 1)
-        if hi == 2 ** np.ceil(np.log2(hi + 2)) - 2:          # 2^n - 2 pattern
-            nb2 = np.log2(hi + 2)
-            if float(nb2).is_integer() and not float(nb).is_integer():
-                nb, narrow = nb2, True
-    if not float(nb).is_integer():
-        return None
-    nb = int(nb)
-    lo_chk = float(quant_ops.min_int(signed, narrow, nb))
-    hi_chk = float(quant_ops.max_int(signed, narrow, nb))
-    if lo_chk != lo or hi_chk != hi:
-        return None
-    return nb, narrow
 
 
 def _const(g: QonnxGraph, name: str):

@@ -14,7 +14,7 @@ from .quant_ops import (  # noqa: F401
 )
 from .graph import GraphBuilder, Node, QonnxGraph, TensorInfo  # noqa: F401
 from .executor import execute, register_op  # noqa: F401
-from . import passes, serialize, transforms  # noqa: F401
+from . import export, formats, passes, serialize, streamline, transforms  # noqa: F401
 from . import compile as compile_  # noqa: F401  ("compile" shadows a builtin)
 from .compile import CompiledPlan, compile_graph  # noqa: F401
 from .passes import PassManager, register_pass, run_pipeline  # noqa: F401

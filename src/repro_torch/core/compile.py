@@ -19,7 +19,17 @@ oracle; this module is the performance tier above it:
        block-diagonal for the groups the grouped rule declines;
      * activation ``Quant`` nodes and ``QuantizeLinear -> Clip ->
        DequantizeLinear`` chains — onto ``kernels.quant_dequant`` (B4);
+     * with fusion on (the default), activation ``BipolarQuant``,
+       ``MaxPool`` / ``AveragePool``, residual ``Add [-> Relu] [-> Quant]``
+       and ``Concat`` — onto fused boundary segments
+       (``lowering/fusion.py``, ``kernels.quant_pool``);
      * everything else runs on the interpreted op registry.
+
+     Between matching and emission, ``negotiate_carriers`` decides which
+     boundary tensors travel as int8 codes (two a byte when they have at
+     most 4 bits) instead of float32: B4 emits the codes, the integer
+     path recovers them from its power-of-two act grid, and each consumer
+     dequantizes them on entry with the oracle's own expression.
 
   2. **Fold** the static subgraphs no rule covers once, at compile time,
      and prune the constants to what the plan reads.
@@ -37,9 +47,10 @@ conv gets an int32 accumulator where the activations are provably
 integer-valued and the dot-product bound fits 31 bits, and a segment
 whose scales are dyadic runs the exact integer epilogue B3
 (``lowering/requant.py``).  ``use_analysis=False`` restores the
-declared-bit-width fp32-epilogue tier.  Cross-segment fusion
-(``use_fusion``), tuning and meshes are not ported; their flags raise
-``NotImplementedError`` naming the ROADMAP.md item that brings them.
+declared-bit-width fp32-epilogue tier, ``use_fusion=False`` the plans with
+float32 boundaries and interpreted boundary ops.  Tuning and meshes are
+not ported; their flags raise ``NotImplementedError`` naming the
+ROADMAP.md item that brings them.
 """
 from __future__ import annotations
 
@@ -70,6 +81,7 @@ class CompiledPlan:
     consts: dict
     device: torch.device
     analysis: Optional[object] = None      # GraphAnalysis used for selection
+    fusion: Optional[object] = None        # lowering.FusionPlan (carriers)
 
     def __call__(self, inputs: dict) -> dict:
         """Run the plan.  Inputs (numpy arrays or tensors) are moved to the
@@ -156,6 +168,32 @@ class CompiledPlan:
                     "carrier_bytes_saved", 0)
         return out
 
+    def fusion_stats(self) -> dict:
+        """Cross-segment fusion telemetry (``lowering/fusion.py``).
+
+        ``fused_boundary_segments`` counts the segments in a fused boundary
+        (the four fusion-rule kinds and the kernel segments that produce or
+        consume an integer carrier); ``integer_boundaries`` /
+        ``packed_boundaries`` count the boundary tensors carried as int8
+        codes / nibble-packed bytes; ``boundary_bytes_saved`` is the
+        boundary traffic a call avoids against float32 boundaries;
+        ``offers`` / ``declined`` show how negotiation went (a declined
+        offer keeps its float32 boundary)."""
+        fp = self.fusion
+        out = {"enabled": fp is not None,
+               "fused_boundary_segments": sum(
+                   1 for s in self.segments if s.meta.get("fused_boundary")),
+               "integer_boundaries": 0, "packed_boundaries": 0,
+               "boundary_bytes_saved": 0, "offers": 0, "declined": 0}
+        if fp is not None:
+            out["integer_boundaries"] = len(fp.carriers)
+            out["packed_boundaries"] = sum(
+                1 for c in fp.carriers.values() if c.packed)
+            out["boundary_bytes_saved"] = fp.bytes_saved
+            out["offers"] = fp.offered
+            out["declined"] = fp.declined
+        return out
+
     def describe(self) -> str:
         head = (f"CompiledPlan({self.graph.name}) on {self.device}: "
                 f"{len(self.segments)} segments over {len(self.graph.nodes)} "
@@ -186,10 +224,7 @@ def _make_interp_segment(nodes: list[Node], static_consts: dict) -> Segment:
     return Segment("interp", nodes, ins, outs, run)
 
 
-def _unported(use_fusion, tune, mesh, interpret) -> None:
-    if use_fusion:
-        raise NotImplementedError(
-            "use_fusion=True is not ported yet: ROADMAP.md A11 (fusion)")
+def _unported(tune, mesh, interpret) -> None:
     if tune != "off":
         raise NotImplementedError(
             f"tune={tune!r} is not ported yet: ROADMAP.md A15 (tuning)")
@@ -211,7 +246,7 @@ def compile_graph(graph: QonnxGraph, *, run_cleanup: bool = True,
                   use_integer_requant: bool = True, tune: str = "off",
                   tune_cache_dir: Optional[str] = None,
                   tune_repeats: int = 3,
-                  use_fusion: bool = False,
+                  use_fusion: bool = True,
                   mesh=None, device=None) -> CompiledPlan:
     """Partition ``graph`` into fused segments and emit a plan on ``device``.
 
@@ -230,22 +265,34 @@ def compile_graph(graph: QonnxGraph, *, run_cleanup: bool = True,
                    segment to the fp32 epilogue
     device       — where the plan runs: None means CUDA (raising without a
                    GPU); "cpu" runs every kernel's plain twin
-    use_fusion   — must stay False: cross-segment fusion and its integer
-                   boundary carriers are not ported (ROADMAP.md A11), so
-                   the default is False here where the reference's is True
+    use_fusion   — cross-segment fusion (``lowering/fusion.py``): lower
+                   residual Add / pool / Concat / bipolar boundary ops into
+                   fused segments and negotiate integer (int8 / packed
+                   int4) boundary carriers; False gives the plans with
+                   float32 boundaries.  On the card the default is the
+                   slower of the two for now: the carriers' glue
+                   (dequantize on entry, code recovery, packing) runs as
+                   eager PyTorch ops between the kernels, so the
+                   MobileNet-224 integer plan call of 8 rows takes about
+                   twice the wall and 1.8x the device time of
+                   use_fusion=False, in 3.6x the launches (``chip_smoke.py``
+                   phase 5 on an H100; numbers in PERF.md §6).  Taking the
+                   codes straight into the kernels is ROADMAP queue B's
+                   first item
     tune (with tune_cache_dir / tune_repeats), mesh — the reference's later
                    tiers; anything but their defaults raises
                    NotImplementedError
     interpret    — must stay None (see ``_unported``)
 
     Every compile records its wall time and plan-shape gauges (segments
-    per kind, fused nodes, integer-requant coverage and segments) in the
+    per kind, fused nodes, integer-requant coverage and segments, integer
+    boundaries and the boundary bytes they save) in the
     process-wide ``repro_torch.obs`` default registry under
     ``model=graph.name``.
     """
     t_compile0 = time.perf_counter()
     del tune_cache_dir, tune_repeats           # meaningful only with tune
-    _unported(use_fusion, tune, mesh, interpret)
+    _unported(tune, mesh, interpret)
     dev = resolve_device(device)
     if run_cleanup:
         from . import passes
@@ -258,7 +305,8 @@ def compile_graph(graph: QonnxGraph, *, run_cleanup: bool = True,
         from repro_torch.analysis import analyze
         ga = analyze(g)
     ctx = LoweringContext(analysis=ga, use_int4=use_int4,
-                          use_int_requant=use_integer_requant, device=dev)
+                          use_int_requant=use_integer_requant, device=dev,
+                          use_fusion=use_fusion)
 
     # constants start on the host: folding happens there once, and only
     # what the plan reads moves to the device
@@ -286,6 +334,16 @@ def compile_graph(graph: QonnxGraph, *, run_cleanup: bool = True,
                 anchor_match[id(node)] = (rule, m)
                 covered.update(id(n) for n in m.nodes)
                 break
+
+    # carrier negotiation — after matching (it reads every match's offers
+    # and accepts) and before emission (the emitters close over the
+    # negotiated boundary forms): one topo walk deciding which boundary
+    # tensors travel as integer codes instead of float32
+    fusion_plan = None
+    if use_kernels and use_fusion:
+        from .lowering import fusion as fusion_mod
+        fusion_plan = fusion_mod.negotiate_carriers(g, anchor_match)
+        ctx.fusion = fusion_plan
 
     # pass 1.5 — compile-time folding of the *unmatched* static subgraphs
     folded: set[int] = set()
@@ -348,7 +406,8 @@ def compile_graph(graph: QonnxGraph, *, run_cleanup: bool = True,
     consts = {k: v.to(dev) for k, v in consts.items() if k in used}
     consts.update(staged)
 
-    plan = CompiledPlan(g, segments, consts, dev, analysis=ga)
+    plan = CompiledPlan(g, segments, consts, dev, analysis=ga,
+                        fusion=fusion_plan)
     _record_compile_metrics(plan, time.perf_counter() - t_compile0)
     return plan
 
@@ -377,6 +436,13 @@ def _record_compile_metrics(plan: CompiledPlan, wall_s: float) -> None:
     reg.gauge("compile_integer_requant_segments",
               help="kernel segments proven exact on the dyadic integer "
                    "epilogue", labels=model).set(rq["int32_segments"])
+    fs = plan.fusion_stats()
+    reg.gauge("compile_integer_boundaries",
+              help="inter-segment tensors carried as integer codes instead "
+                   "of fp32", labels=model).set(fs["integer_boundaries"])
+    reg.gauge("compile_boundary_bytes_saved",
+              help="per-call boundary HBM bytes avoided vs fp32 boundaries",
+              labels=model).set(fs["boundary_bytes_saved"])
 
 
 __all__ = ["CompiledPlan", "compile_graph"]

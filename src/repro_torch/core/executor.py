@@ -261,9 +261,15 @@ def _gemm(node, a, b, c=None):
 
 @register_op("MatMulInteger")
 def _matmul_integer(node, a, b, a_zp=None, b_zp=None):
-    a32 = a.to(torch.int32) - (0 if a_zp is None else a_zp.to(torch.int32))
-    b32 = b.to(torch.int32) - (0 if b_zp is None else b_zp.to(torch.int32))
-    return torch.matmul(a32, b32)
+    """The int32 product ``(a - a_zp) @ (b - b_zp)``, wrapping as the
+    reference's int32 ``@`` does.  One route on every device (CUDA has no
+    integer matmul): the sums are taken in float64, exact for ONNX's 8-bit
+    operands (each product below 2^16) up to 2^37 terms, then wrapped to
+    int32."""
+    a64 = a.double() - (0 if a_zp is None else a_zp.double())
+    b64 = b.double() - (0 if b_zp is None else b_zp.double())
+    r = torch.matmul(a64, b64).to(torch.int64)
+    return ((r + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
 
 
 @register_op("Relu")

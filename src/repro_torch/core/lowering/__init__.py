@@ -2,8 +2,8 @@
 
 See ``base.py`` for the rule protocol and ``core/compile.py`` for the
 partitioner that drives it.  Importing this package registers the rules
-ported so far (matmul, grouped / depthwise conv, im2col conv, activation
-QDQ, QCDQ chain).
+(matmul, grouped / depthwise conv, im2col conv, activation QDQ, QCDQ
+chain, and the cross-segment fusion rules).
 """
 from .base import (  # noqa: F401
     LoweringContext, LoweringRule, Match, Segment, col_scale,
@@ -18,8 +18,12 @@ from . import conv as _conv          # noqa: F401,E402
 from . import grouped_conv as _grouped_conv  # noqa: F401,E402
 from . import matmul as _matmul      # noqa: F401,E402
 from . import qdq as _qdq            # noqa: F401,E402
+from . import fusion as _fusion      # noqa: F401,E402
 
 from .conv import ActQuantParams, QuantConvRule, match_conv_common  # noqa: F401,E402
 from .grouped_conv import MAX_BLOCKED_GROUPS, GroupedConvRule  # noqa: F401,E402
 from .matmul import QuantMatMulRule  # noqa: F401,E402
 from .qdq import ActivationQuantRule, QCDQChainRule  # noqa: F401,E402
+from .fusion import (  # noqa: F401,E402
+    BipolarActRule, Carrier, EltwiseAddRule, FusionPlan, QuantConcatRule,
+    QuantPoolRule, negotiate_carriers)

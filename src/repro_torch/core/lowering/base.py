@@ -17,7 +17,7 @@ registered ``LoweringRule``:
 (ties broken by name) and takes the first match whose covered nodes don't
 overlap an earlier match.
 
-Rules ported so far (imported by ``lowering/__init__``):
+Rules (imported by ``lowering/__init__``):
 
   priority 10  quant_matmul        Quant/BipolarQuant/QCDQ(w) -> MatMul/Gemm
                                    [-> Mul][-> Add]   (lowering/matmul.py)
@@ -28,6 +28,10 @@ Rules ported so far (imported by ``lowering/__init__``):
   priority 30  quant_qdq           activation Quant   (lowering/qdq.py)
   priority 40  qcdq_chain          QuantizeLinear [-> Clip] ->
                                    DequantizeLinear
+  priority 50  bipolar_act         activation BipolarQuant  (lowering/fusion.py)
+  priority 50  quant_pool          MaxPool / AveragePool
+  priority 55  eltwise_add         Add [-> Relu] [-> Quant]
+  priority 55  quant_concat        Concat
 """
 from __future__ import annotations
 
@@ -81,6 +85,10 @@ class LoweringContext:
     use_int_requant: bool = True   # dyadic integer-epilogue selection
                                    # (lowering/requant.py; needs analysis)
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
+    use_fusion: bool = True        # cross-segment fusion rules + integer
+                                   # boundary carriers (lowering/fusion.py)
+    fusion: Optional[object] = None  # fusion.FusionPlan once negotiated:
+                                     # emitters read boundary carriers here
 
 
 @dataclass

@@ -29,11 +29,14 @@ the scale granularity, the bias and the epilogue absorption.
 With the analysis tier the accumulator comes from the zero-padding-aware
 conv dot-product bound (``GraphAnalysis.kernel_accumulator`` on the
 conv-shaped weights) and, when ``select_requant`` proves it exact, the
-Relu and the act Quant fold into the kernel's integer epilogue (B3).  The
-reference's carrier negotiation (fusion, ROADMAP.md A11) is not ported.
-Unsupported shapes (NHWC, auto_pad, per-input-channel scales,
-non-constant weights or bias, 1-D / 3-D convs) do not match and stay
-interpreted.
+Relu and the act Quant fold into the kernel's integer epilogue (B3).
+With fusion on (``lowering/fusion.py``) a conv segment accepts an
+integer-carried input, dequantized on entry, and offers its absorbed act
+Quant's grid as its output's carrier: B4 emits the codes on the float32
+epilogue, and on the integer path they are recovered exactly from the
+power-of-two act grid.  Unsupported shapes (NHWC, auto_pad,
+per-input-channel scales, non-constant weights or bias, 1-D / 3-D convs)
+do not match and stay interpreted.
 """
 from __future__ import annotations
 
@@ -170,8 +173,21 @@ def select_conv_paths(ctx: LoweringContext, g: QonnxGraph, node: Node,
                    relu=nb.relu, act=nb.act)
 
 
+def offer_conv_carriers(ctx: LoweringContext, m: KernelMatch,
+                        codes_out: bool = True) -> None:
+    """With fusion on, a conv segment accepts a carried input and, where it
+    absorbed an act Quant and can produce its codes (``codes_out``),
+    offers that grid as its output's carrier."""
+    if not ctx.use_fusion:
+        return
+    from . import fusion
+    m.carrier_accepts = (m.x,)
+    if m.act is not None and codes_out:
+        m.carrier_out = fusion.carrier_from_act(m.act)
+
+
 def stage_act_epilogue(idx: int, m: KernelMatch, consts: dict,
-                       ctx: LoweringContext):
+                       ctx: LoweringContext, emit_codes: bool = False):
     """Stage a conv segment's absorbed activation Quant exactly as the QDQ
     rule would, unless there is none or the integer path folds it into the
     kernel's IntRequant.  Returns ``(kernel_fn_or_None, const keys)``."""
@@ -181,7 +197,7 @@ def stage_act_epilogue(idx: int, m: KernelMatch, consts: dict,
     qdq, keys = stage_qdq_epilogue(
         idx, consts, ctx, scale=act.scale, zero_point=act.zero_point,
         bit_width=act.bit_width, signed=act.signed, narrow=act.narrow,
-        rounding_mode=act.rounding_mode)
+        rounding_mode=act.rounding_mode, emit_codes=emit_codes)
     return qdq, keys
 
 
@@ -229,30 +245,41 @@ class QuantConvRule(LoweringRule):
             kernel_shape=nb.kernel_shape, strides=nb.strides, pads=nb.pads,
             dilations=nb.dilations, group=nb.group, relu=nb.relu, act=nb.act)
         select_conv_paths(ctx, g, node, m, nb)
+        offer_conv_carriers(ctx, m)
         return m
 
     def emit(self, idx: int, m: QuantConvMatch, consts: dict,
              ctx: LoweringContext) -> Segment:
         from repro_torch.kernels import ops as kernel_ops
 
+        from . import fusion
+
+        cin, cout = fusion.fusion_carriers(ctx, m.x, m.out)
         kind, use_int4, w_key, s_key, b_key, meta = stage_kernel_carriers(
             idx, m, consts, ctx, ("quant_conv", "quant_conv_int4"))
         conv = functools.partial(
             kernel_ops.quant_conv2d, kernel_shape=m.kernel_shape,
             strides=m.strides, pads=m.pads, dilations=m.dilations,
             packed=use_int4, **m.body())
-        qdq, act_keys = stage_act_epilogue(idx, m, consts, ctx)
+        qdq, act_keys = stage_act_epilogue(idx, m, consts, ctx,
+                                           emit_codes=cout is not None)
         # integer path: Relu and the act Quant live in the IntRequant
         x_name, out_name = m.x, m.out
         relu = m.relu and m.requant is None
+        code = fusion.code_recovery(m.requant, cout)
 
         def run(consts, env):
             x = env.get(x_name, consts.get(x_name))
+            if cin is not None:
+                x = fusion.boundary_values(x, cin)
             y = conv(x, consts[w_key], consts[s_key],
                      consts[b_key] if b_key else None)
-            env[out_name] = conv_epilogue(y, relu, qdq, consts, act_keys)
+            y = conv_epilogue(y, relu, qdq, consts, act_keys)
+            env[out_name] = fusion.carried_output(y, cout, code)
 
         if m.group > 1:
             meta["group"] = m.group
+        if cin is not None or cout is not None:
+            fusion._carrier_meta(meta, cin, cout)
         keys = (w_key, s_key) + ((b_key,) if b_key else ()) + act_keys
         return Segment(kind, m.nodes, [x_name], [out_name], run, keys, meta)

@@ -26,7 +26,10 @@ fallback (``reclaimed_macs`` / ``carrier_bytes_saved`` in its meta), which
 ``CompiledPlan.grouped_conv_stats`` sums.  The accumulator and the
 integer requant path are selected as the dense rule selects them
 (``conv.select_conv_paths``): the bound already contracts per output
-channel over the true I/g·kH·kW field, so it is group-exact.
+channel over the true I/g·kH·kW field, so it is group-exact.  Carriers as
+the dense rule's (``conv.offer_conv_carriers``), except that the
+depthwise float32 path offers no codes: B6 realizes the act Quant inside
+and has no codes output.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ from ..graph import Node, QonnxGraph
 from .base import (LoweringContext, LoweringRule, Segment, conv_out_rows,
                    register_rule)
 from .conv import (QuantConvMatch, conv_epilogue, match_conv_common,
-                   select_conv_paths, stage_act_epilogue)
+                   offer_conv_carriers, select_conv_paths, stage_act_epilogue)
 from .weights import stage_kernel_carriers
 
 # beyond this the per-group kernel's tiles get small and its grid G times
@@ -113,21 +116,30 @@ class GroupedConvRule(LoweringRule):
             dense_int4_ok=nb.qw.int4_values and
             (ipg * nb.group * kh * kw) % 2 == 0)
         select_conv_paths(ctx, g, node, m, nb)
+        # the depthwise float32 path realizes the act Quant inside B6,
+        # which has no codes output: only the integer path and B5's
+        # external epilogue produce codes
+        offer_conv_carriers(ctx, m, m.requant is not None or not depthwise)
         return m
 
     def emit(self, idx: int, m: GroupedConvMatch, consts: dict,
              ctx: LoweringContext) -> Segment:
         from repro_torch.kernels import ops as kernel_ops
 
+        from . import fusion
+
+        cin, cout = fusion.fusion_carriers(ctx, m.x, m.out)
         kinds = ("quant_conv_dw",) * 2 if m.depthwise else \
             ("quant_conv_grouped", "quant_conv_grouped_int4")
         kind, use_int4, w_key, s_key, b_key, meta = stage_kernel_carriers(
             idx, m, consts, ctx, kinds, pack=kernel_ops.pack_int4_grouped)
-        qdq, act_keys = stage_act_epilogue(idx, m, consts, ctx)
+        qdq, act_keys = stage_act_epilogue(idx, m, consts, ctx,
+                                           emit_codes=cout is not None)
         # integer path: Relu and the act Quant live in the IntRequant
         x_name, out_name = m.x, m.out
         relu = m.relu and m.requant is None
         act = m.act if m.requant is None else None
+        code = fusion.code_recovery(m.requant, cout)
 
         if m.depthwise:
             # the fp32 path's act Quant runs inside B6, on the constants
@@ -144,10 +156,13 @@ class GroupedConvRule(LoweringRule):
 
             def run(consts, env):
                 x = env.get(x_name, consts.get(x_name))
-                env[out_name] = conv(
+                if cin is not None:
+                    x = fusion.boundary_values(x, cin)
+                y = conv(
                     x.to(torch.float32).contiguous(), consts[w_key],
                     consts[s_key], consts[b_key] if b_key else None,
                     *(consts[k] for k in act_keys))
+                env[out_name] = fusion.carried_output(y, cout, code)
         else:
             conv = functools.partial(
                 kernel_ops.quant_grouped_conv2d, groups=m.group,
@@ -156,9 +171,12 @@ class GroupedConvRule(LoweringRule):
 
             def run(consts, env):
                 x = env.get(x_name, consts.get(x_name))
+                if cin is not None:
+                    x = fusion.boundary_values(x, cin)
                 y = conv(x, consts[w_key], consts[s_key],
                          consts[b_key] if b_key else None)
-                env[out_name] = conv_epilogue(y, relu, qdq, consts, act_keys)
+                y = conv_epilogue(y, relu, qdq, consts, act_keys)
+                env[out_name] = fusion.carried_output(y, cout, code)
 
         meta["group"] = m.group
         meta["reclaimed_macs"] = m.reclaimed_macs
@@ -168,5 +186,7 @@ class GroupedConvRule(LoweringRule):
         meta["carrier_bytes_saved"] = int(
             own_entries * m.group * (0.5 if m.dense_int4_ok else 1.0) -
             own_entries * (0.5 if use_int4 else 1.0))
+        if cin is not None or cout is not None:
+            fusion._carrier_meta(meta, cin, cout)
         keys = (w_key, s_key) + ((b_key,) if b_key else ()) + act_keys
         return Segment(kind, m.nodes, [x_name], [out_name], run, keys, meta)

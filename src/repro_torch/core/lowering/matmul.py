@@ -10,7 +10,9 @@ carrier; a constant per-column Mul below the matmul folds into the
 dequant scale and a constant per-column Add into the bias, so the whole
 affine tail runs inside one ``kernels.quant_matmul[_int4]`` launch.  With
 the analysis tier the accumulator (``select_accumulator``) and the integer
-requant path (``select_requant``) are chosen per match.
+requant path (``select_requant``) are chosen per match.  With fusion on,
+the rule accepts an integer-carried activation and dequantizes it on entry
+(``fusion.boundary_values``).
 """
 from __future__ import annotations
 
@@ -44,6 +46,9 @@ def make_matmul_segment(idx: int, m: KernelMatch, consts: dict,
     over the flattened-leading-dims activation."""
     from repro_torch.kernels import ops as kernel_ops
 
+    from . import fusion
+
+    (cin,) = fusion.fusion_carriers(ctx, m.x)
     kind, use_int4, w_key, s_key, b_key, meta = stage_kernel_carriers(
         idx, m, consts, ctx, kinds)
     # integer path: the kernel is fed grid indices (q - z).  It divides x
@@ -56,6 +61,8 @@ def make_matmul_segment(idx: int, m: KernelMatch, consts: dict,
 
     def run(consts, env):
         x = env.get(x_name, consts.get(x_name))
+        if cin is not None:
+            x = fusion.boundary_values(x, cin)
         lead = tuple(x.shape[:-1])
         x2 = x.reshape(-1, x.shape[-1]).to(torch.float32).contiguous()
         y = kernel(x2, consts[w_key], consts[s_key],
@@ -63,6 +70,8 @@ def make_matmul_segment(idx: int, m: KernelMatch, consts: dict,
         env[out_name] = y.reshape(lead + (y.shape[-1],))
 
     keys = (w_key, s_key, b_key) if b_key else (w_key, s_key)
+    if cin is not None:
+        fusion._carrier_meta(meta, cin, None)
     return Segment(kind, m.nodes, [x_name], [out_name], run, keys, meta)
 
 
@@ -97,6 +106,10 @@ class QuantMatMulRule(LoweringRule):
             select_requant(ctx, g, node, m,
                            w_absum=np.abs(m.w_int.astype(np.int64))
                            .sum(axis=0))
+            if ctx.use_fusion:
+                # accept only: the matmul dequantizes a carried activation
+                # on entry; it offers no codes (its epilogue stays as is)
+                m.carrier_accepts = (m.x,)
         return m
 
     def emit(self, idx: int, match: QuantMatMulMatch, consts: dict,

@@ -5,7 +5,8 @@ the same segment:
 
   * ``quant_qdq``   — a high-level activation ``Quant`` with static params;
   * ``qcdq_chain``  — ``QuantizeLinear [-> Clip] -> DequantizeLinear`` with
-    the bit width recovered from the Clip bounds.
+    the bit width recovered from the Clip bounds
+    (``formats.bitwidth_from_bounds``).
 
 Both lower onto ``kernels.quant_dequant``, which fuses quantize + clamp +
 dequantize into one pass over the tensor.
@@ -20,33 +21,10 @@ import numpy as np
 
 from .. import quant_ops
 from ..executor import to_tensor
+from ..formats import bitwidth_from_bounds
 from ..graph import Node, QonnxGraph
 from .base import (LoweringContext, LoweringRule, Match, Segment,
                    register_rule, scalar, sole_consumer, static_value)
-
-
-def bitwidth_from_bounds(lo: float, hi: float, signed: bool):
-    """Invert Eqs. 2-3: integer clip bounds -> (bit_width, narrow), or None
-    when the bounds match no integer bit width (the reference keeps this in
-    ``repro.core.formats``, whose port is still queued)."""
-    if signed:
-        nb = np.log2(hi + 1) + 1
-        narrow = bool(lo == -(2 ** (nb - 1)) + 1)
-    else:
-        narrow = False
-        nb = np.log2(hi + 1)
-        if hi == 2 ** np.ceil(np.log2(hi + 2)) - 2:          # 2^n - 2 pattern
-            nb2 = np.log2(hi + 2)
-            if float(nb2).is_integer() and not float(nb).is_integer():
-                nb, narrow = nb2, True
-    if not float(nb).is_integer():
-        return None
-    nb = int(nb)
-    lo_chk = float(quant_ops.min_int(signed, narrow, nb))
-    hi_chk = float(quant_ops.max_int(signed, narrow, nb))
-    if lo_chk != lo or hi_chk != hi:
-        return None
-    return nb, narrow
 
 
 def static_act_quant_params(g: QonnxGraph, node: Node):
@@ -76,18 +54,25 @@ class QDQMatch(Match):
     signed: bool
     narrow: bool
     rounding_mode: str
+    carrier_accepts: tuple = ()  # inputs acceptable as integer carriers
+    carrier_out: Optional[object] = None   # fusion.Carrier offer for out
 
 
 def stage_qdq_epilogue(idx: int, consts: dict, ctx: LoweringContext, *,
                        scale, zero_point, bit_width, signed, narrow,
-                       rounding_mode):
+                       rounding_mode, emit_codes=False):
     """Stage one activation Quant's constants and build its kernel closure.
 
     The one place a Quant's realization on ``kernels.quant_dequant`` (B4)
-    is staged: the QDQ rules and the conv rules' epilogue absorption both
-    call it, so a Quant stages identical constants (``__seg{idx}_qs`` /
-    ``__seg{idx}_qz``) and parameters whichever segment absorbs it; the
-    depthwise kernel (B6) reads the same constants in its fused epilogue.
+    is staged: the QDQ rules, the conv rules' epilogue absorption and the
+    residual-add rule all call it, so a Quant stages identical constants
+    (``__seg{idx}_qs`` / ``__seg{idx}_qz``) and parameters whichever
+    segment absorbs it; the depthwise kernel (B6) reads the same constants
+    in its fused epilogue.
+
+    ``emit_codes=True`` makes the kernel return the int8 codes instead of
+    the dequantized values: the codes it clips and rounds either way, so a
+    carried boundary holds the same integers the float32 one encodes.
 
     Returns ``(kernel_fn, (s_key, z_key))``."""
     from repro_torch.kernels.ops import quant_dequant
@@ -97,26 +82,45 @@ def stage_qdq_epilogue(idx: int, consts: dict, ctx: LoweringContext, *,
     consts[z_key] = to_tensor(np.asarray(zero_point, np.float32), ctx.device)
     kernel = functools.partial(quant_dequant, bit_width=bit_width,
                                signed=signed, narrow=narrow,
-                               rounding_mode=rounding_mode)
+                               rounding_mode=rounding_mode,
+                               emit_codes=emit_codes)
     return kernel, (s_key, z_key)
 
 
 def make_qdq_segment(idx: int, m: QDQMatch, consts: dict,
                      ctx: LoweringContext) -> Segment:
+    from . import fusion
+
+    cin, cout = fusion.fusion_carriers(ctx, m.x, m.out)
     kernel, (s_key, z_key) = stage_qdq_epilogue(
         idx, consts, ctx, scale=m.scale, zero_point=m.zero_point,
         bit_width=m.bit_width, signed=m.signed, narrow=m.narrow,
-        rounding_mode=m.rounding_mode)
+        rounding_mode=m.rounding_mode, emit_codes=cout is not None)
     x_name, out_name = m.x, m.out
 
     def run(consts, env):
         x = env.get(x_name, consts.get(x_name))
+        if cin is not None:
+            x = fusion.boundary_values(x, cin)
         x2 = x.reshape(1, -1) if x.ndim < 2 else x
         y = kernel(x2.contiguous(), consts[s_key], consts[z_key])
-        env[out_name] = y.reshape(x.shape)
+        y = y.reshape(x.shape)
+        env[out_name] = y if cout is None else fusion.boundary_out(y, cout)
 
+    meta = fusion._carrier_meta({}, cin, cout) if (cin or cout) else {}
     return Segment("quant_dequant", m.nodes, [x_name], [out_name], run,
-                   (s_key, z_key))
+                   (s_key, z_key), meta)
+
+
+def _offer_carriers(m: QDQMatch, ctx: LoweringContext, s, z) -> QDQMatch:
+    """With fusion on, a QDQ segment accepts a carried input and offers
+    its own grid as the output's carrier."""
+    if ctx.use_fusion:
+        from . import fusion
+        m.carrier_accepts = (m.x,)
+        m.carrier_out = fusion.carrier_from_params(
+            s, z, m.bit_width, m.signed, m.narrow)
+    return m
 
 
 def _channel_params_ok(g: QonnxGraph, x: str, *params) -> bool:
@@ -145,10 +149,11 @@ class ActivationQuantRule(LoweringRule):
         s, z, nb, signed, narrow, rmode = params
         if not _channel_params_ok(g, node.inputs[0], s, z):
             return None
-        return QDQMatch(
+        return _offer_carriers(QDQMatch(
             [node], node.inputs[0], node.outputs[0],
             np.asarray(s, np.float32).reshape(-1),
-            np.asarray(z, np.float32).reshape(-1), nb, signed, narrow, rmode)
+            np.asarray(z, np.float32).reshape(-1), nb, signed, narrow, rmode),
+            ctx, s, z)
 
     def emit(self, idx: int, match: QDQMatch, consts: dict,
              ctx: LoweringContext) -> Segment:
@@ -200,11 +205,11 @@ class QCDQChainRule(LoweringRule):
         nb, narrow = recovered
         if not _channel_params_ok(g, node.inputs[0], s, z):
             return None
-        return QDQMatch(
+        return _offer_carriers(QDQMatch(
             seq, node.inputs[0], dq.outputs[0],
             np.asarray(s, np.float32).reshape(-1),
             np.asarray(z, np.float32).reshape(-1), float(nb), signed, narrow,
-            "ROUND")
+            "ROUND"), ctx, s, z)
 
     def emit(self, idx: int, match: QDQMatch, consts: dict,
              ctx: LoweringContext) -> Segment:

@@ -42,6 +42,9 @@ class KernelMatch(Match):
     acc_bits: Optional[int] = None    # minimal accumulator width (if proven)
     requant: Optional[object] = None  # proven RequantPlan (integer path)
     rows: Optional[int] = None   # the kernel's M rows per declared batch
+    carrier_accepts: tuple = ()  # inputs the emitter can take as integer
+                                 # boundary carriers (lowering/fusion.py)
+    carrier_out: Optional[object] = None   # fusion.Carrier offer for ``out``
 
     def body(self) -> dict:
         """The kernel body this match selected, as keyword arguments of the

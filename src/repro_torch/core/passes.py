@@ -6,10 +6,10 @@ Every graph-to-graph transformation is registered here as a named
 before/after node-count stats.  A pipeline name used inside another
 pipeline expands in place.
 
-``PIPELINES`` lists every pipeline the reference has.  The registry holds
-only the passes the port has so far (those behind ``cleanup`` and
-``compile_prep``); a pipeline that needs another pass fails with the same
-"unknown pass" error the reference gives for a name it does not know.
+``PIPELINES`` lists every pipeline the reference has, and the registry
+holds every pass they name: the cleanup and compile-prep passes, the
+channels-last conversion, the FINN / hls4ml streamlining, the format
+lowerings and the analysis passes.
 """
 from __future__ import annotations
 
@@ -154,7 +154,7 @@ def _ensure_registered() -> None:
     if _REGISTERED:
         return
     _REGISTERED = True
-    from . import transforms
+    from . import formats, streamline, transforms
 
     register_pass("infer_shapes", transforms.infer_shapes,
                   description="attach shapes/dtypes to every tensor")
@@ -170,6 +170,18 @@ def _ensure_registered() -> None:
                   description="Fig. 2: static-shape Reshape cleanup")
     register_pass("eliminate_dead_code", transforms.eliminate_dead_code,
                   description="drop nodes/initializers not reaching outputs")
+    register_pass("to_channels_last", transforms.to_channels_last,
+                  description="Fig. 3: NCHW -> NHWC with wrapper attributes")
+    register_pass("propagate_dequant", streamline.propagate_dequant,
+                  description="hls4ml §VI-C: push DQ below linear ops")
+    register_pass("quant_to_multithreshold", streamline.quant_to_multithreshold,
+                  description="FINN §VI-D: activation Quant -> MultiThreshold")
+    register_pass("qonnx_to_qcdq", formats.qonnx_to_qcdq,
+                  description="lower Quant to QuantizeLinear/Clip/Dequantize")
+    register_pass("qcdq_to_qonnx", formats.qcdq_to_qonnx,
+                  description="fuse Q(C)DQ triples back into Quant (ingest)")
+    register_pass("qonnx_to_quantized_op", formats.qonnx_to_quantized_op,
+                  description="lower to MatMulInteger quantized-op style")
 
     # analysis-tier passes, imported lazily: analysis depends on core,
     # never the other way at module level

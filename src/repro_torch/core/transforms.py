@@ -10,8 +10,9 @@ Counterpart of the matching part of ``repro.core.transforms``:
                             Reshape once shapes are known
   * ``eliminate_dead_code``
   * ``cleanup``           — the standard pipeline (shapes + folding + tidy)
-
-The channels-last conversion is not ported yet (see ROADMAP.md).
+  * ``to_channels_last``  — NCHW -> NHWC conversion (Fig. 3), setting
+                            ``data_layout`` wrapper attributes on
+                            shape-dependent ops so the executor stays correct
 """
 from __future__ import annotations
 
@@ -19,7 +20,14 @@ import numpy as np
 import torch
 
 from .executor import dtype_name, op_output, run_nodes, to_tensor
-from .graph import QonnxGraph, TensorInfo
+from .graph import Node, QonnxGraph, TensorInfo
+
+_LAYOUT_OPS = {"Conv", "BatchNormalization", "MaxPool", "AveragePool",
+               "GlobalAveragePool", "MultiThreshold"}
+# elementwise ops are layout-agnostic as long as their non-x inputs broadcast
+_ELEMENTWISE = {"Add", "Sub", "Mul", "Div", "Relu", "Sigmoid", "Tanh", "Erf",
+                "Clip", "Identity", "Quant", "BipolarQuant", "Trunc",
+                "QuantizeLinear", "DequantizeLinear", "Cast", "Pow"}
 
 
 # ---------------------------------------------------------------- shapes
@@ -187,3 +195,219 @@ def cleanup(graph: QonnxGraph) -> QonnxGraph:
     "cleanup" pass list of ``passes.PIPELINES``."""
     from . import passes
     return passes.run_pipeline(graph, "cleanup")
+
+
+# ---------------------------------------------------------------- layout
+
+def _nchw_to_nhwc_perm(ndim: int):
+    return (0,) + tuple(range(2, ndim)) + (1,)
+
+
+def _nhwc_to_nchw_perm(ndim: int):
+    return (0, ndim - 1) + tuple(range(1, ndim - 1))
+
+
+def to_channels_last(graph: QonnxGraph) -> QonnxGraph:
+    """Convert a (shape-inferred) NCHW graph to channels-last execution.
+
+    Strategy (mirrors qonnx's ChannelsLast transform): insert Transpose pairs
+    around every layout-sensitive op, tag it with ``data_layout = NHWC``, then
+    cancel adjacent inverse Transposes and sink transposes through
+    elementwise ops.  4D graph inputs are converted to NHWC directly.
+    """
+    g = infer_shapes(graph)
+
+    # 1. wrap every layout op: x -> [ToNHWC] -> op(NHWC) -> [ToNCHW] -> y
+    for node in list(g.nodes):
+        if node.op_type not in _LAYOUT_OPS:
+            continue
+        x_name = node.inputs[0]
+        x_shape = g.get_shape(x_name)
+        if x_shape is None or len(x_shape) < 3:
+            continue
+        nd = len(x_shape)
+        pre = g.fresh_name(f"{node.name}_nhwc_in")
+        post = g.fresh_name(f"{node.name}_nchw_out")
+        y_name = node.outputs[0]
+        g.nodes.insert(
+            g.nodes.index(node),
+            Node("Transpose", [x_name], [pre],
+                 {"perm": list(_nchw_to_nhwc_perm(nd))}, name=g.fresh_name("t_in")))
+        node.inputs[0] = pre
+        node.attrs["data_layout"] = "NHWC"
+        node.outputs[0] = post
+        g.nodes.insert(
+            g.nodes.index(node) + 1,
+            Node("Transpose", [post], [y_name],
+                 {"perm": list(_nhwc_to_nchw_perm(nd))}, name=g.fresh_name("t_out")))
+
+    # 2. cancel Transpose pairs, sink ToNCHW transposes down and hoist ToNHWC
+    #    transposes up through elementwise ops, until fixpoint
+    changed = True
+    while changed:
+        changed = (_cancel_transpose_pairs(g) or
+                   _sink_transpose_elementwise(g) or
+                   _hoist_transpose_elementwise(g))
+
+    # 3. convert graph inputs that are consumed *only* by a ToNHWC transpose
+    for t in g.inputs:
+        if t.shape is None or len(t.shape) < 3:
+            continue
+        cons = g.consumers(t.name)
+        nd = len(t.shape)
+        if cons and all(c.op_type == "Transpose" and
+                        tuple(c.attrs.get("perm", ())) == _nchw_to_nhwc_perm(nd)
+                        for c in cons):
+            t.shape = tuple(np.asarray(t.shape)[list(_nchw_to_nhwc_perm(nd))])
+            for c in cons:
+                out = c.outputs[0]
+                g.remove_node(c)
+                g.replace_tensor(out, t.name)
+            changed = True
+    g = eliminate_dead_code(g)
+    return infer_shapes(g)
+
+
+def _cancel_transpose_pairs(g: QonnxGraph) -> bool:
+    changed = False
+    for node in list(g.nodes):
+        if node.op_type != "Transpose":
+            continue
+        nxt = g.consumers(node.outputs[0])
+        if len(nxt) != 1 or nxt[0].op_type != "Transpose":
+            continue
+        a = node.attrs.get("perm")
+        b = nxt[0].attrs.get("perm")
+        if a is None or b is None:
+            continue
+        composed = [a[i] for i in b]
+        if composed == list(range(len(composed))) and \
+                node.outputs[0] not in g.output_names:
+            dst = nxt[0].outputs[0]
+            src = node.inputs[0]
+            g.remove_node(node)
+            g.remove_node(nxt[0])
+            g.replace_tensor(dst, src)
+            changed = True
+    return changed
+
+
+def _hoist_transpose_elementwise(g: QonnxGraph) -> bool:
+    """Move a Transpose above a preceding elementwise op: T(ew(x, c)) ->
+    ew(T(x), c') — used to float ToNHWC transposes up to the graph input."""
+    changed = False
+    for t_node in list(g.nodes):
+        if t_node.op_type != "Transpose":
+            continue
+        ew = g.producer(t_node.inputs[0])
+        if ew is None or ew.op_type not in _ELEMENTWISE:
+            continue
+        if len(g.consumers(ew.outputs[0])) != 1:
+            continue  # ew output used elsewhere; hoisting would duplicate work
+        if ew.outputs[0] in g.output_names:
+            continue
+        perm = t_node.attrs.get("perm")
+        # only hoist ToNHWC transposes (toward the graph input)
+        if perm is None or tuple(perm) != _nchw_to_nhwc_perm(len(perm)):
+            continue
+        ok = True
+        for extra in ew.inputs[1:]:
+            if extra and extra not in g.initializers:
+                ok = False
+                break
+            if extra:
+                v = g.initializers[extra]
+                if v.ndim > 1 and v.size != 1 and v.ndim != len(perm):
+                    ok = False
+                    break
+        if not ok:
+            continue
+        for k, extra in enumerate(ew.inputs[1:], start=1):
+            if extra:
+                v = g.initializers[extra]
+                if v.ndim == len(perm) and v.size != 1:
+                    name = g.fresh_name(extra + "_perm")
+                    g.initializers[name] = np.transpose(v, perm)
+                    ew.inputs[k] = name
+        # rewire: x -> T -> ew -> (old consumers of T's output)
+        x_src = ew.inputs[0]
+        t_out = t_node.outputs[0]
+        t_node.inputs[0] = x_src
+        new_t_out = g.fresh_name(f"{t_node.name}_hoisted")
+        t_node.outputs[0] = new_t_out
+        ew.inputs[0] = new_t_out
+        ew_old_out = ew.outputs[0]
+        ew.outputs[0] = t_out
+        g.value_info.pop(ew_old_out, None)
+        g.value_info.pop(t_out, None)
+        if "data_layout" in ew.attrs:
+            ew.attrs["data_layout"] = "NHWC"
+        # keep node list in topological-friendly order
+        g.nodes.remove(t_node)
+        g.nodes.insert(g.nodes.index(ew), t_node)
+        changed = True
+    return changed
+
+
+def _sink_transpose_elementwise(g: QonnxGraph) -> bool:
+    """Move ToNCHW transposes below elementwise ops: T(x) op c -> T(x op c')."""
+    changed = False
+    for node in list(g.nodes):
+        if node.op_type != "Transpose":
+            continue
+        cons = g.consumers(node.outputs[0])
+        if len(cons) != 1 or cons[0].op_type not in _ELEMENTWISE:
+            continue
+        ew = cons[0]
+        if ew.inputs[0] != node.outputs[0]:
+            continue
+        perm = node.attrs.get("perm")
+        # only sink ToNCHW transposes (toward the graph output)
+        if perm is None or tuple(perm) != _nhwc_to_nchw_perm(len(perm)):
+            continue
+        # other inputs must be initializers broadcastable after permuting
+        ok = True
+        for extra in ew.inputs[1:]:
+            if extra and extra not in g.initializers:
+                ok = False
+                break
+            if extra:
+                v = g.initializers[extra]
+                if v.ndim > 1 and v.size != 1 and v.ndim != len(perm):
+                    ok = False
+                    break
+        if not ok:
+            continue
+        inv = np.argsort(perm).tolist()
+        for k, extra in enumerate(ew.inputs[1:], start=1):
+            if extra:
+                v = g.initializers[extra]
+                if v.ndim == len(perm) and v.size != 1:
+                    name = g.fresh_name(extra + "_perm")
+                    g.initializers[name] = np.transpose(v, inv)
+                    ew.inputs[k] = name
+        # rewire: x -> ew' -> transpose -> old consumers of ew
+        x_src = node.inputs[0]
+        t_out = node.outputs[0]
+        ew_out = ew.outputs[0]
+        ew.inputs[0] = x_src
+        node.inputs[0] = ew_out
+        # transpose now produces what ew used to produce
+        new_mid = g.fresh_name(f"{ew.name}_pre_t")
+        # ew_out keeps its name as ew's output; transpose output becomes the
+        # tensor old consumers read.  Swap names carefully:
+        node.outputs[0] = g.fresh_name(f"{node.name}_sunk")
+        for c in g.consumers(ew_out):
+            if c is not node:
+                c.inputs = [node.outputs[0] if i == ew_out else i for i in c.inputs]
+        for t in g.outputs:
+            if t.name == ew_out:
+                t.name = node.outputs[0]
+        del new_mid, t_out
+        # reorder node list so toposort-stability of .nodes is preserved
+        g.nodes.remove(node)
+        g.nodes.insert(g.nodes.index(ew) + 1, node)
+        if "data_layout" in ew.attrs:
+            ew.attrs["data_layout"] = "NHWC"
+        changed = True
+    return changed

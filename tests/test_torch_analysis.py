@@ -157,7 +157,7 @@ def test_infer_cost_and_table3_match_reference(key):
 def test_infer_cost_with_a_plan_matches_reference(key):
     """With a compiled plan each kernel layer reports its requant path."""
     r_plan = r_compile(rzoo.ZOO[key](), use_fusion=False)
-    t_plan = t_compile(tzoo.ZOO[key](), device="cpu")
+    t_plan = t_compile(tzoo.ZOO[key](), device="cpu", use_fusion=False)
     rep_r = rcost.infer_cost(rtr.infer_shapes(r_plan.graph), plan=r_plan)
     rep_t = tcost.infer_cost(ttr.infer_shapes(t_plan.graph), plan=t_plan)
     assert _layer_fields(rep_t) == _layer_fields(rep_r)

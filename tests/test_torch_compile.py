@@ -8,7 +8,8 @@ representable (|sum| < 2**24 grid steps), whatever order the reference's
 dot or the port's sums it in.  The reference plan is compiled as
 ``compile_graph(use_analysis=False, use_fusion=False)``, the fp32-epilogue
 tier the first slice ported; the port's plans here pass
-``use_analysis=False`` too.
+``use_analysis=False, use_fusion=False`` too (fusion, the default, is held
+by tests/test_torch_fusion.py).
 """
 import functools
 
@@ -31,7 +32,8 @@ from repro_torch.models import zoo as tzoo  # noqa: E402
 
 # the fp32-epilogue tier these tests hold; the analysis-driven integer
 # default of compile_graph is held by tests/test_torch_requant.py
-t_compile = functools.partial(compile_graph, use_analysis=False)
+t_compile = functools.partial(compile_graph, use_analysis=False,
+                              use_fusion=False)
 
 TFC = ["TFC-w1a1", "TFC-w1a2", "TFC-w2a2"]
 
@@ -150,8 +152,6 @@ def test_use_kernels_false_is_all_interpreted():
 
 @pytest.mark.parametrize("kw,exc,item", [
     ({"tune": "search"}, NotImplementedError, "A15"),
-    ({"use_fusion": True, "use_analysis": True}, NotImplementedError, "A11"),
-    ({"use_fusion": True}, NotImplementedError, "A11"),
     ({"tune": "cached"}, NotImplementedError, "A15"),
     ({"mesh": "auto"}, NotImplementedError, "A16"),
     ({"interpret": True}, ValueError, "interpret"),

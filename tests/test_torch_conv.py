@@ -39,9 +39,12 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import quant_conv as tconv  # noqa: E402
 from repro_torch.models import zoo as tzoo  # noqa: E402
 
-# the fp32-epilogue tier these tests hold; the analysis-driven integer
-# default of compile_graph is held by tests/test_torch_requant.py
-t_compile = functools.partial(compile_graph, use_analysis=False)
+# the fp32-epilogue tier these tests hold, with float32 boundaries; the
+# analysis-driven integer default of compile_graph is held by
+# tests/test_torch_requant.py, fusion (the default) by
+# tests/test_torch_fusion.py
+t_compile = functools.partial(compile_graph, use_analysis=False,
+                              use_fusion=False)
 
 # the reference's census of its use_analysis=False, use_fusion=False plans
 CNV_CENSUS = {

@@ -117,11 +117,16 @@ def test_infer_shapes_falls_back_to_concrete_values():
 
 
 def test_unported_passes_raise_the_unknown_pass_error():
+    """Every pass the pipelines name is registered now; a name the
+    registry does not hold still fails with the reference's error."""
     g = _port(rser.graph_to_json(_mlp_with_folds()))
-    with pytest.raises(KeyError, match="unknown pass 'quant_to_multithreshold'"):
-        tpasses.run_pipeline(g, "streamline_for_finn")
+    with pytest.raises(KeyError, match="unknown pass 'no_such_pass'"):
+        tpasses.run_pipeline(g, "no_such_pass")
     assert set(tpasses.PIPELINES) >= {"cleanup", "compile_prep"}
     assert "fold_constants_keep_quant" in tpasses.available_passes()
+    named = {n for names in tpasses.PIPELINES.values() for n in names
+             if n not in tpasses.PIPELINES}
+    assert named <= set(tpasses.available_passes())
 
 
 def test_pass_manager_records_stats():

@@ -46,9 +46,12 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import quant_grouped_conv as tgc  # noqa: E402
 from repro_torch.models import zoo as tzoo  # noqa: E402
 
-# the fp32-epilogue tier these tests hold; the analysis-driven integer
-# default of compile_graph is held by tests/test_torch_requant.py
-t_compile = functools.partial(compile_graph, use_analysis=False)
+# the fp32-epilogue tier these tests hold, with float32 boundaries; the
+# analysis-driven integer default of compile_graph is held by
+# tests/test_torch_requant.py, fusion (the default) by
+# tests/test_torch_fusion.py
+t_compile = functools.partial(compile_graph, use_analysis=False,
+                              use_fusion=False)
 
 MODES = ("ROUND", "CEIL", "FLOOR", "UP", "DOWN", "HALF_UP", "HALF_DOWN",
          "ROUND_TO_ZERO")
@@ -430,7 +433,7 @@ def test_fuzz_seed_210664_port_plan_pinned():
     t_oracle = _out(t_execute(ttr.cleanup(g_port), {"x": x}, device="cpu"),
                     g_port)
     for kw in (dict(use_analysis=False), {}):
-        plan = compile_graph(g_port, device="cpu", **kw)
+        plan = compile_graph(g_port, device="cpu", use_fusion=False, **kw)
         assert plan.fused_counts.get("quant_conv_dw") == 1
         assert plan.grouped_conv_stats()["grouped_segments"] == 3
         got = _out(plan({"x": x}), g_port)

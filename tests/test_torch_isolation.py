@@ -33,6 +33,10 @@ def test_importing_every_port_module_leaves_jax_out():
             "repro_torch.configs.olmo_1b", "repro_torch.configs.starcoder2_3b",
             "repro_torch.configs.starcoder2_7b", "repro_torch.serve.generation",
             "repro_torch.launch.serve"} <= set(mods)
+    # the fusion / formats slice: boundary glue, fusion, the paper's formats
+    assert {"repro_torch.kernels.quant_pool", "repro_torch.core.lowering.fusion",
+            "repro_torch.core.formats", "repro_torch.core.streamline",
+            "repro_torch.core.export"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -255,7 +255,7 @@ def _segment_meta(plan):
 @pytest.mark.parametrize("key", list(rzoo.ZOO))
 def test_zoo_census_and_requant_stats_match_reference(key):
     r_plan = _reference_plan(key)
-    t_plan = t_compile(tzoo.ZOO[key](), device="cpu")
+    t_plan = t_compile(tzoo.ZOO[key](), device="cpu", use_fusion=False)
     assert t_plan.fused_counts == r_plan.fused_counts
     assert t_plan.requant_stats() == r_plan.requant_stats()
     assert t_plan.grouped_conv_stats() == r_plan.grouped_conv_stats()
@@ -274,7 +274,7 @@ def _oracle_in(g, x):
 def test_zoo_full_integer_coverage_and_bit_exact(key, shape):
     x = np.random.RandomState(0).randn(*shape).astype(np.float32)
     g = tzoo.ZOO[key]()
-    plan = t_compile(g, device="cpu")
+    plan = t_compile(g, device="cpu", use_fusion=False)
     stats = plan.requant_stats()
     assert stats["coverage"] == 1.0 and stats["kernel_segments"] >= 4
     assert plan.fused_counts == _reference_plan(key).fused_counts
@@ -317,7 +317,7 @@ def test_rescaled_mobilenet_integer_path_up_to_the_final_matmul():
 def test_use_integer_requant_false_restores_fp32_path():
     x = np.random.RandomState(1).randn(3, 784).astype(np.float32)
     plan = t_compile(tzoo.build_tfc(2, 2), device="cpu",
-                     use_integer_requant=False)
+                     use_integer_requant=False, use_fusion=False)
     stats = plan.requant_stats()
     assert stats["int32_segments"] == 0
     assert stats["fp32_segments"] == stats["kernel_segments"] == 4

@@ -92,7 +92,7 @@ def test_reload_drains_queued_requests_through_the_old_plan():
     eng.run_pending()
     np.testing.assert_array_equal(new.wait(), _plan_rows(x[:1], 1, 1)[0])
     assert eng.fused_counts == {"quant_dequant": 1, "quant_matmul_int4": 4,
-                                "interp": 3}
+                                "bipolar_act": 3, "interp": 3}
 
 
 def test_deadlines_and_shapes():

@@ -212,7 +212,7 @@ def test_int8_plan_is_bit_exact_against_the_reference_plan():
     through the twins (which check the proof) equals the reference's."""
     from repro.core.compile import compile_graph as r_compile
     x = np.random.RandomState(4).randn(2, 3, 32, 32).astype(np.float32)
-    plan = t_compile(tzoo.ZOO["CNV-w2a2"](), device="cpu")
+    plan = t_compile(tzoo.ZOO["CNV-w2a2"](), device="cpu", use_fusion=False)
     assert {s.meta["b2_body"] for s in _b2_segments(plan)} == {"int8_mma"}
     r_plan = r_compile(rzoo.ZOO["CNV-w2a2"](), use_fusion=False)
     np.testing.assert_array_equal(
