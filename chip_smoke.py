@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py          # on a host with one CUDA GPU (sm_90a)
     python3 chip_smoke.py --plan-profiles   # only the integer plan calls' profiles
+    python3 chip_smoke.py --served          # only the build and phase 8
 
 Phases, in order; any failure raises and the script exits non-zero without
 printing a result:
@@ -151,13 +152,39 @@ printing a result:
    one slot of each held against greedy_generate;
 7. LM timings: B7 at the prefill's attention shape (bf16 and float32)
    beside its twin, F.scaled_dot_product_attention and its bound; prefill
-   and decode-step wall times; one decode step by kernel name.
+   and decode-step wall times; one decode step by kernel name;
+8. the compiled plan captured per slot shape and the serving tier (the
+   plans' default ``jit=True`` call: the first call at an input signature
+   captures the plan in a CUDA graph, later calls replay it): (a) every
+   ZOO key (MobileNet-w4a4 also rescaled) on both tiers, fused, three
+   distinct slots (TFC 16 rows, CNV and MobileNet at 224 8 rows) replayed
+   back to back before one sync, each ``torch.equal`` to the eager plan
+   (``jit=False``) and to the CPU oracle (the rescaled MobileNet's final
+   MatMul within the order bound), the capture's wrapper launches twice an
+   eager forward's (warm-up and capture), none at a replay, one capture
+   over six calls; (b) the seven keys in one ``EngineRegistry``, 64
+   requests per key through a ``ServeScheduler`` each (window 2 ms,
+   deadline 50 ms), every row bit-exact against the oracle, requests per
+   second and p50 / p99, the served launches as replays x launches per
+   forward, then a hot reload under traffic whose old plan is freed once
+   drained; (c) ``SplitMergeFront`` over two workers on cuda:0 with one
+   injected fault: no request lost, rows in submission order; (d) the
+   launcher's ``--graph TFC-w2a2 --requests 64 --trace-jsonl`` in a
+   subprocess, every request's submit -> complete span present; (e) plan
+   call walls, captured against eager in turns (TFC-w2a2 16 rows, CNV-w1a1
+   and MobileNet-224 8 rows, integer path, fused), their profiles and a
+   captured call's time by CUDA events; last a segment that synchronizes:
+   its capture raises naming the segment, again at the next call (no
+   eager fallback), and the device stays usable.
 
 Launch counts are read in windows of their own: phase 3's plans, phase
 4's engines, phases 3' and 4' likewise, each fused plan's own call in
 3'' (its use_fusion=False twin runs outside the window), 3''', and phase
 6 (a) and (b); every kernel of each window's path must have launched in
-it.  The last lines are the card, a JSON line of per-kernel numbers
+it.  Phases 3 to 5 call their plans eagerly (``jit=False``), as the
+counts and profiles there need; the engines of phases 4 and 4' serve
+through captured graphs, where a wrapper counts at the warm-up and the
+capture and a replay runs no wrapper.  The last lines are the card, a JSON line of per-kernel numbers
 (summed over one MobileNet-224 forward of 8 rows; B5 over the grouped
 conv; the integer rows named ``<kernel>/int32``; the launches those of
 the fused plans of 3'', the default path, per tier; B7 over one
@@ -167,6 +194,7 @@ and the JSON result line.  It imports nothing of JAX and nothing of the JAX pack
 """
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -1286,7 +1314,7 @@ def run_main_path(torch, np, dev):
         before = ops.launch_counts()
         plan = compile_graph(g, device=dev, use_int4=int4, use_analysis=False,
                              use_fusion=False)
-        out = plan({"x": x})[plan.graph.output_names[0]]
+        out = plan({"x": x}, jit=False)[plan.graph.output_names[0]]
         torch.cuda.synchronize()
         ref = _oracle(g, x, key=key)[g.output_names[0]]
         if tuple(out.shape) != (x.shape[0], 10) or not bool(torch.isfinite(out).all()):
@@ -1307,7 +1335,7 @@ def run_main_path(torch, np, dev):
     g = zoo.build_mobilenet(4, 4, img=224)
     before = ops.launch_counts()
     plan = compile_graph(g, device=dev, use_analysis=False, use_fusion=False)
-    out = plan({"x": x16[:SLOT]})[g.output_names[0]]
+    out = plan({"x": x16[:SLOT]}, jit=False)[g.output_names[0]]
     torch.cuda.synchronize()
     if not torch.equal(out.cpu(), _oracle(g, x16[:SLOT], key="MobileNet-w4a4")[
             g.output_names[0]]):
@@ -1363,7 +1391,7 @@ def run_main_path(torch, np, dev):
     xg = np.random.RandomState(14).randn(*gg.inputs[0].shape).astype(np.float32)
     before = ops.launch_counts()
     gplan = compile_graph(gg, device=dev, use_analysis=False, use_fusion=False)
-    gout = gplan({"x": xg})[gg.output_names[0]]
+    gout = gplan({"x": xg}, jit=False)[gg.output_names[0]]
     torch.cuda.synchronize()
     want = {"quant_dequant": 1, "quant_conv_grouped_int4": 1}
     if gplan.fused_counts != want:
@@ -1482,7 +1510,7 @@ def run_integer_path(torch, np, dev):
         before = ops.launch_counts()
         plan = compile_graph(g, device=dev, use_fusion=False)
         bodies = ops.b2_body_counts()
-        out = plan({"x": x})[plan.graph.output_names[0]]
+        out = plan({"x": x}, jit=False)[plan.graph.output_names[0]]
         torch.cuda.synchronize()
         bodies = check_b2_bodies(ops, plan, bodies, 1, key)
         ref = _oracle(g, x, key=key)[g.output_names[0]]
@@ -1503,7 +1531,7 @@ def run_integer_path(torch, np, dev):
     plan = compile_graph(g, device=dev, use_fusion=False)
     bodies = ops.b2_body_counts()
     staged = ops.staging_counts()["quant_depthwise_conv2d"]
-    out = plan({"x": x16[:SLOT]})[g.output_names[0]]
+    out = plan({"x": x16[:SLOT]}, jit=False)[g.output_names[0]]
     torch.cuda.synchronize()
     bodies = check_b2_bodies(ops, plan, bodies, 1, "MobileNet-224 (zoo, int)",
                              exact=MOBILENET_INT8_BODIES)
@@ -1563,7 +1591,7 @@ def run_integer_path(torch, np, dev):
     before = ops.launch_counts()
     gplan = compile_graph(gg, device=dev, use_fusion=False)
     staged = ops.staging_counts()["quant_grouped_matmul"]
-    gout = gplan({"x": xg})[gg.output_names[0]]
+    gout = gplan({"x": xg}, jit=False)[gg.output_names[0]]
     torch.cuda.synchronize()
     staged = {k: v - staged[k] for k, v in ops.staging_counts()["quant_grouped_matmul"].items()}
     seg = next(s for s in gplan.segments if s.kind == "quant_conv_grouped_int4")
@@ -1590,7 +1618,13 @@ def run_integer_path(torch, np, dev):
     bodies = ops.b2_body_counts()
     if eng.run_pending() != 64:
         raise AssertionError("run_pending did not run 64 requests")
-    bodies = check_b2_bodies(ops, eng.plan, bodies, 4, "TFC-w2a2 engine (int)")
+    # the engine's plan captures its one slot shape at the first slot (a
+    # warm-up run and the capture: two passes through the wrappers) and
+    # replays it for the other three, which launch without the wrappers
+    bodies = check_b2_bodies(ops, eng.plan, bodies, 2, "TFC-w2a2 engine (int)")
+    if eng.plan.trace_count != 1 or eng.plan.replay_count != 4:
+        raise AssertionError(f"TFC engine: {eng.plan.trace_count} captures and "
+                             f"{eng.plan.replay_count} replays, not 1 and 4")
     got = np.stack([r.wait() for r in reqs])
     if not np.array_equal(got, _oracle(tfc, xt, key="serve TFC")[
             tfc.output_names[0]].numpy()):
@@ -1615,6 +1649,7 @@ def run_integer_path(torch, np, dev):
     bodies = ops.b2_body_counts()
     if meng.run_pending() != 2 * SLOT:
         raise AssertionError(f"run_pending did not run {2 * SLOT} requests")
+    # one capture (warm-up + capture) at the first slot, a replay for the second
     bodies = check_b2_bodies(ops, meng.plan, bodies, 2, "MobileNet-224 engine (int)",
                              exact=MOBILENET_INT8_BODIES)
     served = torch.from_numpy(np.stack([r.wait() for r in reqs]))
@@ -1807,7 +1842,7 @@ def run_fused_path(torch, np, dev):
             check_carried(torch, plan, env, f"{key} ({tier}, fused)")
             out = env[g.output_names[0]]
             off = compile_graph(g, device=dev, use_fusion=False, **kw)
-            if not torch.equal(out, off({"x": x})[g.output_names[0]]):
+            if not torch.equal(out, off({"x": x}, jit=False)[g.output_names[0]]):
                 raise AssertionError(f"{key} ({tier}): the fused plan differs from the "
                                      "use_fusion=False plan on the card")
             torch.cuda.synchronize()
@@ -1948,11 +1983,11 @@ def glue_profile(torch, plan, x, label, model, wall_ms, reps=5) -> dict:
         with mock.patch.multiple(fusion, **{n: labelled(f"glue/{n}", getattr(fusion, n))
                                             for n in GLUE_FNS}):
             for _ in range(2):
-                plan({"x": xd})
+                plan({"x": xd}, jit=False)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
-                    plan({"x": xd})
+                    plan({"x": xd}, jit=False)
                 torch.cuda.synchronize()
     finally:
         for seg, run in zip(plan.segments, runs):
@@ -2016,6 +2051,350 @@ def requests_per_s(eng, xs) -> float:
             r.wait()
         rates.append(len(xs) / (time.perf_counter() - t0))
     return statistics.median(rates)
+
+
+# --------------------------------- phase 8, the captured plan and serving
+
+SERVE_ROWS = {"TFC": 16, "CNV": SLOT, "Mob": SLOT}    # slot rows per family
+SERVE_REQUESTS = 64            # requests per ZOO key through the registry
+
+
+def _served_slots(np):
+    """Three distinct slot inputs per family, seeded: TFC's from the 64
+    rows of phase 3'', MobileNet's from its 16 (the third slot straddles
+    the two), so their oracles are reused where those phases ran."""
+    x64 = np.random.RandomState(2).randn(64, 784).astype(np.float32)
+    x16 = np.random.RandomState(13).randn(2 * SLOT, 3, 224, 224).astype(np.float32)
+    cnv = np.random.RandomState(12).randn(3 * SLOT, 3, 32, 32).astype(np.float32)
+    return {"TFC": (x64, [(0, 16), (16, 32), (32, 48)]),
+            "CNV": (cnv, [(0, SLOT), (SLOT, 2 * SLOT), (2 * SLOT, 3 * SLOT)]),
+            "Mob": (x16, [(0, SLOT), (SLOT, 2 * SLOT), (SLOT // 2, SLOT + SLOT // 2)])}
+
+
+def _served_oracle(g, key, x):
+    """The CPU oracle's rows for ``x`` and, for the rescaled MobileNet, the
+    order bound of its final MatMul (None where rows must be bit-exact)."""
+    if key == "MobileNet-w4a4 rescaled":
+        oracle = _oracle(g, x, return_all=True, key=key)
+        pre, w_name = _final_matmul(g)
+        ref = oracle[g.output_names[0]]
+        return ref, order_bound(oracle[pre], oracle[w_name], ref)
+    okey = key if key.startswith("TFC") else "served " + key
+    return _oracle(g, x, key=okey)[g.output_names[0]], None
+
+
+def _rows_ok(torch, got, ref, bound) -> bool:
+    if bound is None:
+        return torch.equal(got, ref)
+    return bool((got - ref).abs().le(bound).all())
+
+
+def run_captured_plans(torch, np, dev):
+    """Phase 8 (a): every ZOO key (MobileNet-w4a4 also rescaled) on both
+    tiers, fused plans: three distinct slots through the captured plan back
+    to back before one sync, each torch.equal to the eager plan
+    (``jit=False``) and to the CPU oracle (the rescaled MobileNet's final
+    MatMul within the order bound); the capture's launches are those of a
+    warm-up and a capture (twice an eager forward), replays run no
+    wrapper, and ``trace_count`` stays at one capture over six calls.
+    Every key is tried before a failure is raised.  Returns the slot
+    inputs and oracle rows per key and the integer tier's launches per
+    eager forward per key."""
+    import gc
+    from repro_torch.core import compile_graph
+    from repro_torch.kernels import ops
+    from repro_torch.models import zoo
+
+    slots = _served_slots(np)
+    graphs = {k: zoo.ZOO[k] for k in zoo.ZOO}
+    graphs["MobileNet-w4a4 rescaled"] = \
+        lambda: zoo.rescale_conv_gains(zoo.build_mobilenet(4, 4, img=224))
+    oracles, per_fwd, failures, seen_distinct = {}, {}, [], set()
+    for key, build in graphs.items():
+        g = build()
+        x, spans = slots[key[:3]]
+        ref, bound = _served_oracle(g, key, x)
+        oracles[key] = (x, ref, bound)
+        for tier, kw in (("int", {}), ("f32", {"use_analysis": False})):
+            label = f"{key} ({tier})"
+            plan = got = more = eager = None
+            try:
+                plan = compile_graph(g, device=dev, **kw)
+                name = plan.graph.output_names[0]
+                xs = [torch.from_numpy(x[a:b]) for a, b in spans]
+                before = ops.launch_counts()
+                eager = [plan({"x": xi}, jit=False)[name] for xi in xs]
+                torch.cuda.synchronize()
+                mid = ops.launch_counts()
+                fwd = {k: (mid[k] - before[k]) // 3 for k in mid if mid[k] > before[k]}
+                t0 = plan.trace_count
+                got = [plan({"x": xi})[name] for xi in xs]    # capture + 2 replays
+                torch.cuda.synchronize()
+                after = ops.launch_counts()
+                captured = {k: after[k] - mid[k] for k in after if after[k] > mid[k]}
+                if captured != {k: 2 * v for k, v in fwd.items()}:
+                    raise AssertionError(f"capture launched {captured}, not twice an eager "
+                                         f"forward's {fwd}")
+                more = [plan({"x": xi})[name] for xi in xs]   # three replays
+                torch.cuda.synchronize()
+                if ops.launch_counts() != after:
+                    raise AssertionError("a replay ran a kernel wrapper")
+                if plan.trace_count != t0 + 1 or plan.replay_count != 6:
+                    raise AssertionError(f"{plan.trace_count - t0} captures and "
+                                         f"{plan.replay_count} replays over six calls")
+                for i, (a, b) in enumerate(spans):
+                    for what, v in (("captured", got[i]), ("replayed", more[i])):
+                        if not torch.equal(v, eager[i]):
+                            raise AssertionError(f"slot {i}: {what} != eager")
+                    if not _rows_ok(torch, got[i].cpu(), ref[a:b],
+                                    None if bound is None else bound[a:b]):
+                        raise AssertionError(f"slot {i}: differs from the CPU oracle")
+                # where a model maps both slots to the same rows (the w1a1
+                # keys' and MobileNet's as built, whose activations die), the
+                # overwrite check of that key sees nothing; each family must
+                # have keys where it does
+                distinct = not torch.equal(eager[0], eager[1])
+                if distinct:
+                    seen_distinct.add(key[:3])
+                if tier == "int":
+                    per_fwd[key] = fwd
+                rule = "final MatMul within the order bound" if bound is not None \
+                    else "bit-exact"
+                print(f"captured plan {label}: 3 distinct slots of {len(xs[0])} rows "
+                      f"replayed back to back, each torch.equal to the eager plan and "
+                      f"to the CPU oracle ({rule}); 1 capture, 6 calls, "
+                      f"{plan.replay_count} replays; capture launches {captured} "
+                      f"(warm-up + capture); slots differ: {distinct}", flush=True)
+            except Exception as e:          # collected: every key is tried
+                failures.append(f"{label}: {type(e).__name__}: {e}")
+                print(f"captured plan {label}: FAILED {type(e).__name__}: {e}", flush=True)
+                traceback.print_exc()
+            plan = got = more = eager = None
+            gc.collect()
+            torch.cuda.empty_cache()
+    if seen_distinct != set(slots):
+        failures.append(f"only {sorted(seen_distinct)} had slots with distinct rows")
+    if failures:
+        raise AssertionError("phase 8 (a) failed:\n  " + "\n  ".join(failures))
+    return oracles, per_fwd
+
+
+def serve_registry(torch, np, dev, oracles, per_fwd):
+    """Phase 8 (b): the seven ZOO keys in one EngineRegistry (integer tier,
+    fused plans), each slot shape captured by a warm call, then
+    SERVE_REQUESTS requests per key through one ServeScheduler each
+    (window 2 ms, deadline 50 ms), submitted interleaved across keys; every
+    row equal to the oracle's (bit-exact); one capture per engine; then a
+    hot reload of TFC-w2a2 under traffic whose old plan (graphs and pool)
+    is freed once drained."""
+    import gc
+    import weakref
+    from repro_torch.models import zoo
+    from repro_torch.serve import EngineRegistry, ServeScheduler
+
+    keys = list(zoo.ZOO)
+    reg = EngineRegistry(report_cost=False, device=dev)
+    for key in keys:
+        eng = reg.register(key, zoo.ZOO[key](), max_batch=SERVE_ROWS[key[:3]])
+        eng(oracles[key][0][:1])              # capture the slot shape
+    scheds = {k: ServeScheduler(reg.get(k), window_ms=2.0).start() for k in keys}
+    try:
+        reqs = {k: [] for k in keys}
+        t0 = time.perf_counter()
+        for j in range(SERVE_REQUESTS):
+            for k in keys:
+                x = oracles[k][0]
+                reqs[k].append((j % len(x), scheds[k].submit(x[j % len(x)],
+                                                             deadline_ms=50.0)))
+        for k in keys:
+            for _, r in reqs[k]:
+                r.wait(timeout=120)
+        dt = time.perf_counter() - t0
+        total = 0
+        for k in keys:
+            _, ref, _ = oracles[k]
+            for i, r in reqs[k]:
+                if not np.array_equal(r.result, ref[i].numpy()):
+                    raise AssertionError(f"registry {k}: served row {i} differs from "
+                                         "the oracle")
+            eng = reg.get(k)
+            st = scheds[k].stats()
+            if eng.plan.trace_count != 1:
+                raise AssertionError(f"registry {k}: {eng.plan.trace_count} captures, not 1")
+            launches = {n: eng.plan.replay_count * v for n, v in per_fwd[k].items()}
+            total += len(reqs[k])
+            print(f"registry {k}: {len(reqs[k])} requests through ServeScheduler (window "
+                  f"2 ms, deadline 50 ms), every row bit-exact vs the CPU oracle; latency "
+                  f"p50 {st['latency_p50_ms']:.3f} ms p99 {st['latency_p99_ms']:.3f} ms, "
+                  f"{st['flushes']} flushes, {st['deadline_misses']} deadline misses; "
+                  f"1 capture, {eng.plan.replay_count} replays, launches (replays x "
+                  f"launches per forward) {launches}", flush=True)
+        print(f"registry: {total} requests over {len(keys)} models in {dt:.6f} s: "
+              f"{total / dt:.1f} requests/s", flush=True)
+
+        # hot reload under traffic: queued requests drain through the old plan
+        k = "TFC-w2a2"
+        x, ref, _ = oracles[k]
+        old = weakref.ref(reg.get(k).plan)
+        pending = [scheds[k].submit(x[i]) for i in range(20)]
+        reg.reload(k, zoo.ZOO[k]())
+        for i, r in enumerate(pending):
+            if not np.array_equal(r.wait(timeout=60), ref[i].numpy()):
+                raise AssertionError(f"reload: request {i} differs from the oracle")
+        reg.get(k)(x[:1])
+        for _ in range(40):
+            gc.collect()
+            if old() is None:
+                break
+            time.sleep(0.05)
+        if old() is not None:
+            raise AssertionError("reload: the old plan (its graphs and pool) is still alive")
+        print(f"registry reload {k} under traffic: 20 requests answered bit-exact, the old "
+              f"plan freed after the drain, the new plan captured "
+              f"{reg.get(k).plan.trace_count} time(s)", flush=True)
+    finally:
+        for s in scheds.values():
+            s.stop()
+
+
+def serve_splitmerge(torch, np, dev, oracles):
+    """Phase 8 (c): SplitMergeFront over two workers on cuda:0, TFC-w2a2 in
+    16-row slots, one worker's fault injected: no request lost, rows in
+    submission order, bit-exact."""
+    from repro_torch.models import zoo
+    from repro_torch.serve import SplitMergeFront, device_workers
+
+    x, ref, _ = oracles["TFC-w2a2"]
+    xs = [x[j % len(x)] for j in range(SERVE_REQUESTS)]
+    workers = device_workers(zoo.ZOO["TFC-w2a2"], devices=["cuda:0", "cuda:0"],
+                             max_batch=16, report_cost=False)
+    for w in workers:
+        w.engine(x[:1])                       # capture each worker's slot in turn
+    with SplitMergeFront(workers) as front:
+        workers[0].inject_fault()
+        rows = front.submit_wave(xs).wait(timeout=120)
+        st = front.stats()
+    if len(rows) != len(xs):
+        raise AssertionError(f"splitmerge: {len(rows)} rows for {len(xs)} requests")
+    for j, r in enumerate(rows):
+        if not np.array_equal(r, ref[j % len(x)].numpy()):
+            raise AssertionError(f"splitmerge: row {j} is not request {j}'s oracle row")
+    if st["failed"] != ["dev0"] or st["redispatched_shards"] < 1:
+        raise AssertionError(f"splitmerge: fault not seen or not re-dispatched ({st})")
+    print(f"splitmerge TFC-w2a2 over 2 workers on cuda:0, fault injected in dev0: "
+          f"{len(rows)} rows, none lost, in submission order, bit-exact; {st}", flush=True)
+
+
+def serve_launcher():
+    """Phase 8 (d): the launcher's --graph path in a subprocess, spans to a
+    JSONL file: every request has its submit -> complete span with its
+    queued and compute children."""
+    import os
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        spans = Path(tmp) / "spans.jsonl"
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--graph", "TFC-w2a2",
+             "--requests", str(SERVE_REQUESTS), "--trace-jsonl", str(spans)],
+            env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"launcher exited {res.returncode}: {res.stderr[-3000:]}")
+        recs = [json.loads(line) for line in spans.read_text().splitlines()]
+    roots = [r for r in recs if r["name"] == "request"]
+    kids = {}
+    for r in recs:
+        if r["name"] in ("queued", "compute"):
+            kids.setdefault(r["parent"], set()).add(r["name"])
+    if len(roots) != SERVE_REQUESTS or len({r["trace"] for r in roots}) != SERVE_REQUESTS:
+        raise AssertionError(f"launcher spans: {len(roots)} request spans, not "
+                             f"{SERVE_REQUESTS}")
+    for r in roots:
+        if r["t1"] < r["t0"] or kids.get(r["span"]) != {"queued", "compute"} or r["error"]:
+            raise AssertionError(f"launcher spans: request span {r} incomplete")
+    rate = [ln for ln in res.stderr.splitlines() if "req/s" in ln]
+    print(f"launcher --graph TFC-w2a2 --requests {SERVE_REQUESTS} --trace-jsonl: exit 0 in "
+          f"{wall:.3f} s, {len(recs)} spans, every request submit -> complete with queued "
+          f"and compute; {rate[-1] if rate else ''}", flush=True)
+
+
+def captured_walls(torch, np, dev):
+    """Phase 8 (e): plan-call walls of the fused integer plans, captured
+    against eager in the same run (10 turns each), then one profile of
+    each (busy, launches) and the time of one captured call by CUDA events
+    (input copy, replay, output copy)."""
+    from repro_torch.core import compile_graph
+    from repro_torch.models import zoo
+    cases = (("TFC-w2a2", zoo.build_tfc(2, 2),
+              np.random.RandomState(3).randn(16, 784).astype(np.float32)),
+             ("CNV-w1a1", zoo.build_cnv(1, 1),
+              np.random.RandomState(12).randn(SLOT, 3, 32, 32).astype(np.float32)),
+             ("MobileNet-224", zoo.rescale_conv_gains(zoo.build_mobilenet(4, 4, img=224)),
+              np.random.RandomState(13).randn(SLOT, 3, 224, 224).astype(np.float32)))
+    out = {}
+    for model, g, x in cases:
+        plan = compile_graph(g, device=dev)
+        walls = walls_in_turns(torch, {"captured": (plan, True), "eager": plan}, x,
+                               model=model)
+        prof = {lab: profile_forward(torch, plan, x, f"{lab}, integer path", model, jit=j)
+                for lab, j in (("captured", True), ("eager", False))}
+        xd = torch.from_numpy(x).cuda()
+        event_ms = _median_event_ms(lambda: plan({"x": xd}), 30)
+        out[model] = {"walls": walls, "profiles": prof, "event_ms": event_ms}
+        c, e = prof["captured"], prof["eager"]
+        print(f"captured vs eager [{model}, integer path, fused, {len(x)} rows]: wall "
+              f"{walls['captured']:.6f} / {walls['eager']:.6f} ms (median of 10 turns), "
+              f"busy {c['busy_ms']:.6f} / {e['busy_ms']:.6f} ms, launches "
+              f"{c['launches']:g} / {e['launches']:g} (profiler), captured call "
+              f"{event_ms:.6f} ms (CUDA events)", flush=True)
+    return out
+
+
+def capture_failure_raises(torch, np, dev):
+    """Phase 8, last: a segment that synchronizes cannot be captured; the
+    call raises naming the segment and its ops, a second call raises
+    again (nothing falls back to the eager path), and the device stays
+    usable."""
+    from repro_torch.core import compile_graph
+    from repro_torch.models import zoo
+    plan = compile_graph(zoo.build_tfc(2, 2), device=dev)
+    seg = plan.segments[1]
+    run = seg.run
+
+    def syncing(consts, env):
+        run(consts, env)
+        torch.cuda.synchronize()
+    seg.run = syncing
+    x = np.random.RandomState(3).randn(16, 784).astype(np.float32)
+    msgs = []
+    for _ in range(2):
+        try:
+            plan({"x": x})
+        except RuntimeError as e:
+            msgs.append(str(e))
+    if len(msgs) != 2 or not all(f"segment 1 ({seg.kind}" in m for m in msgs) or \
+            plan.replay_count:
+        raise AssertionError(f"capture failure: {msgs}, {plan.replay_count} replays")
+    seg.run = run
+    out = plan({"x": x}, jit=False)[plan.graph.output_names[0]]
+    torch.cuda.synchronize()
+    print(f"capture failure: raised twice, no replay, no eager fallback: "
+          f"{msgs[0].splitlines()[0][:200]}; the device stays usable "
+          f"({tuple(out.shape)} eager rows after)", flush=True)
+
+
+def run_served_tier(torch, np, dev):
+    """Phase 8: the captured plan and the serving tier, (a) to (e), then
+    a capture that fails."""
+    oracles, per_fwd = run_captured_plans(torch, np, dev)
+    serve_registry(torch, np, dev, oracles, per_fwd)
+    serve_splitmerge(torch, np, dev, oracles)
+    serve_launcher()
+    walls = captured_walls(torch, np, dev)
+    capture_failure_raises(torch, np, dev)
+    return walls
 
 
 # ----------------------------------------------------------------- phase 5
@@ -2308,15 +2687,16 @@ def _int_dw_row(ops, torch, dev, q, taps, stride, in_scale, spec):
                 ops_ms=18 * n_out / INT8_OPS * 1e3)
 
 
-def profile_forward(torch, plan, x, label, model="MobileNet-224", reps=5):
+def profile_forward(torch, plan, x, label, model="MobileNet-224", reps=5, jit=False):
     """One plan call's device time by kernel name (torch.profiler), beside
-    its wall time without the profiler: the device's busy share."""
+    its wall time without the profiler: the device's busy share.  Eager
+    (``jit=False``) unless ``jit`` asks for the captured CUDA graph."""
     from torch.profiler import ProfilerActivity, profile
     xd = torch.from_numpy(x).cuda()
 
     def run():
         for _ in range(reps):
-            plan({"x": xd})
+            plan({"x": xd}, jit=jit)
         torch.cuda.synchronize()
     run()
     t0 = time.perf_counter()
@@ -2336,6 +2716,8 @@ def profile_forward(torch, plan, x, label, model="MobileNet-224", reps=5):
           f"share {busy / wall_ms:.3f}", flush=True)
     for key, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]:
         print(f"profile[{label}]:   {t:.6f} ms in {n:g} launches  {key[:110]}", flush=True)
+    return {"busy_ms": busy, "wall_ms": wall_ms,
+            "launches": sum(n for _, n in by_name.values())}
 
 
 def plan_profiles(torch, np, dev, turns=3):
@@ -2359,17 +2741,23 @@ def plan_profiles(torch, np, dev, turns=3):
 def walls_in_turns(torch, plans: dict, x, pairs=10, reps=5, model="MobileNet-224") -> dict:
     """Wall ms of one plan call (host clock around ``reps`` calls and a
     sync), the plans run in turns (A B, then B A, ...) ``pairs`` times;
-    prints each plan's median and quartiles and returns the medians."""
+    prints each plan's median and quartiles and returns the medians.  A
+    plan is called eagerly (``jit=False``); a value ``(plan, True)`` calls
+    it through its captured CUDA graph."""
     xd = torch.from_numpy(x).cuda()
     names = list(plans)
+    calls = {}
+    for n, p in plans.items():
+        plan, jit = p if isinstance(p, tuple) else (p, False)
+        calls[n] = functools.partial(plan, {"x": xd}, jit=jit)
     walls = {n: [] for n in names}
     for i in range(pairs):
         for name in (names if i % 2 == 0 else names[::-1]):
-            plans[name]({"x": xd})
+            calls[name]()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(reps):
-                plans[name]({"x": xd})
+                calls[name]()
             torch.cuda.synchronize()
             walls[name].append((time.perf_counter() - t0) / reps * 1e3)
     for name, ws in walls.items():
@@ -2763,6 +3151,9 @@ def main() -> int:
     if sys.argv[1:] == ["--plan-profiles"]:
         plan_profiles(torch, np, dev)
         return 0
+    if sys.argv[1:] == ["--served"]:
+        run_served_tier(torch, np, dev)
+        return 0
 
     # phase 2: each kernel against its twin
     err = {k: 0.0 for k in REPLACES}
@@ -2863,6 +3254,8 @@ def main() -> int:
     rows = lm_attention_timings(torch, ops, cfg, dev)
     kernels.append(lm_kernel_entry(rows, launches, err, cfg))
     lm_walls(torch, params, cfg, toks)
+    # phase 8: the captured plan per slot shape and the serving tier
+    run_served_tier(torch, np, dev)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

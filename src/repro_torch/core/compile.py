@@ -35,9 +35,14 @@ oracle; this module is the performance tier above it:
      and prune the constants to what the plan reads.
 
   3. **Emit** a ``CompiledPlan`` whose constants (packed carriers, scales)
-     live on the plan's device and whose segments run eagerly there, in
-     topological order; a call enqueues its kernels on the current CUDA
-     stream and returns without synchronizing.
+     live on the plan's device.  On CUDA the first call at each input
+     signature (names, shapes, dtypes) captures every segment in one CUDA
+     graph, the counterpart of the reference's ``jax.jit(plan)``; every
+     later call at that signature copies its inputs into the graph's
+     static buffers and replays it, one launch from the host instead of
+     one per kernel.  A call enqueues its work on the current CUDA stream
+     and returns without synchronizing.  ``jit=False`` runs the segments
+     eagerly, in topological order, as the CPU always does.
 
 Kernel selection is **analysis-driven** by default, as in the reference
 (``repro_torch.analysis``): the range analysis proves the actual weight
@@ -54,8 +59,9 @@ ROADMAP.md item that brings them.
 """
 from __future__ import annotations
 
+import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
@@ -73,31 +79,216 @@ _STATIC_OPERANDS = {"Reshape": (1,), "Pad": (1, 2), "Squeeze": (1,),
                     "Unsqueeze": (1,)}
 
 
+# one capture at a time in the process: a capture's device-wide
+# synchronize must not land inside another thread's capture
+_CAPTURE_LOCK = threading.Lock()
+
+
+@dataclass
+class _Captured:
+    """One input signature's CUDA graph and its static buffers: a replay
+    reads ``inputs`` and overwrites ``outputs``."""
+    graph: object                        # torch.cuda.CUDAGraph
+    inputs: dict
+    outputs: dict
+    replays: int = 0
+
+
+def _release_capture_pool(pool) -> None:
+    """After a failed capture: stop routing allocations to ``pool``.  An
+    invalidated capture makes ``capture_end`` raise before it does this
+    itself, and the pool would then refuse the next capture; where it
+    already stopped, the allocator says so and there is nothing to do."""
+    try:
+        torch._C._cuda_endAllocateToPool(torch.cuda.current_device(), pool)
+    except RuntimeError:
+        pass
+
+
+def _signature(inputs: dict) -> tuple:
+    return tuple(sorted((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
+
+
 @dataclass
 class CompiledPlan:
-    """A partitioned QonnxGraph execution plan on one device."""
+    """A partitioned QonnxGraph execution plan on one device.
+
+    On CUDA a call at a new input signature captures the plan in a CUDA
+    graph (its own memory pool, one per plan), and later calls replay it;
+    see ``__call__``.  ``trace_count`` counts the captures and the eager
+    ``jit=False`` calls, as the reference counts its traces."""
     graph: QonnxGraph
     segments: list[Segment]
     consts: dict
     device: torch.device
     analysis: Optional[object] = None      # GraphAnalysis used for selection
     fusion: Optional[object] = None        # lowering.FusionPlan (carriers)
+    _captured: dict = field(default_factory=dict, repr=False)
+    _signatures: set = field(default_factory=set, repr=False)
+    _traces: int = field(default=0, repr=False)
+    _pool: object = field(default=None, repr=False)
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
-    def __call__(self, inputs: dict) -> dict:
-        """Run the plan.  Inputs (numpy arrays or tensors) are moved to the
-        plan's device; results are device tensors returned **without a
-        synchronize** — on CUDA their kernels may still be in flight, which
-        is what lets the serving tier enqueue every slot before one
-        trailing sync."""
-        env = {k: to_tensor(v, self.device) for k, v in inputs.items()}
-        for t in self.graph.inputs:
-            if t.name not in env:
-                raise ValueError(f"missing graph input {t.name!r}")
+    def __post_init__(self):
+        self._m_retrace = default_registry().counter(
+            "compile_plan_retraces_total",
+            help="plan body traces (once per new input shape under jit)",
+            labels={"model": self.graph.name})
+
+    def _trace(self) -> None:
+        self._traces += 1
+        self._m_retrace.inc()
+
+    def _run(self, env: dict) -> dict:
         for seg in self.segments:
             seg.run(self.consts, env)
         # graph outputs may be compile-time constants (folded subgraphs)
         return {name: env.get(name, self.consts.get(name))
                 for name in self.graph.output_names}
+
+    @property
+    def trace_count(self) -> int:
+        """Captures (one per new input signature under ``jit=True``; on the
+        CPU, where nothing is captured, one per new signature too) plus
+        one per ``jit=False`` call: the no-retrace probe of the serving
+        tests, as the reference's."""
+        return self._traces
+
+    @property
+    def replay_count(self) -> int:
+        """CUDA graph replays so far, over every captured signature."""
+        return sum(c.replays for c in self._captured.values())
+
+    @property
+    def n_devices(self) -> int:
+        """Devices a plan call spans (meshes are not ported: always 1)."""
+        return 1
+
+    def placement(self) -> dict:
+        """Telemetry: where the plan runs."""
+        return {"kind": "device", "devices": 1, "device": str(self.device)}
+
+    def __call__(self, inputs: dict, *, jit: bool = True,
+                 donate: bool = False) -> dict:
+        """Run the plan on ``inputs`` (numpy arrays or tensors, on any
+        device).  Results are device tensors returned **without a
+        synchronize**, which is what lets the serving tier enqueue every
+        slot before one trailing sync.
+
+        On CUDA with ``jit=True`` the first call at a new signature warms
+        the plan up on a side stream (lazy initialisation stays out of the
+        capture), captures it in a ``torch.cuda.CUDAGraph`` whose static
+        input and output buffers live in the plan's memory pool, and
+        replays it; later calls copy the inputs into the static buffers,
+        replay, and return copies of the static outputs (the next replay
+        overwrites them).  Calls are serialized by the plan's lock and
+        enqueued on the caller's current stream.  A capture that fails
+        raises, naming the segment and its ops: nothing falls back to the
+        eager path.  On the CPU ``jit=True`` runs eagerly and records the
+        signature; ``jit=False`` is the eager path everywhere.
+
+        ``donate=True`` hands the plan a device input as the slot: at a
+        new signature the buffer itself becomes the capture's static input
+        (no copy), and a later call passing that buffer again is not
+        copied; the caller must not rely on its contents afterwards.
+        Ignored on the CPU, as in the reference."""
+        for t in self.graph.inputs:
+            if t.name not in inputs:
+                raise ValueError(f"missing graph input {t.name!r}")
+        if not jit:
+            with self._lock:
+                self._trace()
+            return self._run({k: to_tensor(v, self.device)
+                              for k, v in inputs.items()})
+        if self.device.type != "cuda":
+            env = {k: to_tensor(v, self.device) for k, v in inputs.items()}
+            sig = _signature(env)
+            with self._lock:
+                if sig not in self._signatures:
+                    self._signatures.add(sig)
+                    self._trace()
+            return self._run(env)
+        host = {k: to_tensor(v) for k, v in inputs.items()}
+        sig = _signature(host)
+        with self._lock, torch.cuda.device(self.device):
+            cap = self._captured.get(sig)
+            if cap is None:
+                cap = self._capture(sig, host, donate)
+            else:
+                for k, v in host.items():
+                    slot = cap.inputs[k]
+                    if v.device != slot.device or v.data_ptr() != slot.data_ptr():
+                        slot.copy_(v, non_blocking=True)
+            cap.graph.replay()
+            cap.replays += 1
+            return {k: v.clone() for k, v in cap.outputs.items()}
+
+    def _capture(self, sig: tuple, host: dict, donate: bool) -> _Captured:
+        """Warm up, then capture the plan at ``sig`` (caller holds the
+        plan's lock and has made the plan's device current)."""
+        dev = self.device
+        slots = {}
+        for k, v in host.items():
+            if donate and v.device == dev and v.is_contiguous():
+                slots[k] = v
+            else:
+                slots[k] = torch.empty(v.shape, dtype=v.dtype, device=dev)
+                slots[k].copy_(v)
+        stream = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            self._run(dict(slots))
+        stream.wait_stream(side)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        failed = ended = None
+        # capture_begin / capture_end by hand inside a stream context, so
+        # the caller's stream comes back even when capture_end raises
+        with _CAPTURE_LOCK, torch.cuda.stream(torch.cuda.Stream(dev)):
+            torch.cuda.synchronize(dev)
+            graph.capture_begin(pool=self._pool,
+                                capture_error_mode="thread_local")
+            env = dict(slots)
+            try:
+                for i, seg in enumerate(self.segments):
+                    try:
+                        seg.run(self.consts, env)
+                    except Exception as e:       # named below
+                        failed = (i, seg, e)
+                        break
+            finally:
+                try:
+                    graph.capture_end()
+                except RuntimeError as e:        # the capture was invalidated
+                    ended = e
+        if failed is not None or ended is not None:
+            _release_capture_pool(self._pool)
+            self._pool = None                    # the next capture starts afresh
+        if failed is not None:
+            i, seg, e = failed
+            ops = "+".join(f"{n.op_type}:{n.name}" for n in seg.nodes)
+            raise RuntimeError(
+                f"CUDA graph capture of plan {self.graph.name!r} failed in "
+                f"segment {i} ({seg.kind}: {ops}): {e}") from e
+        if ended is not None:
+            raise RuntimeError(
+                f"CUDA graph capture of plan {self.graph.name!r} failed at "
+                f"signature {sig}: {ended}") from ended
+        outs = {name: env.get(name, self.consts.get(name))
+                for name in self.graph.output_names}
+        cap = _Captured(graph, slots, outs)
+        self._captured[sig] = cap
+        self._trace()
+        return cap
+
+    def profile(self, x=None, **kw):
+        """Per-segment measured profile (see ``repro_torch.obs.profile``):
+        each segment timed on its own, joined with the analysis cost
+        report.  Returns a ``PlanProfile``."""
+        from repro_torch.obs.profile import profile_plan
+        return profile_plan(self, x, **kw)
 
     # ------------------------------------------------------------- stats
     @property

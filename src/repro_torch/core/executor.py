@@ -132,6 +132,15 @@ def _values(t) -> np.ndarray:
         else np.asarray(t)
 
 
+def _operand(v, dtype, device) -> torch.Tensor:
+    """``v`` as a ``dtype`` tensor on ``device``.  A Python number becomes a
+    fill on the device rather than a host tensor copied over, so the op
+    stays capturable in a CUDA graph (a pageable copy is not)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=dtype)
+    return torch.full((), v, dtype=dtype, device=device)
+
+
 # --------------------------------------------------------------------------
 # QONNX domain ops (the paper's contribution)
 # --------------------------------------------------------------------------
@@ -188,8 +197,7 @@ def _quantize_linear(node, x, scale, zero_point=None):
         not zero_point.dtype.is_floating_point
     qmin, qmax = (-128, 127) if signed else (0, 255)
     zp = 0 if zero_point is None else zero_point
-    y = torch.round(x / scale) + torch.as_tensor(zp, dtype=x.dtype,
-                                                 device=x.device)
+    y = torch.round(x / scale) + _operand(zp, x.dtype, x.device)
     y = torch.clamp(y, qmin, qmax)
     return y.to(torch.int8 if signed else torch.uint8)
 
@@ -197,16 +205,16 @@ def _quantize_linear(node, x, scale, zero_point=None):
 @register_op("DequantizeLinear")
 def _dequantize_linear(node, y, scale, zero_point=None):
     zp = 0 if zero_point is None else zero_point
-    return (y.to(torch.float32) - torch.as_tensor(
-        zp, dtype=torch.float32, device=y.device)) * scale
+    return (y.to(torch.float32) - _operand(zp, torch.float32, y.device)) \
+        * scale
 
 
 @register_op("Clip")
 def _clip(node, x, lo=None, hi=None):
     lo = node.attrs.get("min", -np.inf) if lo is None else lo
     hi = node.attrs.get("max", np.inf) if hi is None else hi
-    return torch.clamp(x, torch.as_tensor(lo, dtype=x.dtype, device=x.device),
-                       torch.as_tensor(hi, dtype=x.dtype, device=x.device))
+    return torch.clamp(x, _operand(lo, x.dtype, x.device),
+                       _operand(hi, x.dtype, x.device))
 
 
 @register_op("Constant")
@@ -330,8 +338,12 @@ def _concat(node, *xs):
 
 @register_op("Shape")
 def _shape(node, x):
-    return torch.tensor(list(x.shape), dtype=torch.int32,
-                        device=x.device if x.device.type != "meta" else "cpu")
+    if x.device.type in ("cpu", "meta"):
+        return torch.tensor(list(x.shape), dtype=torch.int32)
+    # one fill per dim on the device: capturable, unlike a host copy
+    return torch.stack([torch.full((), int(d), dtype=torch.int32,
+                                   device=x.device) for d in x.shape]) \
+        if x.ndim else torch.zeros((0,), dtype=torch.int32, device=x.device)
 
 
 @register_op("Gather")

@@ -1,0 +1,143 @@
+"""Fault tolerance primitives: straggler watchdog, bounded restarts
+(counterpart of ``repro.dist.fault``).
+
+All host-side logic, stdlib only, so the same code runs on a laptop and
+under a cluster process launcher.  ``elastic_mesh`` builds a device mesh
+in the reference; meshes are not ported, so it raises.
+"""
+from __future__ import annotations
+
+import contextlib
+import logging
+import random
+import statistics
+import time
+from collections import deque
+from dataclasses import dataclass, field
+
+
+log = logging.getLogger("repro_torch.dist.fault")
+
+
+class Watchdog:
+    """Flags steps whose wall time exceeds ``threshold`` x the rolling median.
+
+    ``floor_s`` guards the cold regime: until steps take at least that long,
+    nothing is flagged (sub-millisecond smoke steps jitter by integer
+    factors without being stragglers).
+
+    ``step_end`` without a matching ``step_start`` is a no-op returning
+    False (never a crash, never a bogus sample), and ``cancel()`` discards
+    an in-flight measurement — call it when a step dies mid-flight so the
+    exception-handling time can't pollute the rolling median.  The
+    ``step(i)`` context manager wires both up: it cancels on exception and
+    records on clean exit.
+    """
+
+    def __init__(self, threshold: float = 1.5, window: int = 16,
+                 floor_s: float = 0.05):
+        self.threshold = threshold
+        self.window = window
+        self.floor_s = floor_s
+        self.durations: deque[float] = deque(maxlen=window)
+        self.stragglers: list[int] = []
+        self._t0: float | None = None
+
+    def step_start(self) -> None:
+        self._t0 = time.monotonic()
+
+    def cancel(self) -> None:
+        """Discard the in-flight measurement (step died mid-flight)."""
+        self._t0 = None
+
+    @contextlib.contextmanager
+    def step(self, step: int):
+        """``with wd.step(i): ...`` — start/end with exception-safe cancel."""
+        self.step_start()
+        try:
+            yield self
+        except BaseException:
+            self.cancel()
+            raise
+        self.step_end(step)
+
+    def step_end(self, step: int) -> bool:
+        """Record the step duration; True if the step was a straggler.
+
+        A missed ``step_start`` (e.g. an exception tore down the previous
+        step and the caller's recovery path skipped straight to
+        ``step_end``) is tolerated: nothing is recorded, False returned.
+        """
+        if self._t0 is None:
+            return False
+        dt = time.monotonic() - self._t0
+        self._t0 = None
+        flagged = False
+        if self.durations:
+            baseline = max(statistics.median(self.durations), self.floor_s)
+            if dt > self.threshold * baseline:
+                flagged = True
+                self.stragglers.append(step)
+                log.warning("step %d straggled: %.3fs vs %.3fs median",
+                            step, dt, baseline)
+        self.durations.append(dt)
+        return flagged
+
+
+@dataclass
+class RestartPolicy:
+    """Bounded-restart policy with capped exponential backoff.
+
+    The delay before attempt *k* is ``min(backoff_s * backoff_mult**(k-1),
+    max_backoff_s)``, optionally stretched by up to ``jitter`` (a fraction:
+    0.25 means "up to 25% longer") so a fleet of restarting workers doesn't
+    thunder back in lock-step.  Without the cap the old behaviour grew the
+    delay unboundedly (``backoff *= mult`` forever) — a worker on its 30th
+    restart would sleep for days.
+    """
+    max_restarts: int = 3
+    backoff_s: float = 1.0
+    backoff_mult: float = 2.0
+    max_backoff_s: float = 60.0
+    jitter: float = 0.0            # fraction of the delay added uniformly
+    restartable: tuple = (RuntimeError, OSError)
+    history: list[str] = field(default_factory=list)
+
+    def delay_s(self, attempt: int) -> float:
+        """Sleep before retrying after failed ``attempt`` (0-based)."""
+        d = min(self.backoff_s * self.backoff_mult ** attempt,
+                self.max_backoff_s)
+        if self.jitter > 0:
+            d *= 1.0 + random.uniform(0.0, self.jitter)
+        return max(0.0, d)
+
+
+def run_with_restarts(make_state, run, policy: RestartPolicy):
+    """Run ``run(make_state())`` with up to ``policy.max_restarts`` retries.
+
+    State is rebuilt from scratch (checkpoint resume lives inside
+    ``make_state``) on every attempt — the crash-only design: no attempt to
+    patch up a half-dead attempt's state.
+    """
+    for attempt in range(policy.max_restarts + 1):
+        try:
+            return run(make_state())
+        except policy.restartable as e:          # noqa: PERF203
+            policy.history.append(f"attempt {attempt}: {e!r}")
+            if attempt == policy.max_restarts:
+                log.error("restart budget exhausted after %d attempts",
+                          attempt + 1)
+                raise
+            delay = policy.delay_s(attempt)
+            log.warning("attempt %d failed (%r); restarting in %.1fs",
+                        attempt, e, delay)
+            if delay > 0:
+                time.sleep(delay)
+
+
+def elastic_mesh(prefer_model: int = 16):
+    """The reference's ("data", "model") mesh over the devices present.
+    Meshes are not ported: raises ``NotImplementedError``."""
+    del prefer_model
+    raise NotImplementedError(
+        "elastic_mesh is not ported yet: ROADMAP.md A16 (multi-device)")

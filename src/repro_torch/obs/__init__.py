@@ -1,4 +1,58 @@
-"""repro_torch.obs — observability (metrics so far)."""
+"""repro_torch.obs — observability: metrics, tracing, plan profiling.
+
+Counterpart of ``repro.obs``, stdlib only but for ``profile``:
+
+  * ``metrics``  — thread-safe ``MetricsRegistry`` of counters, gauges and
+                   exponential-bucket histograms with labels; JSON +
+                   Prometheus exporters; process-wide default registry.
+                   ``python -m repro_torch.obs.report`` renders a snapshot.
+  * ``trace``    — ``Span``/``Tracer`` (context-manager or retroactive
+                   ``emit``), parent/child links, JSONL sink; wired through
+                   the serving request lifecycle (submit -> queue -> flush
+                   -> dispatch -> sync -> complete).  Disabled tracing adds
+                   zero allocations to the submit hot path.
+  * ``profile``  — opt-in per-segment timing of a ``CompiledPlan``
+                   (``plan.profile()``): CUDA events around each segment's
+                   eager run on the card, ``time.perf_counter`` on the CPU,
+                   joined with the analysis cost report.
+
+``http.start_metrics_server`` serves the Prometheus text format from a
+stdlib HTTP server (``python -m repro_torch.launch.serve --metrics-port``).
+"""
 from .metrics import (  # noqa: F401
-    Counter, Gauge, Histogram, HistogramSnapshot, MetricsRegistry,
-    default_registry, exponential_buckets, nearest_rank)
+    Counter,
+    Gauge,
+    Histogram,
+    HistogramSnapshot,
+    MetricsRegistry,
+    default_registry,
+    exponential_buckets,
+    nearest_rank,
+)
+from .http import MetricsServer, start_metrics_server  # noqa: F401
+from .profile import (  # noqa: F401
+    PlanProfile, SegmentProfile, profile_plan, time_fn, time_fns)
+from .trace import JsonlSink, ListSink, Span, Tracer  # noqa: F401
+from . import http  # noqa: F401
+
+__all__ = [
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "HistogramSnapshot",
+    "JsonlSink",
+    "ListSink",
+    "MetricsRegistry",
+    "MetricsServer",
+    "PlanProfile",
+    "SegmentProfile",
+    "Span",
+    "Tracer",
+    "default_registry",
+    "exponential_buckets",
+    "nearest_rank",
+    "profile_plan",
+    "start_metrics_server",
+    "time_fn",
+    "time_fns",
+]

@@ -3,27 +3,33 @@
 Counterpart of ``repro.serve.engine``.  ``CompiledGraphEngine`` serves
 QonnxGraph inference on the compiled tier (``core/compile.py``): the graph
 is partitioned onto the kernels once at load, requests are batched into
-fixed-size slots (padding to ``max_batch`` keeps every kernel launch at
-one shape), and per-node Python dispatch never appears on the request
-path.
+fixed-size slots (padding to ``max_batch`` keeps one input signature, so
+on CUDA the plan's one captured graph is replayed for every slot), and
+per-node Python dispatch never appears on the request path.
 
 Dispatch is **pipelined**: a multi-slot flush (or a multi-chunk
-``__call__``) enqueues every slot's host-to-device copy and kernels on the
-current CUDA stream before any host sync, and synchronizes once at the
-end.  ``pipeline=False`` synchronizes after each chunk instead (the
-baseline the pipelined path is measured against).  On CUDA each slot is
-staged in pinned host memory so its copy to the device is asynchronous.
+``__call__``) enqueues every slot's host-to-device copy, graph replay and
+output copy on the current CUDA stream before any host sync, and
+synchronizes once at the end.  ``pipeline=False`` synchronizes after each
+chunk instead (the baseline the pipelined path is measured against).  On
+CUDA each slot is staged in pinned host memory and copied by the plan
+straight into its captured graph's static input buffer; each replay's
+outputs are copied out before the next replay overwrites them.
 
 Thread safety: ``submit`` / ``run_pending`` / ``reload`` / ``__call__``
-coordinate through one engine lock.  ``reload`` compiles the new plan
-outside the lock, then atomically swaps it in and flushes the
-still-queued old-model requests through the old plan.
+coordinate through one engine lock, so a background flush loop
+(``serve.scheduler.ServeScheduler``) and hot model swaps
+(``serve.registry.EngineRegistry``) can race callers safely; the plan's
+own lock serializes its captures and replays.  ``reload`` compiles the new
+plan outside the lock, then atomically swaps it in and flushes the
+still-queued old-model requests through the old plan; the old plan's
+graphs and memory pool are freed when the last flush holding it returns.
 
-Every interval timestamp is ``time.monotonic()``; the metric names are the
-reference's.  ``report_cost=True`` (the default, as in the reference) logs
-the analysis tier's inference cost of the served model at each load.
-Request tracing (``tracer=``) needs ``obs/trace.py``, which is not ported
-yet, and raises ``NotImplementedError``.
+Every interval timestamp is ``time.monotonic()``; the metric and span
+names are the reference's.  ``report_cost=True`` (the default, as in the
+reference) logs the analysis tier's inference cost of the served model at
+each load.  ``tune`` and ``mesh`` raise ``NotImplementedError`` (ROADMAP.md
+A15, A16).
 """
 from __future__ import annotations
 
@@ -48,18 +54,24 @@ _OCCUPANCY_BUCKETS = tuple(i / 8 for i in range(1, 9))
 class GraphRequest:
     """One in-flight inference request — a lightweight future.
 
-    ``submit`` returns it immediately; a flush fills ``result`` and fires
-    the completion event.  ``wait()`` blocks for the result (re-raising a
-    flush-side error).  ``submitted`` / ``started`` / ``completed`` /
-    ``deadline`` are ``time.monotonic()`` stamps.
+    ``submit`` returns it immediately; a flush (caller-driven
+    ``run_pending`` or the ``ServeScheduler`` loop) fills ``result`` and
+    fires the completion event.  ``wait()`` blocks for the result
+    (re-raising a flush-side error).  ``submitted`` / ``started`` /
+    ``completed`` / ``deadline`` are ``time.monotonic()`` stamps;
+    ``submitted_at`` is the one wall-clock stamp, for logs only.
     """
     x: Optional[torch.Tensor]            # one sample, graph input minus batch
     submitted: float = field(default_factory=time.monotonic)
+    submitted_at: float = field(default_factory=time.time)  # wall, logs only
     deadline: Optional[float] = None     # absolute monotonic time it's due
     started: Optional[float] = None      # when the slot was dispatched
     completed: Optional[float] = None
     result: Optional[np.ndarray] = None
     error: Optional[BaseException] = None
+    trace_id: Optional[str] = None       # set at submit when tracing is on:
+    queue_depth: Optional[int] = None    # the request's trace context + the
+                                         # queue depth it joined behind
     _event: threading.Event = field(default_factory=threading.Event,
                                     repr=False, compare=False)
 
@@ -71,7 +83,7 @@ class GraphRequest:
         if not self._event.wait(timeout):
             raise TimeoutError(
                 f"request not completed within {timeout}s "
-                f"(was run_pending called?)")
+                f"(is a scheduler running / was run_pending called?)")
         if self.error is not None:
             raise self.error
         return self.result
@@ -100,34 +112,70 @@ class GraphRequest:
 
 class CompiledGraphEngine:
     """Slot-batched, pipelined inference over a compiled QonnxGraph on one
-    device (``device=None`` means CUDA, and raises without a GPU)."""
+    device (``device=None`` means CUDA, and raises without a GPU).
 
-    def __init__(self, graph, *, max_batch: int = 8, use_int4: bool = True,
-                 pipeline: bool = True, telemetry_window: int = 2048,
-                 tracer=None, report_cost: bool = True,
-                 use_analysis: bool = True, device=None):
+    Each flush stacks up to ``max_batch`` requests along the leading dim,
+    pads to exactly ``max_batch`` so the plan sees one input signature (on
+    CUDA: one captured graph, replayed), dispatches every slot, syncs once
+    and scatters the rows back to the requests.
+    """
+
+    def __init__(self, graph, *, max_batch: int = 8, use_kernels: bool = True,
+                 use_int4: bool = True, interpret: Optional[bool] = None,
+                 report_cost: bool = True, pipeline: bool = True,
+                 donate="auto", telemetry_window: int = 2048,
+                 metrics_registry: Optional[MetricsRegistry] = None,
+                 metrics_labels: Optional[dict] = None,
+                 tracer=None, observability: bool = True,
+                 tune: str = "off", tune_cache_dir: Optional[str] = None,
+                 mesh=None, device=None, use_analysis: bool = True):
         """``use_analysis`` (the port's own knob, forwarded to
         ``compile_graph``) False serves the declared-bit-width
-        fp32-epilogue plans instead of the analysis-driven integer ones."""
-        if tracer is not None:
-            raise NotImplementedError(
-                "tracer= needs obs/trace.py: ROADMAP.md A14")
+        fp32-epilogue plans instead of the analysis-driven integer ones.
+
+        ``donate`` is forwarded to every plan call (on CUDA unless False;
+        ignored on the CPU, as in the reference).  The engine's slots are
+        fresh pinned host buffers that the plan copies straight into its
+        captured slot, so no caller memory is ever handed over and no
+        defensive copy is needed.  ``tune`` / ``mesh`` other than their
+        defaults raise ``NotImplementedError`` (ROADMAP.md A15 / A16)."""
         from repro_torch.core.executor import resolve_device
+        if tune != "off":
+            raise NotImplementedError(
+                f"tune={tune!r} is not ported yet: ROADMAP.md A15 (tuning)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= is not ported yet: ROADMAP.md A16 (multi-device)")
+        del tune_cache_dir                     # meaningful only with tune
         self.device = resolve_device(device)
         self.max_batch = max_batch
         self.queue: list[GraphRequest] = []
         self._lock = threading.RLock()
         self.pipeline = pipeline
-        self._compile_kw = dict(use_int4=use_int4, use_analysis=use_analysis,
+        self._donate = self.device.type == "cuda" and (
+            donate == "auto" or bool(donate))
+        self._compile_kw = dict(use_kernels=use_kernels, use_int4=use_int4,
+                                interpret=interpret, use_analysis=use_analysis,
                                 device=self.device)
         self._report_cost = report_cost
         self.cost_report = None
         self.n_completed = 0
         self.n_flushes = 0
         self.n_deadline_misses = 0
-        # a private registry per engine, so its counters start at zero
-        self.metrics = MetricsRegistry()
-        self._metric_labels = {"model": getattr(graph, "name", "graph")}
+        self._closed = False
+        # --- observability (repro_torch.obs) --------------------------------
+        # A private registry per engine by default, so a fresh engine's
+        # counters start at zero; a shared ``metrics_registry`` (plus the
+        # per-model ``metrics_labels`` EngineRegistry injects) exports a
+        # whole fleet from one endpoint.  ``observability=False`` keeps only
+        # the plain-int lifetime counters.  ``tracer`` (obs.Tracer) turns
+        # the request lifecycle into submit -> queue -> flush -> dispatch ->
+        # sync -> complete spans; None / disabled adds no work.
+        self.metrics = metrics_registry or MetricsRegistry()
+        self._metric_labels = dict(metrics_labels or
+                                   {"model": getattr(graph, "name", "graph")})
+        self._tracer = tracer
+        self._obs_on = bool(observability)
         self.telemetry_window = telemetry_window
         m, lbl = self.metrics, self._metric_labels
         self._m_submitted = m.counter(
@@ -156,6 +204,8 @@ class CompiledGraphEngine:
             "serve_slot_occupancy",
             help="real requests per dispatched slot / max_batch",
             buckets=_OCCUPANCY_BUCKETS, window=telemetry_window, labels=lbl)
+        # serializes whole reload() calls (compile included) so two racing
+        # hot-swaps cannot interleave into last-compile-wins
         self._reload_lock = threading.Lock()
         self.plan = None
         self.reload(graph)
@@ -170,15 +220,24 @@ class CompiledGraphEngine:
         the lock the still-queued requests (submitted for the old model)
         are popped with a snapshot of the old serving state and the plan is
         replaced; the popped requests then drain through the *old* plan.
-        Whole reloads serialize on a dedicated mutex."""
+        Whole reloads serialize on a dedicated mutex.  The old plan's
+        captured graphs and their memory pool go when the last reference
+        (this drain, or a flush in flight on another thread) is dropped."""
         from repro_torch.core.compile import compile_graph
         with self._reload_lock:
             new_plan = compile_graph(graph, **self._compile_kw)
             g = new_plan.graph
+            self.metrics.gauge(
+                "serve_plan_devices",
+                help="devices the served plan spans (1 = single-device)",
+                labels=self._metric_labels).set(new_plan.n_devices)
             if len(g.inputs) != 1:
                 raise ValueError(
                     "CompiledGraphEngine serves single-input graphs")
             with self._lock:
+                if self._closed:
+                    raise RuntimeError(
+                        "engine is closed (unregistered); cannot reload")
                 pending, self.queue = self.queue, []
                 old_state = (self._serving_state()
                              if self.plan is not None else None)
@@ -188,6 +247,7 @@ class CompiledGraphEngine:
                 self.sample_shape = tuple(g.inputs[0].shape[1:])
             if pending and old_state is not None:
                 self._run_requests(pending, old_state)
+            del old_state
             # cost telemetry stays inside the reload mutex, so racing
             # reloads cannot leave cost_report describing a retired model
             self.cost_report = None
@@ -244,11 +304,17 @@ class CompiledGraphEngine:
     def submit(self, x, *, deadline_ms: Optional[float] = None
                ) -> GraphRequest:
         """Queue one sample; returns its ``GraphRequest`` future.
-        ``deadline_ms`` (relative to now) marks when the result is due; the
-        engine counts misses in ``latency_stats()``."""
+        ``deadline_ms`` (relative to now) marks when the result is due: the
+        ``ServeScheduler`` flushes early to honour it and the engine counts
+        misses in ``latency_stats()``."""
         x = torch.as_tensor(np.asarray(x, np.float32)) \
             if not isinstance(x, torch.Tensor) else x.to(torch.float32)
+        tr = self._tracer
+        tracing = tr is not None and tr.enabled
         with self._lock:
+            if self._closed:
+                raise RuntimeError(
+                    "engine is closed (unregistered); no new submits")
             if tuple(x.shape) == (1,) + self.sample_shape:  # pre-batched row
                 x = x[0]
             if tuple(x.shape) != self.sample_shape:
@@ -259,22 +325,48 @@ class CompiledGraphEngine:
                 r.deadline = r.submitted + deadline_ms / 1e3
             self.queue.append(r)
             depth = len(self.queue)
-        self._m_submitted.inc()
-        self._m_qdepth.set(depth)
+        r.queue_depth = depth
+        if tracing:
+            r.trace_id = tr.new_trace_id()
+        if self._obs_on:
+            self._m_submitted.inc()
+            self._m_qdepth.set(depth)
         return r
 
     def pending(self) -> int:
         return len(self.queue)
 
-    def _slot(self, rows: torch.Tensor, sample_shape) -> torch.Tensor:
+    def close(self) -> None:
+        """Stop admitting requests (already-queued ones can still flush).
+        Used by ``EngineRegistry.unregister`` so a racing submit errors
+        loudly instead of stranding a request on an orphaned engine."""
+        with self._lock:
+            self._closed = True
+
+    def flush_signals(self) -> tuple:
+        """(pending, oldest_submitted, min_deadline) snapshot under the
+        engine lock: the only queue view a flush loop needs."""
+        with self._lock:
+            q = self.queue
+            oldest = q[0].submitted if q else None
+            deadline = min((r.deadline for r in q if r.deadline is not None),
+                           default=None)
+            return len(q), oldest, deadline
+
+    def _pad_to_slot(self, rows: torch.Tensor, sample_shape=None
+                     ) -> torch.Tensor:
         """Zero-pad a (<= max_batch, ...) host chunk to the one slot shape
-        every plan call uses and enqueue its copy to the device (pinned and
-        asynchronous on CUDA)."""
+        every plan call uses, shared by run_pending and __call__ so both
+        reach the same captured graph.  On CUDA the slot is pinned, so the
+        plan's copy into its captured slot is asynchronous."""
+        if sample_shape is None:
+            sample_shape = self.sample_shape
         pad = self.max_batch - rows.shape[0]
         if pad:
-            rows = torch.cat([rows, rows.new_zeros((pad,) + tuple(sample_shape))])
+            rows = torch.cat(
+                [rows, rows.new_zeros((pad,) + tuple(sample_shape))])
         if self.device.type == "cuda":
-            return rows.pin_memory().to(self.device, non_blocking=True)
+            return rows.pin_memory()
         return rows.to(self.device)
 
     def _sync(self) -> None:
@@ -285,7 +377,9 @@ class CompiledGraphEngine:
         """Flush the queue in max_batch-sized slots; returns #requests run.
 
         Every slot is enqueued before the single trailing sync.
-        ``only_full_slots=True`` leaves the partial tail slot queued."""
+        ``only_full_slots=True`` leaves the partial tail slot queued (the
+        scheduler's full-slot trigger uses it, so a request submitted a
+        millisecond ago keeps batching through its flush window)."""
         with self._lock:
             n = len(self.queue)
             if only_full_slots:
@@ -295,11 +389,15 @@ class CompiledGraphEngine:
             reqs, self.queue = self.queue[:n], self.queue[n:]
             depth = len(self.queue)
             state = self._serving_state()
-        self._m_qdepth.set(depth)
+        if self._obs_on:
+            self._m_qdepth.set(depth)
         return self._run_requests(reqs, state)
 
     def _run_requests(self, reqs: list, state: tuple) -> int:
         plan, in_name, out_name, sample_shape = state
+        tr = self._tracer
+        tracing = tr is not None and tr.enabled
+        t_flush0 = time.monotonic()
         dispatched = []
         try:
             for i in range(0, len(reqs), self.max_batch):
@@ -307,26 +405,64 @@ class CompiledGraphEngine:
                 t_dispatch = time.monotonic()
                 for r in batch:
                     r.started = t_dispatch
-                x = self._slot(torch.stack([r.x for r in batch]), sample_shape)
-                out = plan({in_name: x})[out_name]
+                x = self._pad_to_slot(torch.stack([r.x for r in batch]),
+                                      sample_shape)
+                out = plan({in_name: x}, donate=self._donate)[out_name]
                 dispatched.append((batch, out))
-                self._m_occupancy.observe(len(batch) / self.max_batch)
+                if self._obs_on:
+                    self._m_occupancy.observe(len(batch) / self.max_batch)
                 if not self.pipeline:          # per-slot host sync: baseline
                     self._sync()
+            t_sync0 = time.monotonic()
             if self.pipeline:                  # single trailing sync
                 self._sync()
+            if tracing:
+                self._emit_flush_spans(tr, reqs, len(dispatched),
+                                       t_flush0, t_sync0, time.monotonic())
         except Exception as e:
+            # scope the failure: every dispatched slot whose compute
+            # succeeded still completes and counts; only requests in
+            # failing or never-dispatched slots carry the error
+            completed = []
+            for batch, out in dispatched:
+                try:
+                    self._scatter(batch, out)
+                    completed.extend(batch)
+                except Exception:              # this slot really failed
+                    pass
             for r in reqs:
                 if not r.done():
                     r._finish(error=e)
+            if completed:
+                self._record(completed)
             raise
         for batch, out in dispatched:
-            rows = out.cpu().numpy()
-            for j, r in enumerate(batch):
-                # copy the row so a held future pins one row, not the slot
-                r._finish(rows[j].copy())
+            self._scatter(batch, out)
         self._record(reqs)
         return len(reqs)
+
+    @staticmethod
+    def _scatter(batch: list, out) -> None:
+        rows = out.cpu().numpy()
+        for j, r in enumerate(batch):
+            # copy the row so a held future pins one row, not the slot
+            r._finish(rows[j].copy())
+
+    def _emit_flush_spans(self, tr, reqs: list, n_slots: int,
+                          t_flush0: float, t_sync0: float,
+                          t_end: float) -> None:
+        """One flush trace: flush -> dispatch + sync children (monotonic
+        timestamps, shared with the per-request spans of ``_record``)."""
+        trace_id = tr.new_trace_id()
+        occupancy = len(reqs) / max(1, n_slots * self.max_batch)
+        flush_id = tr.emit(
+            "flush", t_flush0, t_end, trace_id=trace_id,
+            n_requests=len(reqs), n_slots=n_slots,
+            slot_occupancy=round(occupancy, 4), pipeline=self.pipeline)
+        tr.emit("dispatch", t_flush0, t_sync0, trace_id=trace_id,
+                parent_id=flush_id, n_slots=n_slots)
+        tr.emit("sync", t_sync0, t_end, trace_id=trace_id,
+                parent_id=flush_id)
 
     def _record(self, reqs: list) -> None:
         n_miss = sum(1 for r in reqs if r.deadline is not None and
@@ -335,15 +471,35 @@ class CompiledGraphEngine:
             self.n_deadline_misses += n_miss
             self.n_completed += len(reqs)
             self.n_flushes += 1
-        for r in reqs:
-            if r.latency_ms is not None:
-                self._m_lat.observe(r.latency_ms)
-            if r.queued_ms is not None:
-                self._m_queued.observe(r.queued_ms)
-        self._m_completed.inc(len(reqs))
-        self._m_flushes.inc()
-        if n_miss:
-            self._m_misses.inc(n_miss)
+        if self._obs_on:
+            for r in reqs:
+                if r.latency_ms is not None:
+                    self._m_lat.observe(r.latency_ms)
+                if r.queued_ms is not None:
+                    self._m_queued.observe(r.queued_ms)
+            self._m_completed.inc(len(reqs))
+            self._m_flushes.inc()
+            if n_miss:
+                self._m_misses.inc(n_miss)
+        tr = self._tracer
+        if tr is not None and tr.enabled:
+            for r in reqs:
+                if r.trace_id is None or r.completed is None:
+                    continue
+                missed = (r.deadline is not None and
+                          r.completed > r.deadline)
+                root = tr.emit(
+                    "request", r.submitted, r.completed,
+                    trace_id=r.trace_id, queue_depth=r.queue_depth,
+                    deadline_missed=missed,
+                    error=type(r.error).__name__ if r.error else None)
+                if r.started is not None:
+                    tr.emit("queued", r.submitted, r.started,
+                            trace_id=r.trace_id, parent_id=root)
+                    tr.emit("compute", r.started, r.completed,
+                            trace_id=r.trace_id, parent_id=root)
+        # percentiles and formatting stay off the engine lock, and are
+        # skipped when nobody listens at INFO
         if log.isEnabledFor(logging.INFO):
             stats = self.latency_stats()
             log.info(
@@ -356,8 +512,9 @@ class CompiledGraphEngine:
                 stats["deadline_misses"])
 
     def latency_stats(self) -> dict:
-        """Aggregate request telemetry: lifetime totals and percentiles over
-        the rolling ``telemetry_window``."""
+        """Aggregate request telemetry: lifetime totals (``*_total`` and
+        the historical unsuffixed names) and percentiles over the rolling
+        ``telemetry_window``; nan percentiles with ``observability=False``."""
         with self._lock:
             completed, flushes = self.n_completed, self.n_flushes
             misses = self.n_deadline_misses
@@ -383,8 +540,9 @@ class CompiledGraphEngine:
     def __call__(self, x) -> np.ndarray:
         """Synchronous convenience path through the same padded slot shape
         as ``run_pending``: the batch is split into max_batch chunks, the
-        tail chunk zero-padded; with ``pipeline=True`` every chunk is
-        enqueued before one trailing sync."""
+        tail chunk zero-padded, so ad-hoc batch sizes reuse the one
+        captured graph; with ``pipeline=True`` every chunk is enqueued
+        before one trailing sync."""
         x = torch.as_tensor(np.asarray(x, np.float32)) \
             if not isinstance(x, torch.Tensor) else x.to(torch.float32).cpu()
         with self._lock:
@@ -402,7 +560,8 @@ class CompiledGraphEngine:
         outs = []
         for i in range(0, x.shape[0], self.max_batch):
             chunk = x[i:i + self.max_batch]
-            out = plan({in_name: self._slot(chunk, sample_shape)})[out_name]
+            out = plan({in_name: self._pad_to_slot(chunk, sample_shape)},
+                       donate=self._donate)[out_name]
             outs.append(out[:chunk.shape[0]])
             if not self.pipeline:
                 self._sync()                    # per-chunk stall: baseline

@@ -37,6 +37,9 @@ def test_importing_every_port_module_leaves_jax_out():
     assert {"repro_torch.kernels.quant_pool", "repro_torch.core.lowering.fusion",
             "repro_torch.core.formats", "repro_torch.core.streamline",
             "repro_torch.core.export"} <= set(mods)
+    # the serving tier and observability: scheduler, registry, split-merge,
+    # tracing, the endpoint, the report, the profiler, fault tolerance
+    assert set(SERVING_TIER) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -44,6 +47,28 @@ def test_importing_every_port_module_leaves_jax_out():
             "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+SERVING_TIER = ("repro_torch.serve.scheduler", "repro_torch.serve.registry",
+                "repro_torch.serve.splitmerge", "repro_torch.obs.trace",
+                "repro_torch.obs.http", "repro_torch.obs.report",
+                "repro_torch.obs.profile", "repro_torch.dist.fault",
+                "repro_torch.launch.serve")
+
+
+@pytest.mark.parametrize("module", ["repro_torch.serve", "repro_torch.obs",
+                                    "repro_torch.dist.fault",
+                                    "repro_torch.launch.serve"])
+def test_serving_tier_imports_leave_jax_and_the_reference_out(module):
+    """Each entry of the serving tier alone, in a fresh interpreter."""
+    code = (f"import importlib, sys\nimportlib.import_module({module!r})\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or "
+            "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)

@@ -885,3 +885,49 @@ def test_flash_attention_bf16_rejects_rows_off_16_bytes(cuda):
     wide32 = torch.randn(1, 4, 8, 130, device=cuda)[..., :128]
     assert_attention_close(fa.flash_attention(wide32, kf, vf),
                            fa.flash_attention_plain(wide32, kf, vf))
+
+
+# ------------------------------------------- the captured plan (CUDA graph)
+
+def test_captured_plan_replays_distinct_slots_like_the_eager_plan(cuda):
+    """TFC-w2a2's plan at one slot shape: one capture, then replays; three
+    distinct slots replayed back to back before one sync each equal the
+    eager plan's rows (a replay's outputs are copied out before the next
+    replay overwrites them)."""
+    from repro_torch.core import compile_graph
+    from repro_torch.models import zoo
+    plan = compile_graph(zoo.build_tfc(2, 2), device=cuda)
+    xs = [torch.from_numpy(_acts(s, (16, 784))) for s in range(3)]
+    name = plan.graph.output_names[0]
+    want = [plan({"x": x}, jit=False)[name] for x in xs]
+    t0 = plan.trace_count
+    got = [plan({"x": x})[name] for x in xs]
+    torch.cuda.synchronize()
+    assert plan.trace_count == t0 + 1 and plan.replay_count == 3
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert not torch.equal(got[0], got[1])
+
+
+def test_capture_failure_names_the_segment_and_never_falls_back(cuda):
+    """A segment that synchronizes cannot be captured: the call raises,
+    naming the segment and its ops, and the next call raises again rather
+    than running eagerly."""
+    from repro_torch.core import compile_graph
+    from repro_torch.models import zoo
+    plan = compile_graph(zoo.build_tfc(2, 2), device=cuda)
+    seg = plan.segments[1]
+    run = seg.run
+
+    def syncing(consts, env):
+        run(consts, env)
+        torch.cuda.synchronize()
+    seg.run = syncing
+    x = torch.from_numpy(_acts(0, (4, 784)))
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match=f"segment 1 \\({seg.kind}"):
+            plan({"x": x})
+    assert plan.replay_count == 0
+    seg.run = run
+    plan({"x": x}, jit=False)                # the device is still usable
+    torch.cuda.synchronize()

@@ -1,6 +1,6 @@
 """The port's serving engine on the CPU: futures, padded slots, pipelined
 dispatch equal to per-chunk dispatch, reload, telemetry and the options
-that are not ported yet."""
+that are not ported yet (tune, mesh)."""
 import threading
 
 import numpy as np
@@ -132,7 +132,8 @@ def test_metric_names_match_the_reference():
             "serve_deadline_misses_total"} <= names
 
 
-@pytest.mark.parametrize("kw,item", [({"tracer": object()}, "A14")])
+@pytest.mark.parametrize("kw,item", [({"tune": "cached"}, "A15"),
+                                     ({"mesh": object()}, "A16")])
 def test_unported_engine_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         _engine(**kw)
