@@ -4,6 +4,7 @@
     python3 chip_smoke.py          # on a host with one CUDA GPU (sm_90a)
     python3 chip_smoke.py --plan-profiles   # only the integer plan calls' profiles
     python3 chip_smoke.py --served          # only the build and phase 8
+    python3 chip_smoke.py --train           # only the build and phase 9
 
 Phases, in order; any failure raises and the script exits non-zero without
 printing a result:
@@ -175,13 +176,32 @@ printing a result:
    and MobileNet-224 8 rows, integer path, fused), their profiles and a
    captured call's time by CUDA events; last a segment that synchronizes:
    its capture raises naming the segment, again at the next call (no
-   eager fallback), and the device stays usable.
+   eager fallback), and the device stays usable;
+9. QAT training (``train/loop.py``, ``optim/``, the STE backward; no
+   kernel of the port lies on its path, B7 having no backward): (a)
+   qwen2's SMOKE config in float32, FP32 and W8A8, one state on the CPU
+   and its copy on the card, 3 steps each: loss and grad_norm within rel
+   1e-5, parameters within 1e-5, TF32 off; (b) qwen2-1.5B at full width,
+   W8A8 QAT, bf16 activations, float32 parameters, the launcher's
+   defaults (global batch 16, seq 128, remat, peak lr 3e-4): 10 steps
+   from init_params over SyntheticLMStream(seed=0), every loss finite,
+   the last below the first, no kernel launch in the steps; the step wall
+   (median of steps 3-10), tokens/s, peak memory, one step's profile (by
+   kernel, by op, by backward node, and ranges for the forward and loss,
+   the fake quant, the attention and AdamW); a step that must not sync
+   with the host (``torch.cuda.set_sync_debug_mode("error")``); a step
+   with compress_grads and the error-feedback invariant on the next
+   gradient; a prefill of the trained model through 28 B7 launches; (c) microbatches 2 against 1 on the card within 5e-3;
+   (d) the training launcher in a subprocess (SMOKE, 6 steps, checkpoints
+   every 3), then the same run with a fault at step 4: it restarts,
+   resumes from step 3 and matches steps 4-6 within rel 1e-5.
 
 Launch counts are read in windows of their own: phase 3's plans, phase
 4's engines, phases 3' and 4' likewise, each fused plan's own call in
 3'' (its use_fusion=False twin runs outside the window), 3''', and phase
-6 (a) and (b); every kernel of each window's path must have launched in
-it.  Phases 3 to 5 call their plans eagerly (``jit=False``), as the
+6 (a) and (b), and phase 9 (b)'s steps (where no kernel may launch);
+every kernel of each window's path must have launched in it.  Phases 3
+to 5 call their plans eagerly (``jit=False``), as the
 counts and profiles there need; the engines of phases 4 and 4' serve
 through captured graphs, where a wrapper counts at the warm-up and the
 capture and a replay runs no wrapper.  The last lines are the card, a JSON line of per-kernel numbers
@@ -194,8 +214,12 @@ and the JSON result line.  It imports nothing of JAX and nothing of the JAX pack
 """
 from __future__ import annotations
 
+import contextlib
+import copy
+import dataclasses
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -3125,6 +3149,331 @@ def lm_kernel_entry(rows, launches, err, cfg):
                 library_ms=L * r["library_ms"])
 
 
+# ----------------------------------------------------- phase 9: QAT training
+
+TRAIN_ARGS = ["--arch", LM_ARCH, "--steps", "10"]   # the launcher's defaults otherwise
+TRAIN_REL = 1e-5               # (a): loss and grad_norm, card vs CPU
+TRAIN_ABS = 1e-5               # (a): parameters after 3 steps
+TRAIN_MICRO = 5e-3             # (c): the reference's own microbatch bound
+# (a) takes the launcher's schedule for a 3-step run: peak lr 3e-4 from the
+# first step (warmup 1).  At lr 1e-3 the card and the CPU part by up to
+# 1.4e-5 (ROADMAP C12: AdamW divides gradients near its eps, whose sums
+# round differently on the two devices, by about eps)
+TRAIN_SMALL_ARGS = ["--arch", LM_ARCH, "--smoke", "--steps", "3"]
+
+
+def _state_to(torch, state, dev):
+    """A train state copied onto ``dev`` (parameters, moments, counters)."""
+    from repro_torch.optim.adamw import AdamWState
+    opt = state["opt"]
+    return {"params": copy.deepcopy(state["params"]).to(dev),
+            "opt": AdamWState(opt.step.to(dev, copy=True),
+                              {k: v.to(dev, copy=True) for k, v in opt.mu.items()},
+                              {k: v.to(dev, copy=True) for k, v in opt.nu.items()}),
+            "step": state["step"].to(dev, copy=True)}
+
+
+def train_card_vs_cpu(torch, dev):
+    """Phase 9 (a): qwen2's SMOKE config (float32 activations) with the
+    FP32 recipe and with W8A8, one seeded state on the CPU and its copy
+    on the card, 3 steps each over the same stream: loss and grad_norm
+    per step within TRAIN_REL, parameters within TRAIN_ABS."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLMStream, to_device
+    from repro_torch.launch import train as launcher
+    from repro_torch.quantize.config import FP32, QuantRecipe
+    from repro_torch.train import loop
+    _, hyper = launcher.build(launcher.parse(TRAIN_SMALL_ARGS))
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the card would not compute float32 products")
+    for recipe in (FP32, QuantRecipe.w_a(8.0, 8.0)):
+        cfg = get_smoke_config(LM_ARCH).replace(quant=recipe)
+        cpu = loop.init_train_state(5, cfg, hyper, "cpu")
+        card = _state_to(torch, cpu, dev)
+        step = loop.make_train_step(cfg, hyper)
+        stream = SyntheticLMStream(vocab=cfg.vocab, global_batch=4, seq_len=16, seed=1)
+        worst = [0.0, 0.0]
+        for _ in range(3):
+            b = stream.next()
+            cpu, mc = step(cpu, to_device(b, "cpu"))
+            card, md = step(card, to_device(b, dev))
+            for i, key in enumerate(("loss", "grad_norm")):
+                rel = abs(float(md[key]) / float(mc[key]) - 1)
+                worst[i] = max(worst[i], rel)
+        diffs = {k: float((a.detach().cpu() - b.detach()).abs().max()) for (k, a), b in
+                 zip(card["params"].named_parameters(), cpu["params"].parameters())}
+        dp = max(diffs.values())
+        top = sorted(diffs.items(), key=lambda kv: -kv[1])[:4]
+        print(f"train (a) [{cfg.name}, {recipe.tag()}, lr {hyper.peak_lr} from step 1] card vs "
+              f"CPU over 3 steps: loss rel "
+              f"{worst[0]:.3e}, grad_norm rel {worst[1]:.3e} (bound {TRAIN_REL}), parameters "
+              f"max abs {dp:.3e} (bound {TRAIN_ABS}); largest {top}", flush=True)
+        if max(worst) > TRAIN_REL or dp > TRAIN_ABS:
+            raise AssertionError(f"train (a) {recipe.tag()}: the card differs from the CPU")
+
+
+def _ranged(torch, fn, label):
+    """``fn`` inside a profiler range named ``label``."""
+    @functools.wraps(fn)
+    def wrapped(*a, **k):
+        with torch.profiler.record_function(label):
+            return fn(*a, **k)
+    return wrapped
+
+
+def _profile_train_step(torch, step, state, batch, wall_ms):
+    """One full-width train step under torch.profiler, with ranges around
+    the forward and loss, the fake quant's and the attention's calls (in
+    the forward and again in the backward's recompute) and AdamW: busy
+    time (the kernels' device time) against the step's wall without the
+    profiler; the kernels' device time inside each range (kernels that
+    start within the range's spans on the device timeline; the backward
+    runs on autograd's thread, outside the ranges: it is the rest); then
+    the top kernels by name, the top ops by the device time of the kernels
+    each launches itself, and autograd's backward nodes."""
+    import bisect
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer
+    from repro_torch.quantize import layers
+    from repro_torch.train import loop
+    ranges = {"train: forward + loss": (loop, "loss_fn"),
+              "train: fake quant (forward and recompute)": (layers, "_fake_quant"),
+              "train: attention (forward and recompute)": (transformer, "chunked_attention"),
+              "train: adamw": (loop, "adamw_update")}
+    with contextlib.ExitStack() as stack:
+        for label, (mod, name) in ranges.items():
+            stack.enter_context(mock.patch.object(
+                mod, name, _ranged(torch, getattr(mod, name), label)))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+    on_device = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    kernels = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in on_device
+                     if e.name not in ranges)
+    starts = [k[0] for k in kernels]
+    busy = sum(d for _, d in kernels) / 1e3
+    print(f"profile[train step]: device kernels {busy:.3f} ms in {len(kernels)} launches "
+          f"(profiler), against a median wall of {wall_ms:.3f} ms without it: busy share "
+          f"{busy / wall_ms:.3f}", flush=True)
+    inside = {}
+    for label in ranges:
+        spans = [e.time_range for e in on_device if e.name == label]
+        inside[label] = sum(d for r in spans for _, d in kernels[
+            bisect.bisect_left(starts, r.start):bisect.bisect_left(starts, r.end)]) / 1e3
+        print(f"profile[train step] range: {inside[label]:.3f} ms of kernels in {len(spans)} "
+              f"spans  {label}", flush=True)
+    rest = busy - inside["train: forward + loss"] - inside["train: adamw"]
+    print(f"profile[train step] range: {rest:.3f} ms of kernels, the rest: the backward with "
+          f"its recompute (and the schedule)", flush=True)
+    by_name, by_op, by_node = {}, {}, {}
+    for e in prof.key_averages():
+        if e.key in ranges:
+            continue
+        if str(e.device_type).endswith("CUDA"):
+            t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+            by_name[e.key] = (t / 1e3, e.count)
+        elif e.key.startswith("aten::"):
+            t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+            by_op[e.key] = (t / 1e3, e.count)
+        elif e.key.startswith("autograd::engine::evaluate_function: "):
+            t = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+            by_node[e.key.split(": ", 1)[1]] = (t / 1e3, e.count)
+    for title, table, n_top in (("", by_name, 12), (" op", by_op, 14),
+                                (" backward node", by_node, 10)):
+        for key, (t, n) in sorted(table.items(), key=lambda kv: -kv[1][0])[:n_top]:
+            print(f"profile[train step]{title}:   {t:.3f} ms in {n} "
+                  f"{'launches' if not title else 'calls'}  {key[:100]}", flush=True)
+    return state, busy
+
+
+def train_full_width(torch, dev, ops):
+    """Phase 9 (b): qwen2-1.5B at full width (28 layers, d 1536, vocab
+    151936), float32 parameters, bf16 activations, W8A8 QAT with the
+    launcher's defaults (global batch 16, seq 128, remat on, peak lr 3e-4,
+    warmup min(100, steps // 10 + 1)), 10 steps from init_params over
+    SyntheticLMStream(seed=0), launch counts set to 0 before them and
+    read after: no kernel of the port launches (B7 is forward only).
+    Then one profiled step, one step with compress_grads and the
+    error-feedback invariant on the next gradient, and a prefill through
+    28 B7 launches."""
+    from repro_torch.data import SyntheticLMStream, to_device
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import api
+    from repro_torch.optim.compress import CompressState, compress_init, compressed_grads
+    from repro_torch.train import loop
+
+    args = launcher.parse(TRAIN_ARGS)
+    cfg, hyper = launcher.build(args)
+    shape = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab)
+    if shape != LM_SHAPE or cfg.dtype != "bfloat16" or not cfg.remat:
+        raise AssertionError(f"{cfg.name} is not qwen2-1.5B at full width with remat: {shape}")
+    B, S = args.global_batch, args.seq
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = loop.init_train_state(0, cfg, hyper, dev)
+    torch.cuda.synchronize()
+    print(f"train (b): {cfg.name} at full width, {cfg.param_count()} float32 parameters, "
+          f"recipe {cfg.quant.tag()}, {cfg.dtype} activations, remat {cfg.remat}, B={B} S={S}, "
+          f"peak lr {hyper.peak_lr}, warmup {hyper.warmup_steps} of {hyper.total_steps} steps; "
+          f"train state on the card in {time.perf_counter() - t0:.2f} s", flush=True)
+    stream = SyntheticLMStream(vocab=cfg.vocab, global_batch=B, seq_len=S, seed=0)
+    step = loop.make_train_step(cfg, hyper)
+    walls, metrics = [], []
+    ops.reset_launch_counts()
+    for _ in range(args.steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, to_device(stream.next(), dev))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    print(f"train (b) losses {['%.5f' % v for v in losses]}", flush=True)
+    print(f"train (b) grad_norm {['%.5f' % v for v in gnorms]}", flush=True)
+    print(f"train (b) launches over {args.steps} steps: {counts}", flush=True)
+    if not all(math.isfinite(v) for v in losses + gnorms):
+        raise AssertionError("train (b): a loss or grad_norm is not finite")
+    if not losses[-1] < losses[0] or min(gnorms) <= 0:
+        raise AssertionError(f"train (b): loss did not fall ({losses[0]} -> {losses[-1]}) "
+                             f"or a grad_norm is 0")
+    if counts["flash_attention"] != 0 or sum(counts.values()) != 0:
+        raise AssertionError(f"train (b): the train step launched {counts}; B7 must not run")
+    wall = statistics.median(walls[2:])
+    print(f"train (b) step wall: median {wall:.3f} ms over steps 3-{args.steps} (each "
+          f"{', '.join(f'{w:.3f}' for w in walls)}); {B * S / wall * 1e3:.1f} tokens/s; peak "
+          f"memory {peak / 2 ** 30:.3f} GiB (torch.cuda.max_memory_allocated) [{card_line()}]",
+          flush=True)
+    state, busy = _profile_train_step(torch, step, state, to_device(stream.next(), dev), wall)
+    # the step reads nothing back: one more under the sync checker
+    batch = to_device(stream.next(), dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, _ = step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("train (b) one step under torch.cuda.set_sync_debug_mode('error'): no host "
+          "sync", flush=True)
+
+    # compress_grads: one step that fills the residual, then the invariant
+    # compressed + new residual == grad + old residual, leaf by leaf
+    hyper_c = dataclasses.replace(hyper, compress_grads=True)
+    named = dict(state["params"].named_parameters())
+    state["compress"] = compress_init(named)
+    state, m = loop.make_train_step(cfg, hyper_c)(state, to_device(stream.next(), dev))
+    loss, _ = loop.loss_fn(state["params"], to_device(stream.next(), dev), cfg, hyper_c)
+    grads = torch.autograd.grad(loss, list(named.values()))
+    worst = 0.0
+    for (k, _), g in zip(named.items(), grads):
+        old = state["compress"].residual[k]
+        comp, new = compressed_grads({k: g}, CompressState({k: old}))
+        want = g.float() + old
+        err = float((comp[k] + new.residual[k] - want).abs().max())
+        bound = 2.0 ** -22 * float(want.abs().max())
+        worst = max(worst, err / max(bound, 1e-30))
+        if err > bound:
+            raise AssertionError(f"train (b) compress: leaf {k} off by {err} (bound {bound})")
+    print(f"train (b) compress_grads step: loss {float(m['loss']):.5f}; on the next gradient "
+          f"compressed + new residual == grad + old residual on all {len(named)} leaves, "
+          f"worst {worst:.3f} of the bound 2^-22 x max|grad + residual|; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB", flush=True)
+    del grads, loss
+
+    # the trained parameters still serve through B7
+    ops.reset_launch_counts()
+    toks = to_device(stream.next(), dev)["tokens"][:1]
+    logits, _ = api.prefill(state["params"], {"tokens": toks}, cfg, S)
+    torch.cuda.synchronize()
+    n = ops.launch_counts()["flash_attention"]
+    _finite(torch, logits, (1, cfg.vocab), "prefill logits after training")
+    print(f"train (b) a prefill of the trained model (B=1 S={S}): {n} B7 launches", flush=True)
+    if n != cfg.n_layers:
+        raise AssertionError(f"train (b): the prefill launched B7 {n} times, not {cfg.n_layers}")
+    return wall, peak
+
+
+def train_microbatches(torch, dev):
+    """Phase 9 (c): qwen2's SMOKE config on the card, microbatches=2
+    against 1 on the same batch: parameters within TRAIN_MICRO."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import api
+    from repro_torch.train import loop
+    cfg = get_smoke_config(LM_ARCH)
+    batch = api.make_batch(torch.Generator().manual_seed(1), cfg, 4, 8, dev)
+    out = []
+    for mbs in (1, 2):
+        hyper = loop.TrainHyper(microbatches=mbs, z_loss=0.0)
+        state = loop.init_train_state(1, cfg, hyper, dev)
+        state, _ = loop.make_train_step(cfg, hyper)(state, batch)
+        out.append(list(state["params"].parameters()))
+    d = max(float((a - b).detach().abs().max()) for a, b in zip(*out))
+    print(f"train (c) microbatches 2 vs 1 on the card: parameters max abs {d:.3e} "
+          f"(bound {TRAIN_MICRO})", flush=True)
+    if d > TRAIN_MICRO:
+        raise AssertionError(f"train (c): microbatches disagree by {d}")
+
+
+def train_launcher(torch):
+    """Phase 9 (d): ``python -m repro_torch.launch.train --arch qwen2-1.5b
+    --smoke --steps 6 --global-batch 2 --seq 16 --ckpt-every 3`` in a
+    subprocess on the card; then the same run in this process with a fault
+    injected at step 4: it restarts, restores step 3 with the stream's
+    state and re-runs steps 4-6, whose losses match the uninterrupted
+    run's within rel 1e-5.  Only SMOKE checkpoints are written."""
+    import os
+    import tempfile
+    from repro_torch.dist import fault
+    from repro_torch.launch import train as launcher
+    args = ["--arch", LM_ARCH, "--smoke", "--steps", "6", "--global-batch", "2", "--seq", "16",
+            "--ckpt-every", "3"]
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *args,
+                              "--ckpt-dir", str(Path(tmp) / "a")],
+                             env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"train launcher exited {res.returncode}: {res.stderr[-3000:]}")
+        full = json.loads(res.stdout.strip().splitlines()[-1])
+        real, calls = launcher.make_train_step, []
+
+        def crashing(cfg, hyper):
+            fn = real(cfg, hyper)
+
+            def step(state, batch):
+                calls.append(int(state["step"]))
+                if len(calls) == 4:
+                    raise RuntimeError("injected fault at step 4")
+                return fn(state, batch)
+            return step
+        with mock.patch.object(launcher, "make_train_step", crashing), \
+                mock.patch.object(fault.RestartPolicy, "delay_s", lambda *a: 0.0):
+            resumed = launcher.main(args + ["--ckpt-dir", str(Path(tmp) / "b")])
+    rel = max(abs(resumed["losses"][s] / full["losses"][str(s)] - 1) for s in (4, 5, 6))
+    print(f"train (d) launcher --smoke --steps 6 --ckpt-every 3 on the card: exit 0 in "
+          f"{wall:.3f} s, losses {full['losses']}; with a fault at step 4 it restarted, "
+          f"resumed from step {resumed['start']} (calls {calls}); steps 4-6 loss rel {rel:.3e} "
+          f"(bound 1e-5)", flush=True)
+    if resumed["start"] != 3 or calls != [0, 1, 2, 3, 3, 4, 5] or rel > 1e-5:
+        raise AssertionError("train (d): kill and resume did not reproduce the run")
+
+
+def run_training(torch, dev, ops):
+    """Phase 9: the QAT training path, (a) to (d)."""
+    train_card_vs_cpu(torch, dev)
+    wall, peak = train_full_width(torch, dev, ops)
+    torch.cuda.empty_cache()
+    train_microbatches(torch, dev)
+    train_launcher(torch)
+    return wall, peak
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3153,6 +3502,10 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--served"]:
         run_served_tier(torch, np, dev)
+        return 0
+    if sys.argv[1:] == ["--train"]:
+        run_training(torch, dev, ops)
+        print(f"card: {card}")
         return 0
 
     # phase 2: each kernel against its twin
@@ -3256,6 +3609,10 @@ def main() -> int:
     lm_walls(torch, params, cfg, toks)
     # phase 8: the captured plan per slot shape and the serving tier
     run_served_tier(torch, np, dev)
+    # phase 9: QAT training (no kernel of the port on its path)
+    del params, toks
+    torch.cuda.empty_cache()
+    run_training(torch, dev, ops)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

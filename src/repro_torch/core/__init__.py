@@ -12,6 +12,7 @@ from .quant_ops import (  # noqa: F401
     round_with_mode,
     trunc,
 )
+from .ste import bipolar_quant_ste, fake_quant, quant_ste  # noqa: F401
 from .graph import GraphBuilder, Node, QonnxGraph, TensorInfo  # noqa: F401
 from .executor import execute, register_op  # noqa: F401
 from . import export, formats, passes, serialize, streamline, transforms  # noqa: F401

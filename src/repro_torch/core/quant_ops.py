@@ -188,6 +188,35 @@ def trunc(x: Tensor, scale: TensorLike, zero_point: TensorLike,
     return (scale * shift) * (y_trunc - zero_point)
 
 
+def scale_from_minmax(x_min: Tensor, x_max: Tensor, bit_width: TensorLike, *,
+                      signed: bool = True, narrow: bool = False,
+                      symmetric: bool = True, eps: float = 1e-8) -> tuple[Tensor, Tensor]:
+    """Derive (scale, zero_point) covering [x_min, x_max] (float32 tensors
+    on x_min's device; used by PTQ calibration).
+
+    Symmetric (z = 0): scale = max(|min|, |max|) / max_int.
+    Asymmetric: scale = (max - min) / (max_int - min_int), integer zero
+    point (restricted to the integer grid per paper §II for zero-padding
+    compatibility).
+    """
+    x_min = torch.as_tensor(x_min, dtype=torch.float32)
+    x_max = torch.as_tensor(x_max, dtype=torch.float32, device=x_min.device)
+    bw = torch.as_tensor(bit_width, dtype=torch.float32, device=x_min.device)
+    lo_i = min_int(signed, narrow, bw)
+    hi_i = max_int(signed, narrow, bw)
+    floor = torch.full((), eps, dtype=torch.float32, device=x_min.device)
+    if symmetric:
+        amax = torch.maximum(torch.abs(x_min), torch.abs(x_max))
+        bound = torch.maximum(torch.abs(lo_i), torch.abs(hi_i))
+        scale = torch.maximum(amax / bound, floor)
+        return scale, torch.zeros_like(scale)
+    x_min = torch.clamp_max(x_min, 0.0)
+    x_max = torch.clamp_min(x_max, 0.0)
+    scale = torch.maximum((x_max - x_min) / (hi_i - lo_i), floor)
+    zp = torch.clamp(torch.round(lo_i - x_min / scale), lo_i, hi_i)
+    return scale, zp
+
+
 def int_repr(x: Tensor, scale: TensorLike, zero_point: TensorLike,
              bit_width: TensorLike, *, signed: bool = True,
              narrow: bool = False, rounding_mode: str = "ROUND",

@@ -1,6 +1,9 @@
-"""repro_torch.dist — fault tolerance (counterpart of ``repro.dist``).
+"""repro_torch.dist — fault tolerance and gradient compression
+(counterpart of ``repro.dist``).
 
-``fault``  watchdog and bounded restarts; the sharding rules, collectives
-and ``elastic_mesh`` wait for ROADMAP.md A16 (multi-device).
+``fault``        watchdog and bounded restarts;
+``collectives``  error-feedback int8 compression (``ef_compress``).
+The sharding rules, ``quantized_psum`` and ``elastic_mesh`` wait for
+ROADMAP.md A16 (multi-device).
 """
-from . import fault  # noqa: F401
+from . import collectives, fault  # noqa: F401

@@ -1,0 +1,54 @@
+"""Quantized collectives: error-feedback int8 compression of gradients
+(counterpart of ``repro.dist.collectives``).
+
+``ef_compress`` is the core (see ``optim/compress.py``): each leaf is
+quantized to int8 with a per-leaf symmetric scale after adding the
+carried residual, and the quantization error becomes the next residual,
+so the accumulated applied updates track the accumulated true gradients
+to within one quantization step.
+
+The reference divides the leaf's max-abs by 127 under ``jit``, where XLA
+multiplies by the float32 reciprocal instead (ROADMAP C7), and fuses
+``e - q * scale`` into one rounding; the port computes both the same way.
+
+``quantized_psum`` (compress locally, all-reduce the int8 payload,
+decompress) needs a collective across devices: ROADMAP A16.
+"""
+from __future__ import annotations
+
+import torch
+
+_LEVELS = 127.0          # symmetric int8
+
+
+def _compress_leaf(e: torch.Tensor):
+    """e -> (quantized e, residual): quantize-dequantize with a per-leaf
+    symmetric scale; the residual is the exact rounding error."""
+    e = e.to(torch.float32)
+    inv = torch.full((), 1.0 / _LEVELS, dtype=torch.float32, device=e.device)
+    scale = torch.clamp_min(torch.amax(torch.abs(e)), 1e-12) * inv
+    q = torch.clamp(torch.round(e / scale), -_LEVELS, _LEVELS)
+    # the residual of the exact product, rounded once, as the reference's
+    # fused multiply-subtract gives it (a product of a 7-bit code and a
+    # float32 scale and its difference from e are exact in float64)
+    res = (e.double() - q.double() * scale.double()).float()
+    return q * scale, res
+
+
+def ef_compress(grads: dict, residual: dict):
+    """Error-feedback compression over a dict of gradients.
+
+    Returns ``(compressed, new_residual)`` with, per leaf,
+    ``compressed + new_residual == grad + residual`` within one float32
+    rounding of the sum."""
+    out_g, out_r = {}, {}
+    for k, g in grads.items():
+        out_g[k], out_r[k] = _compress_leaf(g.to(torch.float32) + residual[k])
+    return out_g, out_r
+
+
+def quantized_psum(x, axis_name: str, residual=None):
+    """int8-compressed all-reduce across devices: not ported (one device)."""
+    raise NotImplementedError(
+        "quantized_psum needs a collective across devices (ROADMAP A16: "
+        "multi-device); one device compresses with ef_compress")

@@ -114,12 +114,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Returns (B, H, Sq, hd) in q's dtype.  On CUDA: float32 or bfloat16
     (all three alike), hd in ``HEAD_DIMS``, last dimension contiguous
-    (any other strides; for bfloat16 every row on 16 bytes)."""
+    (any other strides; for bfloat16 every row on 16 bytes).
+
+    The kernel has no backward (nor has the reference's): on CUDA a call
+    that autograd would differentiate raises rather than return an output
+    cut off from q, k and v's graph."""
     global launches
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("flash_attention has no backward: call it under "
+                         "torch.no_grad(), or take chunked_attention for a "
+                         "differentiated attention")
     _check_shapes(q, k, v)
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise ValueError("flash_attention takes float32 or bfloat16 q, k, v of "

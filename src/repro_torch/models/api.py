@@ -31,6 +31,11 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return _mod(cfg).param_shapes(cfg)
 
 
+def param_specs(cfg: ModelConfig) -> dict:
+    """{dotted name: meta-device tensor}: shapes and dtypes, no storage."""
+    return _mod(cfg).param_specs(cfg)
+
+
 def init_params(generator, cfg: ModelConfig, device=None):
     """Seeded parameters on ``device`` (CUDA unless given another).
     ``generator`` is a ``torch.Generator`` on that device, or an int seed

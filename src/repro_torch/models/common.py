@@ -8,9 +8,11 @@ runs them under ``lax.scan``; the port keeps one ``nn.Module`` per layer
 
 ``chunked_attention`` is the reference's online-softmax attention over
 KV chunks, GQA-grouped (q reshaped to (B, S, KV, G, hd)), in plain
-PyTorch.  The serving path runs it for decode; full-prefix attention
-(``forward``, ``prefill``) runs in the flash-attention kernel B7
-(``kernels/flash_attention.py``), which computes the same function.
+PyTorch.  The serving path runs it for decode and the train step for
+every attention (autograd differentiates it); full-prefix attention
+outside autograd (``forward``, ``prefill``) runs in the flash-attention
+kernel B7 (``kernels/flash_attention.py``), which computes the same
+function.
 
 The reference's mesh-sharding hooks (``constrain_logits``,
 ``constrain_residual``, ``_shard_attn``) are no-ops on one device and are
@@ -71,8 +73,8 @@ class ModelConfig:
     param_dtype: str = "float32"
     quant: QuantRecipe = field(default_factory=lambda: FP32)
     attn_chunk: int = 1024
+    remat: bool = False            # recompute each block in the backward
     # the reference's compile and mesh switches; the eager port ignores them
-    remat: bool = False
     shard_activations: bool = False
     scan_unroll: bool = False
     logits_softcap: float = 0.0

@@ -9,14 +9,22 @@ with one ``{"k", "v"}`` dict per layer, each (B, C, KV, hd) as in the
 reference.  Unlike the reference's functional update, ``prefill`` and
 ``decode_step`` write the new entries into the cache tensors in place
 (one token's keys and values per step instead of a copy of the cache).
+``forward`` is differentiable: QAT trains through it (``train/loop.py``)
+with the straight-through gradients of ``core/ste.py``; ``prefill`` and
+``decode_step`` run without autograd.
 
 Attention: the full-prefix cases (``forward`` and ``prefill``: no query
 offset, as many keys as queries) run in the flash-attention
 kernel B7 (``kernels/flash_attention.py``), which computes the same
 function as the reference's ``chunked_attention`` there: the reference's
-extra cache positions are masked and each adds exactly 0.  Every other
-case (decode) runs the plain ``chunked_attention``.  On CUDA tensors B7
-launches or raises.
+extra cache positions are masked and each adds exactly 0.  B7 has no
+backward, so a call that autograd differentiates (a train step) runs the
+reference's own training attention, the plain ``chunked_attention``, as
+does every other case (decode).  On CUDA tensors B7 launches or raises.
+
+``cfg.remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``), as the reference wraps each layer in
+``jax.checkpoint``.
 
 QONNX quantization enters through ``repro_torch.quantize.layers`` at every
 linear (recipe-controlled), and at the KV-cache write.  The ``moe``,
@@ -28,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.quantize.layers import qlinear, quant_kv
@@ -56,7 +65,8 @@ def check_family(cfg: ModelConfig) -> None:
 # ------------------------------------------------------------ parameters
 
 def _param(shape, dtype, device) -> nn.Parameter:
-    # inference parameters: the straight-through backward is not ported
+    # serving parameters take no gradient; the train state turns it on
+    # (train.loop.init_train_state, train_state_from_reference)
     return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
                         requires_grad=False)
 
@@ -149,6 +159,13 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return out
 
 
+def param_specs(cfg: ModelConfig) -> dict:
+    """{dotted name: tensor on the meta device} of every parameter: shapes
+    and dtypes without storage (the reference's ShapeDtypeStruct tree)."""
+    return {name: torch.empty(shape, dtype=cfg.p_dtype, device="meta")
+            for name, shape in param_shapes(cfg).items()}
+
+
 def init_params(generator: torch.Generator, cfg: ModelConfig, device=None) -> Transformer:
     """Seeded init with the reference's distribution (``common.init_``)."""
     model = Transformer(cfg, device)
@@ -196,11 +213,12 @@ def params_from_reference(tree: dict, cfg: ModelConfig, device=None) -> Transfor
 
 # ------------------------------------------------------------- attention
 
-def takes_flash(sq: int, q_offset: int, kv_len: int) -> bool:
+def takes_flash(sq: int, q_offset: int, kv_len: int, differentiated: bool = False) -> bool:
     """Whether an attention call runs in B7: exactly the calls where B7
     computes the reference's ``chunked_attention`` (every query sees keys
-    0..q, with no offset and as many valid keys as queries)."""
-    return q_offset == 0 and kv_len == sq
+    0..q, with no offset and as many valid keys as queries) and autograd
+    will not differentiate it (B7 has no backward)."""
+    return q_offset == 0 and kv_len == sq and not differentiated
 
 
 def _flash(q, k, v) -> torch.Tensor:
@@ -242,7 +260,9 @@ def attention(x, p, cfg: ModelConfig, *, positions, kv_cache=None,
         new_cache = kv_cache
     else:
         kv_len, new_cache = S, None
-    if takes_flash(S, idx, kv_len):
+    differentiated = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    if takes_flash(S, idx, kv_len, differentiated):
         out = _flash(q, k[:, :S], v[:, :S])
     else:
         out = chunked_attention(q, k, v, causal=True, q_offset=idx,
@@ -281,15 +301,23 @@ def _logits(params: Transformer, h, cfg: ModelConfig) -> torch.Tensor:
     return softcap(logits, cfg.logits_softcap).to(torch.float32)
 
 
-@torch.no_grad()
+def _train_block(x, lp: Block, cfg: ModelConfig, positions):
+    return block(x, lp, cfg, positions=positions)[0]
+
+
 def forward(params: Transformer, batch: dict, cfg: ModelConfig):
-    """Training-path logits.  batch: tokens (B, S).
+    """Training-path logits, differentiable.  batch: tokens (B, S).
 
     Returns (logits (B, S, V) float32, aux dict)."""
     h, n_prefix = embed_inputs(params, batch, cfg)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for lp in params.layers:
-        h, _, _ = block(h, lp, cfg, positions=positions)
+        if remat:       # the block draws no random numbers: no RNG state kept
+            h = checkpoint(_train_block, h, lp, cfg, positions,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            h = _train_block(h, lp, cfg, positions)
     h = norm(h, params.final_norm.weight(), cfg.norm)
     aux = {"moe_aux": torch.zeros((), dtype=torch.float32, device=h.device),
            "n_prefix": n_prefix}

@@ -10,6 +10,10 @@ Every function follows the reference's operation order and its dtype
 casts: the scale is computed in float32 and then cast to the operand's
 dtype, so for a bf16 activation ``x / s``, the rounding, the clip and the
 dequantization all run in bf16, as they do in the reference.
+
+Gradients flow through the STE (``core/ste.py``) and through the dynamic
+scale: ``torch.amax`` spreads the max's gradient evenly over tied maxima,
+as JAX's ``reduce_max`` does.
 """
 from __future__ import annotations
 

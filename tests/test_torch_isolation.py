@@ -40,6 +40,8 @@ def test_importing_every_port_module_leaves_jax_out():
     # the serving tier and observability: scheduler, registry, split-merge,
     # tracing, the endpoint, the report, the profiler, fault tolerance
     assert set(SERVING_TIER) <= set(mods)
+    # the training path
+    assert set(TRAINING) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -60,11 +62,20 @@ SERVING_TIER = ("repro_torch.serve.scheduler", "repro_torch.serve.registry",
                 "repro_torch.launch.serve")
 
 
+TRAINING = ("repro_torch.optim.schedule", "repro_torch.optim.adamw",
+            "repro_torch.optim.compress", "repro_torch.dist.collectives",
+            "repro_torch.data.pipeline", "repro_torch.ckpt.manager",
+            "repro_torch.train.loop", "repro_torch.launch.train",
+            "repro_torch.quantize.calibrate")
+
+
 @pytest.mark.parametrize("module", ["repro_torch.serve", "repro_torch.obs",
                                     "repro_torch.dist.fault",
-                                    "repro_torch.launch.serve"])
+                                    "repro_torch.launch.serve",
+                                    "repro_torch.launch.train"])
 def test_serving_tier_imports_leave_jax_and_the_reference_out(module):
-    """Each entry of the serving tier alone, in a fresh interpreter."""
+    """Each entry of the serving tier, and the training launcher (which
+    imports the whole training path), alone in a fresh interpreter."""
     code = (f"import importlib, sys\nimportlib.import_module({module!r})\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or "
             "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"

@@ -931,3 +931,39 @@ def test_capture_failure_names_the_segment_and_never_falls_back(cuda):
     seg.run = run
     plan({"x": x}, jit=False)                # the device is still usable
     torch.cuda.synchronize()
+
+
+def test_flash_attention_refuses_autograd(cuda):
+    """B7 has no backward: a call that autograd would differentiate
+    raises, and the same call under no_grad (or on inputs that take no
+    gradient) launches."""
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.randn(1, 2, 16, 16, device=cuda, requires_grad=True)
+    k = torch.randn(1, 2, 16, 16, device=cuda)
+    with pytest.raises(ValueError, match="no backward"):
+        fa.flash_attention(q, k, k)
+    with torch.no_grad():
+        out = fa.flash_attention(q, k, k)
+    assert out.shape == q.shape and not out.requires_grad
+    fa.flash_attention(q.detach(), k, k)
+
+
+def test_train_step_launches_no_b7_while_prefill_does(cuda):
+    """A train step (its attention differentiated) runs chunked_attention
+    and never launches B7; a prefill of the same model launches it once a
+    layer."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import api
+    from repro_torch.train import loop
+    cfg = get_smoke_config("qwen2-1.5b")
+    hyper = loop.TrainHyper()
+    state = loop.init_train_state(0, cfg, hyper, cuda)
+    batch = api.make_batch(torch.Generator().manual_seed(0), cfg, 2, 16, cuda)
+    tops.reset_launch_counts()
+    state, m = loop.make_train_step(cfg, hyper)(state, batch)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["flash_attention"] == 0
+    assert torch.isfinite(m["loss"]) and float(m["grad_norm"]) > 0
+    api.prefill(state["params"], batch, cfg, 16)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["flash_attention"] == cfg.n_layers

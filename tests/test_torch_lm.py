@@ -1,7 +1,7 @@
 """The LM serving slice of the port against the reference, on the CPU.
 
 * ``quant_weight``, ``quant_act`` and ``quant_kv`` (and the Quant forward
-  of ``quant_ste``) bit-exact in float32 and in bf16 against the reference
+  and the straight-through backward of ``quant_ste``) bit-exact in float32 and in bf16 against the reference
   under ``jax.jit``, as every model path runs it (there XLA multiplies by
   the float32 reciprocal of the constant bound where the code divides by
   it: ROADMAP C7);
@@ -103,19 +103,27 @@ def test_qlinear_and_qeinsum_match_reference():
         np.testing.assert_allclose(lp.f32(got), lp.f32(want), rtol=1e-5, atol=1e-5)
 
 
-def test_quant_ste_forward_and_its_missing_backward():
+def test_quant_ste_forward_and_backward():
+    """The Quant forward of quant_ste bit for bit, and its straight-through
+    backward against the reference's custom_vjp (the full comparison is
+    in test_torch_ste.py)."""
     rng = np.random.default_rng(1)
     x = rng.standard_normal((6, 10)).astype(np.float32)
     s = np.float32(0.0625)
-    want = ref_quant_ste(jnp.asarray(x), jnp.float32(s), jnp.float32(0), 4.0, True,
-                         False, "HALF_UP")
-    got = quant_ste(torch.from_numpy(x), torch.tensor(s), torch.tensor(0.0), 4.0, True,
-                    False, "HALF_UP")
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    fn = lambda a, b: ref_quant_ste(a, b, jnp.float32(0), 4.0, True, False, "HALF_UP")
+    want, vjp = jax.vjp(fn, jnp.asarray(x), jnp.float32(s))
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    want_gx, want_gs = vjp(jnp.asarray(g))
+    tx = torch.from_numpy(x).requires_grad_()
+    ts = torch.tensor(s).requires_grad_()
+    got = quant_ste(tx, ts, torch.tensor(0.0), 4.0, True, False, "HALF_UP")
+    np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want))
     assert torch.equal(fake_quant(torch.from_numpy(x), torch.tensor(s), bit_width=4,
-                                  rounding_mode="HALF_UP"), got)
-    with pytest.raises(NotImplementedError, match="A17"):
-        quant_ste(torch.from_numpy(x).requires_grad_(), torch.tensor(s), 0.0, 4.0)
+                                  rounding_mode="HALF_UP"), got.detach())
+    got.backward(torch.from_numpy(g))
+    np.testing.assert_array_equal(tx.grad.numpy(), np.asarray(want_gx))
+    np.testing.assert_allclose(float(ts.grad), float(want_gs), rtol=1e-5)
+    assert (tx.grad == 0).any() and (tx.grad != 0).any()     # both sides of the window
 
 
 # ------------------------------------------------ the models, carried weights
