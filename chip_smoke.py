@@ -5,6 +5,7 @@
     python3 chip_smoke.py --plan-profiles   # only the integer plan calls' profiles
     python3 chip_smoke.py --served          # only the build and phase 8
     python3 chip_smoke.py --train           # only the build and phase 9
+    python3 chip_smoke.py --tune            # only the build and phase 10
 
 Phases, in order; any failure raises and the script exits non-zero without
 printing a result:
@@ -194,12 +195,33 @@ printing a result:
    gradient; a prefill of the trained model through 28 B7 launches; (c) microbatches 2 against 1 on the card within 5e-3;
    (d) the training launcher in a subprocess (SMOKE, 6 steps, checkpoints
    every 3), then the same run with a fault at step 4: it restarts,
-   resumes from step 3 and matches steps 4-6 within rel 1e-5.
+   resumes from step 3 and matches steps 4-6 within rel 1e-5;
+10. the launch-geometry autotuner (``repro_torch.tune``) on TFC-w2a2 (64
+   rows), CNV-w1a1 (8) and the rescaled MobileNet-w4a4 at 224 (8), each
+   declared at those rows, compile_graph's defaults, one fresh cache root
+   (removed at the end): (a) ``tune="search"``: the signatures searched,
+   the candidates timed per signature, each one's heuristic blocks and ms
+   against the winner's (device ms of a CUDA graph of 10 calls, best of
+   3 interleaved rounds), the wall; (b) a warm ``tune="cached"`` compile:
+   0 searches, 0 misses, a graph hit, every kernel segment tuned, one
+   capture over two same-shape calls; (c) the tuned plan torch.equal to
+   the heuristic plan and to itself, and held against the CPU oracle as
+   phase 3 holds it, then the float32-epilogue tier searched in the same
+   root: against the oracle, against its heuristic plan (MobileNet's final
+   MatMul within the order bound), and each float32 winner that differs
+   from the heuristic within the order bound on randn; (d) the speed gate:
+   captured tuned and heuristic plan calls in 8 interleaved turns, the
+   tuned plan at least 0.90 of the heuristic's throughput; (e) an engine
+   serving TFC-w2a2 from the cache (hits counted, rows bit-exact) and the
+   launcher's ``--tune cached --tune-cache-dir`` answering 16 requests from
+   the manifest of one search of the zoo's TFC-w2a2.
 
 Launch counts are read in windows of their own: phase 3's plans, phase
 4's engines, phases 3' and 4' likewise, each fused plan's own call in
 3'' (its use_fusion=False twin runs outside the window), 3''', and phase
-6 (a) and (b), and phase 9 (b)'s steps (where no kernel may launch);
+6 (a) and (b), phase 9 (b)'s steps (where no kernel may launch), and
+phase 10's tuned plans (the search's own timing launches the wrappers
+too, before those windows);
 every kernel of each window's path must have launched in it.  Phases 3
 to 5 call their plans eagerly (``jit=False``), as the
 counts and profiles there need; the engines of phases 4 and 4' serve
@@ -2935,7 +2957,7 @@ def planted_faults(torch, api, transformer, params, toks, cfg, sound, tag):
     land beyond LM_REL_L2, or the bound would not tell a wrong attention
     from a sound one."""
     for fault in LM_FAULTS:
-        with mock.patch.object(transformer, "takes_flash", lambda *a: False), \
+        with mock.patch.object(transformer, "takes_flash", lambda *a, **k: False), \
                 mock.patch.object(transformer, "chunked_attention",
                                   _faulty(transformer.chunked_attention, fault)):
             bad, _ = api.prefill(params, {"tokens": toks}, cfg, LM_S)
@@ -2994,7 +3016,7 @@ def run_lm_path(torch, np, dev, ops):
     for tag, c in (("w8a8kv8", cfg), ("fp32", cfg.replace(quant=FP32))):
         a = logits if tag == "w8a8kv8" else api.prefill(params, {"tokens": toks}, c, LM_S)[0]
         # every attention call on the plain path: the reference's computation
-        with mock.patch.object(transformer, "takes_flash", lambda *a: False):
+        with mock.patch.object(transformer, "takes_flash", lambda *a, **k: False):
             b, _ = api.prefill(params, {"tokens": toks}, c, LM_S)
         rel = float((a - b).norm() / b.norm())
         top1 = float((a.argmax(-1) == b.argmax(-1)).float().mean())
@@ -3474,6 +3496,259 @@ def run_training(torch, dev, ops):
     return wall, peak
 
 
+# ---------------------------------------------------------------- phase 10
+
+TUNE_GATE = 0.90                # tuned plan throughput / heuristic's, at least
+TUNE_TURNS = 8                  # interleaved turns of the speed gate
+
+
+def _sig_text(sig) -> str:
+    body = f" {sig.body}" if sig.body else ""
+    groups = f" G={sig.groups}" if sig.groups > 1 else ""
+    geo = f" geometry {tuple(sig.geometry)}" if sig.geometry else ""
+    return (f"{sig.family}{body} m={sig.m} n={sig.n} k={sig.k}{groups} "
+            f"bits={sig.bits} {sig.requant}{geo}")
+
+
+TUNE_ROWS = {"TFC-w2a2": 64, "CNV-w1a1": SLOT, "MobileNet-w4a4": SLOT}
+# the kernels each tuned plan's eager call must launch
+TUNE_KERNELS = {"TFC-w2a2": ("quant_dequant", "quant_matmul_int4"),
+                "CNV-w1a1": ("quant_dequant", "quant_matmul", "quant_matmul_int4"),
+                "MobileNet-w4a4": ("quant_dequant", "quant_matmul", "quant_matmul_int4",
+                                   "quant_depthwise_conv2d")}
+
+
+def _tune_models(np):
+    """Phase 10's models: (name, graph builder, input, CPU-oracle key), each
+    graph declared at the rows it is called with (TUNE_ROWS), so that its
+    signatures' row buckets are those of the calls and the tuned geometry
+    runs (a call in another bucket runs the heuristic)."""
+    from repro_torch.models import zoo
+    rows = TUNE_ROWS
+    return (("TFC-w2a2", lambda: zoo.build_tfc(2, 2, batch=rows["TFC-w2a2"]),
+             np.random.RandomState(21).randn(rows["TFC-w2a2"], 784).astype(np.float32),
+             "tune TFC-w2a2"),
+            ("CNV-w1a1", lambda: zoo.build_cnv(1, 1, batch=rows["CNV-w1a1"]),
+             np.random.RandomState(22).randn(rows["CNV-w1a1"], 3, 32, 32).astype(np.float32),
+             "tune CNV-w1a1"),
+            ("MobileNet-w4a4", lambda: zoo.rescale_conv_gains(
+                zoo.build_mobilenet(4, 4, img=224, batch=rows["MobileNet-w4a4"])),
+             np.random.RandomState(23).randn(rows["MobileNet-w4a4"], 3, 224, 224)
+             .astype(np.float32), "tune MobileNet-w4a4 rescaled"))
+
+
+def _tuned_vs_oracle(torch, plan, g, x, okey, n, label):
+    """Hold a plan against the CPU oracle as phase 3 does, on ``x[:n]``:
+    bit-exact, or for the rescaled MobileNet bit-exact before its final
+    MatMul and that within the order bound.  Returns the plan's env
+    (eager)."""
+    env = step_plan(torch, plan, x[:n], plan.device)
+    out = env[g.output_names[0]]
+    if okey.endswith("rescaled"):
+        oracle = _oracle(g, x, return_all=True, key=okey)
+        pre, w_name = _final_matmul(plan.graph)
+        ref = oracle[g.output_names[0]][:n]
+        if not torch.equal(env[pre].cpu(), oracle[pre][:n]) or bool(
+                ((out.cpu() - ref).abs() > order_bound(oracle[pre][:n], oracle[w_name],
+                                                       ref)).any()):
+            raise AssertionError(f"{label}: differs from the CPU oracle")
+    elif not torch.equal(out.cpu(), _oracle(g, x, key=okey)[g.output_names[0]][:n]):
+        raise AssertionError(f"{label}: differs from the CPU oracle")
+    return env
+
+
+def _f32_split_bound(torch, plan_log, dev) -> int:
+    """B1 / B2's float32 body with each searched winner that differs from
+    the heuristic, on randn x at the signature's shape: within the order
+    bound of the heuristic's output (a K split reorders the float32 sums).
+    Returns the cases."""
+    from repro_torch.kernels import ops
+    n = 0
+    for rec in plan_log:
+        sig = rec["sig"]
+        if sig.family != "matmul" or sig.body != "f32" or rec["blocks"] == rec["default"]:
+            continue
+        g = torch.Generator().manual_seed(n)
+        x = torch.randn(sig.m, sig.k, generator=g)
+        w = torch.randint(-7, 8, (sig.k, sig.n), generator=g, dtype=torch.int8)
+        s = torch.rand(sig.n, generator=g) + 0.5
+        fn, wk = (ops.quant_matmul_int4, ops.pack_int4(w)) if sig.bits == 4 else \
+            (ops.quant_matmul, w)
+        xd, wd, sd = x.to(dev), wk.to(dev), s.to(dev)
+        got = fn(xd, wd, sd, blocks=rec["blocks"])
+        want = fn(xd, wd, sd, blocks=rec["default"])
+        bound = 2 * sig.k * 2.0 ** -24 * (x.abs() @ w.float().abs()) * s \
+            + 2.0 ** -23 * want.abs().cpu()
+        torch.cuda.synchronize()
+        if bool(((got - want).abs().cpu() > bound).any()):
+            raise AssertionError(f"float32 body {_sig_text(sig)}: blocks {rec['blocks']} "
+                                 f"beyond the order bound of {rec['default']}")
+        n += 1
+    return n
+
+
+def _print_search(model, tier, plan, wall):
+    st = plan.tuning_stats()
+    log = plan.tune_log
+    print(f"tune search [{model}, {tier}]: {len(log)} sigs searched in {wall:.3f} s "
+          f"wall (compile included), candidates timed per sig "
+          f"{[r['candidates'] for r in log]}; stats {st}", flush=True)
+    for r in log:
+        flag = "" if r["blocks"] == r["default"] else "  <- differs"
+        print(f"  {_sig_text(r['sig'])}: heuristic {r['default']} {r['default_ms']:.6f} ms, "
+              f"tuned {r['blocks']} {r['ms']:.6f} ms ({r['candidates']} timed){flag}",
+              flush=True)
+
+
+def _tune_one(torch, np, dev, root, model, g, x, okey):
+    """Phase 10 (a)-(d) on one model."""
+    from repro_torch.core import compile_graph
+    from repro_torch.kernels import ops
+    n = TUNE_ROWS[model]
+    # (a) search
+    t0 = time.perf_counter()
+    tuned = compile_graph(g, tune="search", tune_cache_dir=root, device=dev)
+    _print_search(model, "integer path", tuned, time.perf_counter() - t0)
+    st = tuned.tuning_stats()
+    if st["tuned_segments"] != st["kernel_segments"] or st["misses"] or \
+            st["searched"] != len(tuned.tune_log) or not st["searched"]:
+        raise AssertionError(f"{model}: search stats {st}")
+    # (b) warm: no search, no miss, the manifest answers every segment
+    warm = compile_graph(g, tune="cached", tune_cache_dir=root, device=dev)
+    ws = warm.tuning_stats()
+    if ws["searched"] or ws["misses"] or ws["graph_hit"] != 1 or \
+            ws["tuned_segments"] != ws["kernel_segments"] or \
+            ws["kernel_segments"] != st["kernel_segments"]:
+        raise AssertionError(f"{model}: warm compile {ws}")
+    # (c) parity: the heuristic plan, itself, the oracle
+    heur = compile_graph(g, device=dev)
+    xd = torch.from_numpy(x[:n]).to(dev)
+    a = warm({"x": xd})[g.output_names[0]]
+    b = warm({"x": xd})[g.output_names[0]]
+    h = heur({"x": xd})[g.output_names[0]]
+    torch.cuda.synchronize()
+    if warm.trace_count != 1 or not torch.equal(a, b) or not torch.equal(a, h):
+        raise AssertionError(f"{model}: the tuned plan made {warm.trace_count} captures, "
+                             "or differs from itself or from the heuristic plan")
+    ops.reset_launch_counts()
+    _tuned_vs_oracle(torch, warm, g, x, okey, n, f"{model} tuned")
+    check_launched(ops.launch_counts(), TUNE_KERNELS[model],
+                   f"phase 10 ({model}, the tuned plan's eager call)")
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    # the float32-epilogue tier from the same root
+    t0 = time.perf_counter()
+    tf = compile_graph(g, use_analysis=False, tune="search", tune_cache_dir=root,
+                       device=dev)
+    _print_search(model, "float32 epilogue", tf, time.perf_counter() - t0)
+    hf = compile_graph(g, use_analysis=False, device=dev)
+    ef = _tuned_vs_oracle(torch, tf, g, x, okey, n, f"{model} tuned, float32 epilogue")
+    eh = step_plan(torch, hf, x[:n], dev)
+    out_f, out_h = ef[g.output_names[0]], eh[g.output_names[0]]
+    if okey.endswith("rescaled"):
+        pre, w_name = _final_matmul(tf.graph)
+        w = _oracle(g, x, return_all=True, key=okey)[w_name]
+        same = torch.equal(ef[pre], eh[pre]) and not bool(
+            ((out_f - out_h).abs().cpu() > order_bound(eh[pre].cpu(), w, out_h.cpu())).any())
+    else:
+        same = torch.equal(out_f, out_h)
+    if not same:
+        raise AssertionError(f"{model}: the tuned float32-epilogue plan differs from the "
+                             "heuristic one beyond the order bound")
+    n_f32 = _f32_split_bound(torch, tf.tune_log, dev)
+    # (d) the speed gate: captured plan calls in turns
+    walls = walls_in_turns(torch, {"tuned": (warm, True), "heuristic": (heur, True)},
+                           x[:n], pairs=TUNE_TURNS, reps=20, model=model)
+    ratio = walls["heuristic"] / walls["tuned"]
+    print(f"tune [{model}]: warm compile {ws['hits']} hits, 0 searches, 0 misses, graph "
+          f"hit, 1 capture over 2 calls; tuned == heuristic plan (torch.equal) and held "
+          f"against the CPU oracle on both tiers ({n_f32} float32 winners on randn within "
+          f"the order bound); the tuned plan's eager launches {launched}; speed gate: "
+          f"heuristic {walls['heuristic']:.6f} ms / tuned {walls['tuned']:.6f} ms median "
+          f"plan call = {ratio:.4f} of the heuristic's throughput (gate {TUNE_GATE})",
+          flush=True)
+    if ratio < TUNE_GATE:
+        raise AssertionError(f"{model}: the tuned plan runs at {ratio:.4f} of the "
+                             f"heuristic's throughput (< {TUNE_GATE})")
+
+
+def _tune_serving(torch, np, dev, root, g, x, okey):
+    """Phase 10 (e): an engine serves TFC-w2a2 (declared at 64 rows) from
+    the cache the search filled, in 64-row slots; the launcher serves the
+    zoo's TFC-w2a2 (declared at one row) after one search of that graph."""
+    import os
+    from repro_torch.core import compile_graph
+    from repro_torch.models import zoo
+    from repro_torch.serve import CompiledGraphEngine
+    rows = TUNE_ROWS["TFC-w2a2"]
+    eng = CompiledGraphEngine(g, max_batch=rows, tune="cached", tune_cache_dir=root,
+                              device=dev, report_cost=False)
+    es = eng.plan.tuning_stats()
+    hits = eng.metrics.counter("serve_tune_cache_hits_total",
+                               labels=eng._metric_labels).value
+    if es["graph_hit"] != 1 or es["searched"] or es["misses"] or \
+            es["tuned_segments"] != es["kernel_segments"] or hits != es["hits"]:
+        raise AssertionError(f"engine: tuning {es}, {hits} hits counted")
+    reqs = [eng.submit(r) for r in x[:40]]
+    eng.run_pending()
+    got = np.stack([r.wait(timeout=120) for r in reqs])
+    ref = _oracle(g, x, key=okey)[g.output_names[0]][:40].numpy()
+    if not np.array_equal(got, ref):
+        raise AssertionError("engine: tuned rows differ from the CPU oracle")
+    eng.close()
+    t0 = time.perf_counter()
+    one = compile_graph(zoo.ZOO["TFC-w2a2"](), tune="search", tune_cache_dir=root,
+                        device=dev)
+    _print_search("TFC-w2a2 as the zoo declares it (one row)", "integer path", one,
+                  time.perf_counter() - t0)
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--graph", "TFC-w2a2",
+         "--requests", "16", "--tune", "cached", "--tune-cache-dir", root],
+        env=env, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"launcher --tune cached exited {res.returncode}: "
+                             f"{res.stderr[-3000:]}")
+    line = [ln for ln in res.stderr.splitlines() if "tune[cached]" in ln]
+    k = es["kernel_segments"]
+    if not line or f"{k}/{k} segments tuned" not in line[-1] or \
+            "manifest hit" not in line[-1]:
+        raise AssertionError(f"launcher --tune cached: {line}")
+    rate = [ln for ln in res.stderr.splitlines() if "req/s" in ln]
+    print(f"tune serving: engine (TFC-w2a2, {rows}-row slots) {es['hits']} cache hits counted, "
+          f"40 rows bit-exact vs the CPU oracle; launcher --tune cached: exit 0 in "
+          f"{time.perf_counter() - t0:.3f} s, {line[-1].split(':', 2)[-1].strip()}; "
+          f"{rate[-1].split(':', 2)[-1].strip() if rate else ''}", flush=True)
+
+
+def run_tuning(torch, np, dev):
+    """Phase 10: A15, the launch-geometry autotuner, on TFC-w2a2 (64 rows),
+    CNV-w1a1 (8) and the rescaled MobileNet-w4a4 at 224 (8), each declared
+    at those rows, with compile_graph's defaults (integer path, fusion on)
+    from one fresh cache root: (a) tune="search" (the sigs, the candidates timed, the
+    heuristic's blocks and ms against the winner's, the wall); (b) a warm
+    tune="cached" compile: no search, no miss, a graph hit, every kernel
+    segment tuned, one capture over two calls; (c) the tuned plan
+    torch.equal to the heuristic plan and held against the oracle as phase
+    3 holds it, the float32-epilogue tier likewise (and its winners on
+    randn within the order bound); (d) the speed gate: captured tuned
+    against heuristic plan calls in turns, the tuned plan at least
+    TUNE_GATE of the heuristic's throughput; (e) an engine and the
+    launcher serve TFC-w2a2 from the cache.  The root is removed at the
+    end."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="tune-")
+    try:
+        models = _tune_models(np)
+        for model, build, x, okey in models:
+            _tune_one(torch, np, dev, root, model, build(), x, okey)
+            torch.cuda.empty_cache()
+        _tune_serving(torch, np, dev, root, models[0][1](), models[0][2], models[0][3])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3505,6 +3780,10 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--train"]:
         run_training(torch, dev, ops)
+        print(f"card: {card}")
+        return 0
+    if sys.argv[1:] == ["--tune"]:
+        run_tuning(torch, np, dev)
         print(f"card: {card}")
         return 0
 
@@ -3613,6 +3892,9 @@ def main() -> int:
     del params, toks
     torch.cuda.empty_cache()
     run_training(torch, dev, ops)
+    # phase 10: the launch-geometry autotuner (A15)
+    torch.cuda.empty_cache()
+    run_tuning(torch, np, dev)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -53,14 +53,19 @@ integer-valued and the dot-product bound fits 31 bits, and a segment
 whose scales are dyadic runs the exact integer epilogue B3
 (``lowering/requant.py``).  ``use_analysis=False`` restores the
 declared-bit-width fp32-epilogue tier, ``use_fusion=False`` the plans with
-float32 boundaries and interpreted boundary ops.  Tuning and meshes are
-not ported; their flags raise ``NotImplementedError`` naming the
-ROADMAP.md item that brings them.
+float32 boundaries and interpreted boundary ops.
+
+``tune="cached"|"search"`` picks each kernel segment's launch geometry
+through ``repro_torch.tune`` (the plans' ``override``): from the on-disk
+tune cache, or by timing the real kernels with each candidate geometry
+(``tune.Autotuner``); ``tuning_stats()`` reports it.  Meshes are not
+ported: ``mesh=`` raises ``NotImplementedError`` naming ROADMAP.md A16.
 """
 from __future__ import annotations
 
 import threading
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -105,6 +110,18 @@ def _release_capture_pool(pool) -> None:
         pass
 
 
+def _end_rng_capture(dev) -> None:
+    """After a capture whose end raised: the device's default generator is
+    still marked as capturing (its epilogue runs only at a successful
+    end), so every later random op on the device would raise.  One empty
+    capture runs its prologue and epilogue and clears the mark."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)      # "graph is empty"
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(dev), torch.cuda.graph(graph):
+            pass
+
+
 def _signature(inputs: dict) -> tuple:
     return tuple(sorted((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
 
@@ -123,6 +140,9 @@ class CompiledPlan:
     device: torch.device
     analysis: Optional[object] = None      # GraphAnalysis used for selection
     fusion: Optional[object] = None        # lowering.FusionPlan (carriers)
+    tune_mode: str = "off"                 # "off" | "cached" | "search"
+    tune_stats: dict = field(default_factory=dict)   # Autotuner.stats copy
+    tune_log: list = field(default_factory=list)     # Autotuner.searches
     _captured: dict = field(default_factory=dict, repr=False)
     _signatures: set = field(default_factory=set, repr=False)
     _traces: int = field(default=0, repr=False)
@@ -266,6 +286,8 @@ class CompiledPlan:
         if failed is not None or ended is not None:
             _release_capture_pool(self._pool)
             self._pool = None                    # the next capture starts afresh
+        if ended is not None:
+            _end_rng_capture(dev)
         if failed is not None:
             i, seg, e = failed
             ops = "+".join(f"{n.op_type}:{n.name}" for n in seg.nodes)
@@ -385,6 +407,29 @@ class CompiledPlan:
             out["declined"] = fp.declined
         return out
 
+    def tuning_stats(self) -> dict:
+        """Tuned-vs-default launch-geometry telemetry over the segments.
+
+        ``kernel_segments`` counts every segment that carries a block
+        assignment (``meta["blocks"]``); ``tuned_segments`` are those whose
+        blocks came from the cache or a search rather than the heuristic
+        plan.  The cache counters (hits / misses / searched / graph_hit /
+        graph_miss) are the Autotuner's, snapshotted at compile time:
+        ``searched == 0`` with ``graph_hit == 1`` is the warm-cache
+        invariant."""
+        out = {"mode": self.tune_mode, "kernel_segments": 0,
+               "tuned_segments": 0, "default_segments": 0}
+        for s in self.segments:
+            if "blocks" not in s.meta:
+                continue
+            out["kernel_segments"] += 1
+            if s.meta.get("tuned") in ("cached", "search"):
+                out["tuned_segments"] += 1
+            else:
+                out["default_segments"] += 1
+        out.update(self.tune_stats)
+        return out
+
     def describe(self) -> str:
         head = (f"CompiledPlan({self.graph.name}) on {self.device}: "
                 f"{len(self.segments)} segments over {len(self.graph.nodes)} "
@@ -415,10 +460,7 @@ def _make_interp_segment(nodes: list[Node], static_consts: dict) -> Segment:
     return Segment("interp", nodes, ins, outs, run)
 
 
-def _unported(tune, mesh, interpret) -> None:
-    if tune != "off":
-        raise NotImplementedError(
-            f"tune={tune!r} is not ported yet: ROADMAP.md A15 (tuning)")
+def _unported(mesh, interpret) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "mesh= is not ported yet: ROADMAP.md A16 (multi-device)")
@@ -470,9 +512,17 @@ def compile_graph(graph: QonnxGraph, *, run_cleanup: bool = True,
                    phase 5 on an H100; numbers in PERF.md §6).  Taking the
                    codes straight into the kernels is ROADMAP queue B's
                    first item
-    tune (with tune_cache_dir / tune_repeats), mesh — the reference's later
-                   tiers; anything but their defaults raises
-                   NotImplementedError
+    tune         — per-segment launch geometry (``repro_torch.tune``):
+                   "off" (the plans' heuristics), "cached" (from the tune
+                   cache; the heuristic on a miss, never times) or
+                   "search" (cache, else time the real kernels with each
+                   candidate geometry on the plan's device and persist the
+                   winner); anything else raises ValueError
+    tune_cache_dir — tune-cache root (default ``$REPRO_TUNE_CACHE_DIR`` or
+                   ``~/.cache/repro-tune``)
+    tune_repeats — best-of-N timing rounds per candidate in "search" mode
+    mesh         — not ported: anything but None raises
+                   NotImplementedError (ROADMAP.md A16)
     interpret    — must stay None (see ``_unported``)
 
     Every compile records its wall time and plan-shape gauges (segments
@@ -482,8 +532,10 @@ def compile_graph(graph: QonnxGraph, *, run_cleanup: bool = True,
     ``model=graph.name``.
     """
     t_compile0 = time.perf_counter()
-    del tune_cache_dir, tune_repeats           # meaningful only with tune
-    _unported(tune, mesh, interpret)
+    _unported(mesh, interpret)
+    if tune not in ("off", "cached", "search"):
+        raise ValueError(f"tune must be 'off', 'cached' or 'search', "
+                         f"got {tune!r}")
     dev = resolve_device(device)
     if run_cleanup:
         from . import passes
@@ -495,9 +547,15 @@ def compile_graph(graph: QonnxGraph, *, run_cleanup: bool = True,
     if use_kernels and use_analysis:
         from repro_torch.analysis import analyze
         ga = analyze(g)
+    tuner = None
+    if use_kernels and tune != "off":
+        from repro_torch.tune import Autotuner, TuneCache, graph_cache_key
+        tuner = Autotuner(TuneCache(tune_cache_dir), mode=tune,
+                          repeats=tune_repeats, device=dev)
+        tuner.begin_graph(graph_cache_key(g, tuner.backend))
     ctx = LoweringContext(analysis=ga, use_int4=use_int4,
                           use_int_requant=use_integer_requant, device=dev,
-                          use_fusion=use_fusion)
+                          use_fusion=use_fusion, tuner=tuner)
 
     # constants start on the host: folding happens there once, and only
     # what the plan reads moves to the device
@@ -597,8 +655,13 @@ def compile_graph(graph: QonnxGraph, *, run_cleanup: bool = True,
     consts = {k: v.to(dev) for k, v in consts.items() if k in used}
     consts.update(staged)
 
+    if tuner is not None:
+        tuner.end_graph()
     plan = CompiledPlan(g, segments, consts, dev, analysis=ga,
-                        fusion=fusion_plan)
+                        fusion=fusion_plan,
+                        tune_mode=tune if tuner is not None else "off",
+                        tune_stats=dict(tuner.stats) if tuner is not None else {},
+                        tune_log=list(tuner.searches) if tuner is not None else [])
     _record_compile_metrics(plan, time.perf_counter() - t_compile0)
     return plan
 
@@ -634,6 +697,27 @@ def _record_compile_metrics(plan: CompiledPlan, wall_s: float) -> None:
     reg.gauge("compile_boundary_bytes_saved",
               help="per-call boundary HBM bytes avoided vs fp32 boundaries",
               labels=model).set(fs["boundary_bytes_saved"])
+    if plan.tune_mode != "off":
+        ts = plan.tuning_stats()
+        reg.counter("tune_cache_hits_total",
+                    help="segment geometries answered from the tune cache",
+                    labels=model).inc(ts.get("hits", 0))
+        reg.counter("tune_cache_misses_total",
+                    help="segment geometries that fell back to the "
+                         "heuristic (cached mode, no entry)",
+                    labels=model).inc(ts.get("misses", 0))
+        reg.counter("tune_searches_total",
+                    help="geometry searches run (search mode, unseen "
+                         "workloads)", labels=model).inc(ts.get("searched", 0))
+        reg.gauge("compile_tuned_segments",
+                  help="kernel segments running cache- or search-selected "
+                       "geometries", labels=model).set(ts["tuned_segments"])
 
 
-__all__ = ["CompiledPlan", "compile_graph"]
+def execute_compiled(graph: QonnxGraph, inputs: dict, **kw) -> dict:
+    """One-shot convenience: compile, then run (``executor.execute``'s
+    counterpart on the compiled tier)."""
+    return compile_graph(graph, **kw)(inputs)
+
+
+__all__ = ["CompiledPlan", "compile_graph", "execute_compiled"]

@@ -8,7 +8,7 @@ chain, and the cross-segment fusion rules).
 from .base import (  # noqa: F401
     LoweringContext, LoweringRule, Match, Segment, col_scale,
     conv_channel_scale, conv_out_rows, get_rule, iter_rules, register_rule,
-    rules_for, scalar, sole_consumer, static_value, tensor_rows,
+    rules_for, scalar, select_accumulator, sole_consumer, static_value, tensor_rows,
     unregister_rule)
 from .weights import (  # noqa: F401
     KernelMatch, QuantWeight, chain_absorbable, resolve_quant_weight)

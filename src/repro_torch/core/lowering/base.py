@@ -89,6 +89,8 @@ class LoweringContext:
                                    # boundary carriers (lowering/fusion.py)
     fusion: Optional[object] = None  # fusion.FusionPlan once negotiated:
                                      # emitters read boundary carriers here
+    tuner: Optional[object] = None   # tune.Autotuner: per-segment launch
+                                     # geometry (compile_graph's tune=)
 
 
 @dataclass
@@ -216,6 +218,29 @@ def tensor_rows(g: QonnxGraph, name: str) -> Optional[int]:
     for d in sh[:-1]:
         rows *= 1 if d is None else int(d)
     return rows
+
+
+def tensor_batch(g: QonnxGraph, name: str) -> int:
+    """The declared leading (batch) dim of a tensor; 1 when it is symbolic
+    or the shape is unknown."""
+    sh = g.get_shape(name)
+    return int(sh[0]) if sh and sh[0] is not None else 1
+
+
+def blocks_at(cfg, rows: Optional[int], batch: int):
+    """The ``blocks`` a tuned segment's kernel call passes, as a function of
+    the call's input ``x``: ``cfg``'s blocks where the call's rows (``rows``
+    at the declared ``batch``, scaled by x's leading dim) fall in the
+    bucket they were tuned at (``tune.bucket_rows``), else None.  A
+    geometry measured at one bucket says nothing of another, where the
+    heuristic plan runs at the call's own shape; an untuned segment always
+    runs the heuristic."""
+    if cfg is None or not cfg.tuned or not rows:
+        return lambda x: None
+    from repro_torch.tune import bucket_rows
+    blocks, bucket, batch = tuple(cfg.blocks), bucket_rows(rows), max(1, batch)
+    return lambda x: blocks if bucket_rows(
+        rows * x.shape[0] // batch) == bucket else None
 
 
 def conv_out_rows(g: QonnxGraph, node: Node) -> Optional[int]:

@@ -50,7 +50,7 @@ import torch
 from ..graph import Node, QonnxGraph
 from .base import (LoweringContext, LoweringRule, Segment, conv_channel_scale,
                    conv_out_rows, register_rule, select_accumulator,
-                   sole_consumer, static_value)
+                   sole_consumer, static_value, tensor_batch)
 from .qdq import stage_qdq_epilogue, static_act_quant_params
 from .requant import select_requant
 from .weights import (KernelMatch, QuantWeight, chain_absorbable,
@@ -194,7 +194,7 @@ def stage_act_epilogue(idx: int, m: KernelMatch, consts: dict,
     act = m.act
     if act is None or m.requant is not None:
         return None, ()
-    qdq, keys = stage_qdq_epilogue(
+    qdq, keys, _ = stage_qdq_epilogue(
         idx, consts, ctx, scale=act.scale, zero_point=act.zero_point,
         bit_width=act.bit_width, signed=act.signed, narrow=act.narrow,
         rounding_mode=act.rounding_mode, emit_codes=emit_codes)
@@ -241,7 +241,7 @@ class QuantConvRule(LoweringRule):
         m = QuantConvMatch(
             nb.nodes, node.inputs[0], nb.out, w2, nb.scale, nb.bias,
             nb.qw.int4_values and w2.shape[0] % 2 == 0,
-            rows=conv_out_rows(g, node),
+            rows=conv_out_rows(g, node), batch=tensor_batch(g, node.inputs[0]),
             kernel_shape=nb.kernel_shape, strides=nb.strides, pads=nb.pads,
             dilations=nb.dilations, group=nb.group, relu=nb.relu, act=nb.act)
         select_conv_paths(ctx, g, node, m, nb)
@@ -255,8 +255,9 @@ class QuantConvRule(LoweringRule):
         from . import fusion
 
         cin, cout = fusion.fusion_carriers(ctx, m.x, m.out)
-        kind, use_int4, w_key, s_key, b_key, meta = stage_kernel_carriers(
-            idx, m, consts, ctx, ("quant_conv", "quant_conv_int4"))
+        kind, use_int4, w_key, s_key, b_key, meta, blocks_at = \
+            stage_kernel_carriers(idx, m, consts, ctx,
+                                  ("quant_conv", "quant_conv_int4"))
         conv = functools.partial(
             kernel_ops.quant_conv2d, kernel_shape=m.kernel_shape,
             strides=m.strides, pads=m.pads, dilations=m.dilations,
@@ -273,7 +274,7 @@ class QuantConvRule(LoweringRule):
             if cin is not None:
                 x = fusion.boundary_values(x, cin)
             y = conv(x, consts[w_key], consts[s_key],
-                     consts[b_key] if b_key else None)
+                     consts[b_key] if b_key else None, blocks=blocks_at(x))
             y = conv_epilogue(y, relu, qdq, consts, act_keys)
             env[out_name] = fusion.carried_output(y, cout, code)
 

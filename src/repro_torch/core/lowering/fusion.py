@@ -487,7 +487,7 @@ class EltwiseAddRule(LoweringRule):
         qdq = None
         keys: tuple = ()
         if m.act is not None:
-            qdq, keys = stage_qdq_epilogue(
+            qdq, keys, _ = stage_qdq_epilogue(
                 idx, consts, ctx, scale=m.act.scale,
                 zero_point=m.act.zero_point, bit_width=m.act.bit_width,
                 signed=m.act.signed, narrow=m.act.narrow,

@@ -41,7 +41,7 @@ import torch
 
 from ..graph import Node, QonnxGraph
 from .base import (LoweringContext, LoweringRule, Segment, conv_out_rows,
-                   register_rule)
+                   register_rule, tensor_batch)
 from .conv import (QuantConvMatch, conv_epilogue, match_conv_common,
                    offer_conv_carriers, select_conv_paths, stage_act_epilogue)
 from .weights import stage_kernel_carriers
@@ -73,6 +73,17 @@ def _out_spatial(g: QonnxGraph, node: Node) -> int:
             return 0
         n *= int(d)
     return n
+
+
+def _dw_geometry(g: QonnxGraph, node: Node, nb) -> tuple:
+    """B6's plan inputs beyond rows x taps: (H, W, OH, OW, kh, kw,
+    strides, dilations, pads), flattened; () when a shape is unknown."""
+    xs, ys = g.get_shape(node.inputs[0]), g.get_shape(node.outputs[0])
+    if not xs or not ys or len(xs) != 4 or len(ys) != 4 or \
+            any(d is None for d in (*xs[2:], *ys[2:])):
+        return ()
+    return (*xs[2:], *ys[2:], *nb.kernel_shape, *nb.strides, *nb.dilations,
+            *nb.pads)
 
 
 @register_rule
@@ -109,12 +120,14 @@ class GroupedConvRule(LoweringRule):
         m = GroupedConvMatch(
             nb.nodes, node.inputs[0], nb.out, w_carrier, nb.scale, nb.bias,
             int4_ok, rows=conv_out_rows(g, node),
+            batch=tensor_batch(g, node.inputs[0]),
             kernel_shape=nb.kernel_shape, strides=nb.strides,
             pads=nb.pads, dilations=nb.dilations, group=nb.group,
             relu=nb.relu, act=nb.act, depthwise=depthwise,
             reclaimed_macs=saved_entries * _out_spatial(g, node),
             dense_int4_ok=nb.qw.int4_values and
-            (ipg * nb.group * kh * kw) % 2 == 0)
+            (ipg * nb.group * kh * kw) % 2 == 0,
+            geometry=_dw_geometry(g, node, nb) if depthwise else ())
         select_conv_paths(ctx, g, node, m, nb)
         # the depthwise float32 path realizes the act Quant inside B6,
         # which has no codes output: only the integer path and B5's
@@ -131,8 +144,9 @@ class GroupedConvRule(LoweringRule):
         cin, cout = fusion.fusion_carriers(ctx, m.x, m.out)
         kinds = ("quant_conv_dw",) * 2 if m.depthwise else \
             ("quant_conv_grouped", "quant_conv_grouped_int4")
-        kind, use_int4, w_key, s_key, b_key, meta = stage_kernel_carriers(
-            idx, m, consts, ctx, kinds, pack=kernel_ops.pack_int4_grouped)
+        kind, use_int4, w_key, s_key, b_key, meta, blocks_at = \
+            stage_kernel_carriers(idx, m, consts, ctx, kinds,
+                                  pack=kernel_ops.pack_int4_grouped)
         qdq, act_keys = stage_act_epilogue(idx, m, consts, ctx,
                                            emit_codes=cout is not None)
         # integer path: Relu and the act Quant live in the IntRequant
@@ -161,7 +175,7 @@ class GroupedConvRule(LoweringRule):
                 y = conv(
                     x.to(torch.float32).contiguous(), consts[w_key],
                     consts[s_key], consts[b_key] if b_key else None,
-                    *(consts[k] for k in act_keys))
+                    *(consts[k] for k in act_keys), blocks=blocks_at(x))
                 env[out_name] = fusion.carried_output(y, cout, code)
         else:
             conv = functools.partial(
@@ -174,7 +188,7 @@ class GroupedConvRule(LoweringRule):
                 if cin is not None:
                     x = fusion.boundary_values(x, cin)
                 y = conv(x, consts[w_key], consts[s_key],
-                         consts[b_key] if b_key else None)
+                         consts[b_key] if b_key else None, blocks=blocks_at(x))
                 y = conv_epilogue(y, relu, qdq, consts, act_keys)
                 env[out_name] = fusion.carried_output(y, cout, code)
 

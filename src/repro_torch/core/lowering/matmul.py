@@ -26,7 +26,7 @@ import torch
 from ..graph import Node, QonnxGraph
 from .base import (LoweringContext, LoweringRule, Segment, col_scale,
                    register_rule, select_accumulator, sole_consumer,
-                   static_value, tensor_rows)
+                   static_value, tensor_batch, tensor_rows)
 from .requant import select_requant
 from .weights import (KernelMatch, chain_absorbable, resolve_quant_weight,
                       stage_kernel_carriers)
@@ -49,8 +49,8 @@ def make_matmul_segment(idx: int, m: KernelMatch, consts: dict,
     from . import fusion
 
     (cin,) = fusion.fusion_carriers(ctx, m.x)
-    kind, use_int4, w_key, s_key, b_key, meta = stage_kernel_carriers(
-        idx, m, consts, ctx, kinds)
+    kind, use_int4, w_key, s_key, b_key, meta, blocks_at = \
+        stage_kernel_carriers(idx, m, consts, ctx, kinds)
     # integer path: the kernel is fed grid indices (q - z).  It divides x
     # by s_x as it stages the tile, an IEEE division whose true quotient is
     # a representable integer (select_requant proved it), so it is exact.
@@ -66,7 +66,7 @@ def make_matmul_segment(idx: int, m: KernelMatch, consts: dict,
         lead = tuple(x.shape[:-1])
         x2 = x.reshape(-1, x.shape[-1]).to(torch.float32).contiguous()
         y = kernel(x2, consts[w_key], consts[s_key],
-                   consts[b_key] if b_key else None)
+                   consts[b_key] if b_key else None, blocks=blocks_at(x))
         env[out_name] = y.reshape(lead + (y.shape[-1],))
 
     keys = (w_key, s_key, b_key) if b_key else (w_key, s_key)
@@ -154,4 +154,5 @@ def _finish_match(g: QonnxGraph, node: Node, nodes: list[Node], n: int,
 
     return QuantMatMulMatch(nodes, node.inputs[0], out, w_int,
                             np.asarray(scale, np.float32), bias, int4_ok,
-                            rows=tensor_rows(g, node.inputs[0]))
+                            rows=tensor_rows(g, node.inputs[0]),
+                            batch=tensor_batch(g, node.inputs[0]))

@@ -24,7 +24,8 @@ from ..executor import to_tensor
 from ..formats import bitwidth_from_bounds
 from ..graph import Node, QonnxGraph
 from .base import (LoweringContext, LoweringRule, Match, Segment,
-                   register_rule, scalar, sole_consumer, static_value)
+                   blocks_at, register_rule, scalar, sole_consumer,
+                   static_value, tensor_batch, tensor_rows)
 
 
 def static_act_quant_params(g: QonnxGraph, node: Node):
@@ -54,13 +55,16 @@ class QDQMatch(Match):
     signed: bool
     narrow: bool
     rounding_mode: str
+    rows: Optional[int] = None   # flattened leading dims (tuner bucketing)
+    cols: Optional[int] = None   # last dim
+    batch: int = 1               # x's declared leading dim
     carrier_accepts: tuple = ()  # inputs acceptable as integer carriers
     carrier_out: Optional[object] = None   # fusion.Carrier offer for out
 
 
 def stage_qdq_epilogue(idx: int, consts: dict, ctx: LoweringContext, *,
                        scale, zero_point, bit_width, signed, narrow,
-                       rounding_mode, emit_codes=False):
+                       rounding_mode, shape=None, emit_codes=False):
     """Stage one activation Quant's constants and build its kernel closure.
 
     The one place a Quant's realization on ``kernels.quant_dequant`` (B4)
@@ -74,17 +78,27 @@ def stage_qdq_epilogue(idx: int, consts: dict, ctx: LoweringContext, *,
     the dequantized values: the codes it clips and rounds either way, so a
     carried boundary holds the same integers the float32 one encodes.
 
-    Returns ``(kernel_fn, (s_key, z_key))``."""
+    ``shape`` is the kernel's flattened ``(rows, cols)`` view when known:
+    with a tuner on the context it selects the launch geometry (the QDQ
+    segments pass it, as the reference's do, and pass the tuned blocks to
+    the kernel per call through ``base.blocks_at``).
+
+    Returns ``(kernel_fn, (s_key, z_key), block_cfg_or_None)``."""
     from repro_torch.kernels.ops import quant_dequant
 
     s_key, z_key = f"__seg{idx}_qs", f"__seg{idx}_qz"
     consts[s_key] = to_tensor(np.asarray(scale, np.float32), ctx.device)
     consts[z_key] = to_tensor(np.asarray(zero_point, np.float32), ctx.device)
-    kernel = functools.partial(quant_dequant, bit_width=bit_width,
-                               signed=signed, narrow=narrow,
-                               rounding_mode=rounding_mode,
-                               emit_codes=emit_codes)
-    return kernel, (s_key, z_key)
+    cfg = None
+    tuner = ctx.tuner
+    if tuner is not None and shape is not None and \
+            shape[0] is not None and shape[1] is not None:
+        cfg = tuner.blocks_for(tuner.sig(
+            "qdq", rows=shape[0], n=shape[1], k=0, bits=int(bit_width)))
+    kernel = functools.partial(
+        quant_dequant, bit_width=bit_width, signed=signed, narrow=narrow,
+        rounding_mode=rounding_mode, emit_codes=emit_codes)
+    return kernel, (s_key, z_key), cfg
 
 
 def make_qdq_segment(idx: int, m: QDQMatch, consts: dict,
@@ -92,22 +106,28 @@ def make_qdq_segment(idx: int, m: QDQMatch, consts: dict,
     from . import fusion
 
     cin, cout = fusion.fusion_carriers(ctx, m.x, m.out)
-    kernel, (s_key, z_key) = stage_qdq_epilogue(
+    kernel, (s_key, z_key), cfg = stage_qdq_epilogue(
         idx, consts, ctx, scale=m.scale, zero_point=m.zero_point,
         bit_width=m.bit_width, signed=m.signed, narrow=m.narrow,
-        rounding_mode=m.rounding_mode, emit_codes=cout is not None)
+        rounding_mode=m.rounding_mode, shape=(m.rows, m.cols),
+        emit_codes=cout is not None)
     x_name, out_name = m.x, m.out
+    at = blocks_at(cfg, m.rows, m.batch)
 
     def run(consts, env):
         x = env.get(x_name, consts.get(x_name))
         if cin is not None:
             x = fusion.boundary_values(x, cin)
         x2 = x.reshape(1, -1) if x.ndim < 2 else x
-        y = kernel(x2.contiguous(), consts[s_key], consts[z_key])
+        y = kernel(x2.contiguous(), consts[s_key], consts[z_key],
+                   blocks=at(x2))
         y = y.reshape(x.shape)
         env[out_name] = y if cout is None else fusion.boundary_out(y, cout)
 
-    meta = fusion._carrier_meta({}, cin, cout) if (cin or cout) else {}
+    meta = {} if cfg is None else {"blocks": list(cfg.blocks),
+                                   "tuned": cfg.source}
+    if cin or cout:
+        meta = fusion._carrier_meta(meta, cin, cout)
     return Segment("quant_dequant", m.nodes, [x_name], [out_name], run,
                    (s_key, z_key), meta)
 
@@ -121,6 +141,11 @@ def _offer_carriers(m: QDQMatch, ctx: LoweringContext, s, z) -> QDQMatch:
         m.carrier_out = fusion.carrier_from_params(
             s, z, m.bit_width, m.signed, m.narrow)
     return m
+
+
+def _last_dim(g: QonnxGraph, x: str) -> Optional[int]:
+    sh = g.get_shape(x)
+    return sh[-1] if sh else None
 
 
 def _channel_params_ok(g: QonnxGraph, x: str, *params) -> bool:
@@ -152,8 +177,10 @@ class ActivationQuantRule(LoweringRule):
         return _offer_carriers(QDQMatch(
             [node], node.inputs[0], node.outputs[0],
             np.asarray(s, np.float32).reshape(-1),
-            np.asarray(z, np.float32).reshape(-1), nb, signed, narrow, rmode),
-            ctx, s, z)
+            np.asarray(z, np.float32).reshape(-1), nb, signed, narrow, rmode,
+            rows=tensor_rows(g, node.inputs[0]),
+            cols=_last_dim(g, node.inputs[0]),
+            batch=tensor_batch(g, node.inputs[0])), ctx, s, z)
 
     def emit(self, idx: int, match: QDQMatch, consts: dict,
              ctx: LoweringContext) -> Segment:
@@ -209,7 +236,9 @@ class QCDQChainRule(LoweringRule):
             seq, node.inputs[0], dq.outputs[0],
             np.asarray(s, np.float32).reshape(-1),
             np.asarray(z, np.float32).reshape(-1), float(nb), signed, narrow,
-            "ROUND"), ctx, s, z)
+            "ROUND", rows=tensor_rows(g, node.inputs[0]),
+            cols=_last_dim(g, node.inputs[0]),
+            batch=tensor_batch(g, node.inputs[0])), ctx, s, z)
 
     def emit(self, idx: int, match: QDQMatch, consts: dict,
              ctx: LoweringContext) -> Segment:

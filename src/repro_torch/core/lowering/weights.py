@@ -26,7 +26,7 @@ import torch
 from .. import quant_ops
 from ..executor import op_output, to_tensor
 from ..graph import Node, QonnxGraph
-from .base import Match, scalar, sole_consumer, static_value
+from .base import Match, blocks_at, scalar, sole_consumer, static_value
 
 
 @dataclass
@@ -42,6 +42,9 @@ class KernelMatch(Match):
     acc_bits: Optional[int] = None    # minimal accumulator width (if proven)
     requant: Optional[object] = None  # proven RequantPlan (integer path)
     rows: Optional[int] = None   # the kernel's M rows per declared batch
+    batch: int = 1               # x's declared leading dim
+    geometry: tuple = ()         # plan inputs beyond the carrier's dims
+                                 # (depthwise: the conv's; tuner signature)
     carrier_accepts: tuple = ()  # inputs the emitter can take as integer
                                  # boundary carriers (lowering/fusion.py)
     carrier_out: Optional[object] = None   # fusion.Carrier offer for ``out``
@@ -72,8 +75,17 @@ def stage_kernel_carriers(idx: int, m: KernelMatch, consts: dict, ctx,
     segment runs B2 (the (K, N) int4 carrier) and, when the shapes are
     known, the kernel's rows (``m.rows``).
 
-    Returns ``(kind, use_int4, w_key, s_key, b_key_or_None, meta)`` where
-    ``kinds`` is the (int8, int4) segment-kind pair.
+    When the context carries a tuner, the segment's workload signature
+    (family x rows bucket x carrier dims x bits x requant path x body x
+    geometry) is built from the pre-packing carrier shape and resolved to a
+    ``BlockConfig``: the chosen blocks land in ``meta["blocks"]`` with their
+    provenance in ``meta["tuned"]``, as in the reference.
+
+    Returns ``(kind, use_int4, w_key, s_key, b_key_or_None, meta,
+    blocks_at)`` where ``kinds`` is the (int8, int4) segment-kind pair and
+    ``blocks_at(x)`` the ``blocks`` the rule passes to its kernel for input
+    ``x`` (``base.blocks_at``: the tuned blocks at the bucket they were
+    tuned at, else None for the heuristic plan).
     """
     from repro_torch.kernels.ops import pack_int4
 
@@ -101,8 +113,41 @@ def stage_kernel_carriers(idx: int, m: KernelMatch, consts: dict, ctx,
         meta["b2_body"] = b2_body(m.acc_dtype, m.body()["int8_codes"])
     if m.rows is not None:
         meta["rows"] = m.rows
+    cfg = None
+    if ctx.tuner is not None:
+        cfg = ctx.tuner.blocks_for(_carrier_sig(ctx.tuner, kinds[0], m,
+                                                use_int4, meta))
+        meta["blocks"] = list(cfg.blocks)
+        meta["tuned"] = cfg.source
     return (kind, use_int4, w_key, s_key,
-            b_key if m.bias is not None else None, meta)
+            b_key if m.bias is not None else None, meta,
+            blocks_at(cfg, m.rows, m.batch))
+
+
+def _carrier_sig(tuner, base_kind: str, m: KernelMatch, use_int4: bool,
+                 meta: dict):
+    """Map a staged carrier to its autotuner ``KernelSig``.
+
+    The dims come from the pre-packing carrier: (K, N) for the dense
+    matmul / im2col kinds, (G, Kg, Ng) grouped, (kH·kW, C) depthwise; the
+    matmul family also names B1 / B2's body, the depthwise one the conv's
+    geometry."""
+    from repro_torch.kernels.quant_matmul import b2_body
+    w = np.asarray(m.w_int)
+    bits = 4 if use_int4 else 8
+    requant = meta["requant_path"]
+    if base_kind == "quant_conv_dw":
+        taps, c = w.shape
+        return tuner.sig("depthwise", rows=m.rows, n=c, k=taps, bits=bits,
+                         requant=requant, geometry=m.geometry)
+    if base_kind == "quant_conv_grouped":
+        g, kg, ng = w.shape
+        return tuner.sig("grouped", rows=m.rows, n=ng, k=kg, groups=g,
+                         bits=bits, requant=requant)
+    k, n = w.shape
+    body = b2_body(m.acc_dtype, use_int4 and m.body()["int8_codes"])
+    return tuner.sig("matmul", rows=m.rows, n=n, k=k, bits=bits,
+                     requant=requant, body=body)
 
 
 @dataclass

@@ -144,6 +144,28 @@ def run_pipeline(graph: QonnxGraph, name: str) -> QonnxGraph:
     return get_pass(name)(graph)
 
 
+# convenience entry points (the reference's names for the hand-chained
+# call sites)
+def cleanup(graph: QonnxGraph) -> QonnxGraph:
+    return run_pipeline(graph, "cleanup")
+
+
+def streamline_for_finn(graph: QonnxGraph) -> QonnxGraph:
+    return run_pipeline(graph, "streamline_for_finn")
+
+
+def streamline_for_hls4ml(graph: QonnxGraph) -> QonnxGraph:
+    return run_pipeline(graph, "streamline_for_hls4ml")
+
+
+def lower_to_qcdq(graph: QonnxGraph) -> QonnxGraph:
+    return run_pipeline(graph, "lower_to_qcdq")
+
+
+def lower_to_quantized_op(graph: QonnxGraph) -> QonnxGraph:
+    return run_pipeline(graph, "lower_to_quantized_op")
+
+
 # ---------------------------------------------------------- registration
 
 _REGISTERED = False

@@ -9,7 +9,10 @@ unpack; ``pack_int4_grouped`` does the same along each group's Kg.
 """
 from __future__ import annotations
 
-from . import flash_attention as _fa
+import importlib
+
+import torch
+
 from . import quant_dequant as _qdq
 from . import quant_grouped_conv as _gconv
 from . import quant_matmul as _qmm
@@ -28,6 +31,35 @@ from .quant_matmul import (  # noqa: F401
     exact_reciprocal, pack_int4, qmm_launch_plan, staged_values, staging, quant_matmul,
     quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_plain, unpack_int4)
 
+# B7's module (its launch count), not the function the package binds to
+# the name ``flash_attention``
+_fa = importlib.import_module(".flash_attention", __package__)
+
+
+
+def quantize_weights_int8(w: torch.Tensor, *, narrow: bool = True):
+    """Symmetric per-output-channel int8 quantization of a (K, N) weight:
+    ``(w_int8, scale[N])`` with ``w ~= scale * w_int8`` (the paper's §II
+    convention).  The reference runs this outside ``jit``, and its
+    ``amax / 127.0`` is a true division there, not the product with the
+    reciprocal that ``jit`` makes of it (ROADMAP C7): both divisions here
+    are IEEE float32 divisions, so the codes and scales are its bits."""
+    w = torch.as_tensor(w, dtype=torch.float32)
+    amax = torch.amax(torch.abs(w), dim=0)
+    scale = torch.clamp_min(amax / 127.0, 1e-8)
+    q = torch.clamp(torch.round(w / scale), -127 if narrow else -128, 127)
+    return q.to(torch.int8), scale
+
+
+def quantize_weights_int4(w: torch.Tensor):
+    """Symmetric per-channel int4 quantization, then packing:
+    ``(w_packed[K//2, N], scale[N])``; the divisions as in
+    ``quantize_weights_int8``."""
+    w = torch.as_tensor(w, dtype=torch.float32)
+    amax = torch.amax(torch.abs(w), dim=0)
+    scale = torch.clamp_min(amax / 7.0, 1e-8)
+    q = torch.clamp(torch.round(w / scale), -7, 7).to(torch.int8)
+    return pack_int4(q), scale
 
 def launch_counts() -> dict:
     """Kernel launches so far, per kernel (plain-twin calls do not count)."""

@@ -119,7 +119,8 @@ def quant_conv2d(x: torch.Tensor, w2: torch.Tensor, w_scale,
                  bias: Optional[torch.Tensor] = None, *, kernel_shape,
                  strides=(1, 1), pads=(0, 0, 0, 0), dilations=(1, 1),
                  packed: bool = False, acc_dtype=torch.float32, requant=None,
-                 in_scale=None, int8_codes: bool = False) -> torch.Tensor:
+                 in_scale=None, int8_codes: bool = False,
+                 blocks=None) -> torch.Tensor:
     """Fused quantized conv: im2col patches through B1 / B2.
 
     x        — (N, C, H, W) activations (cast to float32)
@@ -131,12 +132,13 @@ def quant_conv2d(x: torch.Tensor, w2: torch.Tensor, w_scale,
     acc_dtype / requant / in_scale / int8_codes — the kernel's body
                (``quant_matmul``); the zero padding divides to 0 on the
                integer path too
+    blocks   — the matmul's launch-plan override (``quant_matmul``)
     Returns (N, O, OH, OW) float32, contiguous."""
     x = x.to(torch.float32)
     patches, (oh, ow) = extract_patches(x, kernel_shape, strides, pads,
                                         dilations)
     mm = quant_matmul_int4 if packed else quant_matmul
     y = mm(patches, w2, w_scale, bias, acc_dtype=acc_dtype, requant=requant,
-           in_scale=in_scale, int8_codes=int8_codes)
+           in_scale=in_scale, int8_codes=int8_codes, blocks=blocks)
     return y.reshape(x.shape[0], oh, ow, y.shape[-1]).permute(0, 3, 1, 2) \
         .contiguous()

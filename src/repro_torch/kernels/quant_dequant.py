@@ -196,7 +196,8 @@ class QdqPlan:
 
 @functools.lru_cache(maxsize=1024)
 def qdq_launch_plan(numel: int, cols: int, per_channel: bool, x_phase: int = 0,
-                    o_phase: int = 0, max_blocks: int = QDQ_MAX_BLOCKS) -> QdqPlan:
+                    o_phase: int = 0, max_blocks: int = QDQ_MAX_BLOCKS,
+                    override=None) -> QdqPlan:
     """B4's geometry for ``numel`` elements in rows of ``cols`` (per
     channel; a per-tensor plan has no columns and keeps ``cols`` 1).
 
@@ -207,29 +208,48 @@ def qdq_launch_plan(numel: int, cols: int, per_channel: bool, x_phase: int = 0,
     a vector at a time only where the output has x's phase, so that it is
     then aligned too (the wrapper allocates it so).  ``unroll`` is the most loads in
     flight (4, 2, 1) that still leave ``QDQ_MIN_BLOCKS`` blocks, and the
-    grid is capped at ``max_blocks`` (a grid-stride loop covers the rest)."""
+    grid is capped at ``max_blocks`` (a grid-stride loop covers the rest).
+
+    ``override``: ``(unroll, max_blocks)`` (``qdq_blocks``) in place of the
+    heuristic's loads in flight and ``max_blocks``, as the autotuner gives
+    them; an unroll outside 1..QDQ_UMAX or a cap outside the grid's limit
+    raises ``ValueError``."""
     if numel < 0 or cols < 1 or not 0 <= x_phase < 4 or not 0 <= o_phase < 4:
         raise ValueError(f"qdq_launch_plan: bad geometry numel={numel} cols={cols} "
                          f"phases {x_phase}, {o_phase}")
     head = min((4 - x_phase) % 4, numel)
     nvec = (numel - head) // 4
     tail = numel - head - 4 * nvec
-    unroll = 1
-    for u in (QDQ_UMAX, 2):
-        if -(-nvec // (QDQ_THREADS * u)) >= QDQ_MIN_BLOCKS:
-            unroll = u
-            break
+    if override is None:
+        unroll = 1
+        for u in (QDQ_UMAX, 2):
+            if -(-nvec // (QDQ_THREADS * u)) >= QDQ_MIN_BLOCKS:
+                unroll = u
+                break
+    else:
+        unroll, max_blocks = (int(v) for v in override)
+        if not 1 <= unroll <= QDQ_UMAX or not 1 <= max_blocks < 2 ** 31:
+            raise ValueError(f"qdq_launch_plan: override {tuple(override)} is not "
+                             f"(unroll 1..{QDQ_UMAX}, a grid of 1 .. 2^31 - 1)")
     blocks = max(1, min(-(-nvec // (QDQ_THREADS * unroll)), max_blocks))
     return QdqPlan(numel, nvec, cols if per_channel else 1, head, tail,
                    int(o_phase == x_phase), unroll, blocks, int(numel >= 2 ** 31))
 
 
+def qdq_blocks(plan: QdqPlan) -> tuple[int, int]:
+    """The choices of a plan, as ``qdq_launch_plan``'s ``override`` takes
+    them: ``(unroll, blocks)``."""
+    return (plan.unroll, plan.blocks)
+
+
 def quant_dequant(x: torch.Tensor, scale, zero_point, *, bit_width=8,
                   signed=True, narrow=False, rounding_mode="ROUND",
-                  emit_codes=False) -> torch.Tensor:
+                  emit_codes=False, blocks=None) -> torch.Tensor:
     """Fused QDQ over a (..., N) float32 tensor; scale / zero_point are
     scalars or (N,) tensors.  Returns float32 values of ``x``'s shape, or
-    int8 codes when ``emit_codes`` (widths must fit int8)."""
+    int8 codes when ``emit_codes`` (widths must fit int8).  ``blocks``:
+    the launch plan's ``override`` (``qdq_blocks``), None for the
+    heuristic; the twin ignores it."""
     global launches
     mode = rounding_mode.upper()
     if mode not in ROUNDING_MODE_IDS:
@@ -264,7 +284,8 @@ def quant_dequant(x: torch.Tensor, scale, zero_point, *, bit_width=8,
         return out
     per_channel = s.numel() > 1 or z.numel() > 1
     plan = qdq_launch_plan(numel, max(n, 1), per_channel, x_phase,
-                           out.data_ptr() // out.element_size() % 4)
+                           out.data_ptr() // out.element_size() % 4,
+                           override=None if blocks is None else tuple(blocks))
     err = load().qdq_launch(
         x.data_ptr(), s.data_ptr(), z.data_ptr(), out.data_ptr(), plan.ints,
         int(s.numel() > 1), int(z.numel() > 1), lo, hi,

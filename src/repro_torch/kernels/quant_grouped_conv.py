@@ -202,14 +202,31 @@ class GqPlan:
             *(getattr(self, f) for f in GQ_GEO_FIELDS))
 
 
+GQ_BNS = (8, 16, 32)           # B5's block columns (template instances)
+
+
 @functools.lru_cache(maxsize=1024)
 def gqmm_launch_plan(G: int, M: int, Kg: int, Ng: int, x_vec: bool = True,
-                     o_vec: bool = True) -> GqPlan:
+                     o_vec: bool = True, override=None) -> GqPlan:
     """B5's geometry for a (G, M, Kg) x (G, Kg, Ng) product.  ``x_vec``:
     Kg % 4 == 0 and x's pointer, group and row strides on 16 bytes (the
-    caller checks the strides); ``o_vec`` likewise for the output."""
-    bn = 8 if Ng <= 8 else (16 if Ng <= 16 else 32)
-    ks = min(max(4, -(-Kg // 4) * 4), GQ_KS_MAX)
+    caller checks the strides); ``o_vec`` likewise for the output.
+
+    ``override``: ``(BN, KS)`` (``gqmm_blocks``) in place of the
+    heuristic's (the smallest BN that holds Ng, the whole of Kg up to
+    GQ_KS_MAX), as the autotuner gives them; BN outside ``GQ_BNS`` or a
+    slice that is not a multiple of 4 in 4 .. min(GQ_KS_MAX, Kg rounded up
+    to 4) raises ``ValueError``."""
+    ks_most = min(max(4, -(-Kg // 4) * 4), GQ_KS_MAX)
+    if override is None:
+        bn = 8 if Ng <= 8 else (16 if Ng <= 16 else 32)
+        ks = ks_most
+    else:
+        bn, ks = (int(v) for v in override)
+        if bn not in GQ_BNS or ks % 4 or not 4 <= ks <= ks_most:
+            raise ValueError(f"quant_grouped_matmul: override {tuple(override)} is "
+                             f"not (BN of {GQ_BNS}, a K slice of 4 .. {ks_most} "
+                             "in steps of 4)")
     # a pitch of 4·odd words keeps eight lanes' 16-byte row reads on
     # distinct banks
     pitch = ks + (4 if (ks // 4) % 2 == 0 else 8)
@@ -219,7 +236,16 @@ def gqmm_launch_plan(G: int, M: int, Kg: int, Ng: int, x_vec: bool = True,
     if gx >= 2 ** 31 or gy > 65535 or gz > 65535:
         raise ValueError(f"quant_grouped_matmul: grid {plan.grid} beyond the "
                          "launch limits")
+    if plan.smem_bytes > SMEM_MAX:
+        raise ValueError(f"quant_grouped_matmul: {plan.smem_bytes} bytes of shared "
+                         f"memory (at most {SMEM_MAX})")
     return plan
+
+
+def gqmm_blocks(plan: GqPlan) -> tuple[int, int]:
+    """The choices of a plan, as ``gqmm_launch_plan``'s ``override`` takes
+    them: ``(BN, KS)``."""
+    return (plan.BN, plan.KS)
 
 
 def _vec_ok(t: torch.Tensor, *strides) -> bool:
@@ -238,7 +264,8 @@ def quant_grouped_matmul(xg: torch.Tensor, wg: torch.Tensor, w_scale,
                          bias: Optional[torch.Tensor] = None, *,
                          packed: bool = False, acc_dtype=torch.float32,
                          requant=None, in_scale=None,
-                         int8_codes: bool = False) -> torch.Tensor:
+                         int8_codes: bool = False,
+                         blocks=None) -> torch.Tensor:
     """Per-group integer matmul: out[g] = (xg[g] @ wg[g]) · s[g] [+ b[g]].
 
     xg: (G, M, Kg) float32, any group / row strides with unit stride along
@@ -250,7 +277,9 @@ def quant_grouped_matmul(xg: torch.Tensor, wg: torch.Tensor, w_scale,
     acc_dtype / requant / in_scale: the body, as ``quant_matmul``'s;
     int8_codes is accepted (the lowering passes it to every body) and B5
         keeps its body on the CUDA cores: at 3–4 operations per byte of x
-        it is bound by bytes, where the int8 tensor cores gain nothing.
+        it is bound by bytes, where the int8 tensor cores gain nothing;
+    blocks: the launch plan's override (``gqmm_blocks``), None for the
+        heuristic; the twin ignores it.
     Returns (G, M, Ng) float32.  On CUDA its memory is laid out (M, G, Ng),
     so ``out.permute(1, 0, 2).reshape(M, G·Ng)`` is a view."""
     name = "quant_grouped_matmul"
@@ -279,7 +308,8 @@ def quant_grouped_matmul(xg: torch.Tensor, wg: torch.Tensor, w_scale,
                       device=xg.device).permute(1, 0, 2)
     plan = gqmm_launch_plan(g, m, kg, ng,
                             _vec_ok(xg, xg.stride(0), xg.stride(1)),
-                            _vec_ok(out, out.stride(0), out.stride(1)))
+                            _vec_ok(out, out.stride(0), out.stride(1)),
+                            None if blocks is None else tuple(blocks))
     mode, div, mul = staging(in_scale)
     err = load().gqmm_launch(
         xg.data_ptr(), wg.data_ptr(), s.data_ptr(),
@@ -297,8 +327,8 @@ def quant_grouped_conv2d(x: torch.Tensor, wg: torch.Tensor, w_scale,
                          kernel_shape, strides=(1, 1), pads=(0, 0, 0, 0),
                          dilations=(1, 1), packed: bool = False,
                          acc_dtype=torch.float32, requant=None,
-                         in_scale=None,
-                         int8_codes: bool = False) -> torch.Tensor:
+                         in_scale=None, int8_codes: bool = False,
+                         blocks=None) -> torch.Tensor:
     """Fused grouped quantized conv: per-group im2col onto B5.
 
     x      — (N, C, H, W) activations (cast to float32)
@@ -308,6 +338,7 @@ def quant_grouped_conv2d(x: torch.Tensor, wg: torch.Tensor, w_scale,
     bias   — optional (O,) float32
     acc_dtype / requant / in_scale / int8_codes — B5's body
              (``quant_grouped_matmul``)
+    blocks — B5's launch-plan override (``quant_grouped_matmul``)
     Returns (N, O, OH, OW) float32, contiguous."""
     x = x.to(torch.float32)
     patches, (oh, ow) = extract_patches(x, kernel_shape, strides, pads,
@@ -319,7 +350,7 @@ def quant_grouped_conv2d(x: torch.Tensor, wg: torch.Tensor, w_scale,
     xg = patches.view(m, groups, kg).permute(1, 0, 2)
     y = quant_grouped_matmul(xg, wg, w_scale, bias, packed=packed,
                              acc_dtype=acc_dtype, requant=requant,
-                             in_scale=in_scale)
+                             in_scale=in_scale, blocks=blocks)
     o = groups * y.shape[-1]
     y = y.permute(1, 0, 2).reshape(m, o)
     return y.reshape(x.shape[0], oh, ow, o).permute(0, 3, 1, 2).contiguous()
@@ -495,46 +526,34 @@ def _dw_cost(blocks, staged, slots, vec) -> float:
     return blocks * per * max(1.0, 8 * SMS / blocks)
 
 
-@functools.lru_cache(maxsize=1024)
-def dw_launch_plan(N: int, C: int, H: int, W: int, OH: int, OW: int, kh: int,
-                   kw: int, strides=(1, 1), dilations=(1, 1),
-                   pads=(0, 0, 0, 0), aligned: bool = True) -> DwPlan:
-    """B6's geometry for an (N, C, H, W) -> (N, C, OH, OW) depthwise conv
-    with ONNX [t, l, b, r] ``pads``; ``aligned``: x's pointer is on 16
-    bytes.  Candidates: whole planes, several per block, where a plane has
-    at most DW_FLAT_MAX outputs, OW <= 32 and the plane fits shared memory
+def _dw_candidates(N, C, H, W, OH, OW, kh, kw, sh, sw, dh, dw, aligned,
+                   any_batch=False):
+    """Every geometry ``dw_launch_plan`` weighs, in its order, as ``(cost,
+    fields)``: whole planes, several per block, where a plane has at most
+    DW_FLAT_MAX outputs, OW <= 32 and the plane fits shared memory
     (MobileNet's 28x28, 14x14 and 7x7 maps); else 2-D tiles whose width
     divides OW into nearly equal parts (or 8 / 16 / 32); each with 4 or 7
-    rows per thread.  The cheapest by ``_dw_cost`` wins; a tile's pitch
-    then comes from ``_dw_pitches``."""
-    sh, sw = (int(v) for v in strides)
-    dh, dw = (int(v) for v in dilations)
-    pt, pl = int(pads[0]), int(pads[1])
+    rows per thread.  ``any_batch``: planes per block up to the threads'
+    limit, not also up to N·C (a block may then hold fewer planes than its
+    share: the kernel clamps), so that the set does not depend on N."""
     nc = N * C
-    if nc <= 0 or OH <= 0 or OW <= 0:
-        raise ValueError("quant_depthwise_conv2d: empty launch")
-    fast = sh if (kh, kw, dh) == (3, 3, 1) and sh in (1, 2) else 0
     span = (kh - 1) * dh + 1
-    best = None
     flat_ok = OW <= 32 and OH * OW <= DW_FLAT_MAX and 4 * (H * W + 3) <= SMEM_MAX
     for R in DW_ROWS_PER_THREAD:
         if flat_ok:
             RG = -(-OH // R)
             rows = (RG * R - 1) * sh + span
             cols = (OW - 1) * sw + (kw - 1) * dw + 1
-            vec = int(aligned)
-            for P in range(1, min(nc, DW_MAX_THREADS // (RG * OW)) + 1):
+            most = DW_MAX_THREADS // (RG * OW)
+            for P in range(1, (most if any_batch else min(nc, most)) + 1):
                 if 4 * (P * H * W + 3) > SMEM_MAX:
                     break
                 blocks = -(-nc // P)
-                cost = _dw_cost(blocks, P * H * W, P * RG * OW * R,
-                                vec and (P * H * W) % 4 == 0)
-                if best is None or cost < best[0]:
-                    best = (cost, dict(planes=P, tile_h=OH, tile_w=OW,
-                                       rows_per_thread=R, row_groups=RG,
-                                       tiles_h=1, tiles_w=1, rows=rows,
-                                       cols=cols, flat=1, blocks=blocks,
-                                       vec=int(vec and (P * H * W) % 4 == 0)))
+                vec = int(aligned and (P * H * W) % 4 == 0)
+                yield (_dw_cost(blocks, P * H * W, P * RG * OW * R, vec),
+                       dict(planes=P, tile_h=OH, tile_w=OW, rows_per_thread=R,
+                            row_groups=RG, tiles_h=1, tiles_w=1, rows=rows,
+                            cols=cols, flat=1, blocks=blocks, vec=vec))
             continue
         vec = int(aligned and W % 4 == 0)
         widths = {-(-OW // k) for k in range(1, OW + 1)}
@@ -554,17 +573,71 @@ def dw_launch_plan(N: int, C: int, H: int, W: int, OH: int, OW: int, kh: int,
                     break
                 tiles_h = -(-OH // TH)
                 blocks = nc * tiles_h * tiles_w
-                cost = _dw_cost(blocks, rows * cols, TH * TW, vec)
-                if best is None or cost < best[0]:
-                    best = (cost, dict(planes=1, tile_h=TH, tile_w=TW,
-                                       rows_per_thread=R, row_groups=RG,
-                                       tiles_h=tiles_h, tiles_w=tiles_w,
-                                       rows=rows, cols=cols, flat=0,
-                                       blocks=blocks, vec=vec))
-    if best is None:
-        raise ValueError(f"quant_depthwise_conv2d: no tile of a {H}x{W} plane "
-                         f"fits {SMEM_MAX} bytes of shared memory")
-    g = best[1]
+                yield (_dw_cost(blocks, rows * cols, TH * TW, vec),
+                       dict(planes=1, tile_h=TH, tile_w=TW, rows_per_thread=R,
+                            row_groups=RG, tiles_h=tiles_h, tiles_w=tiles_w,
+                            rows=rows, cols=cols, flat=0, blocks=blocks,
+                            vec=vec))
+
+
+def _dw_key(g: dict) -> tuple[int, int, int, int]:
+    """A candidate's choices: ``(flat, planes or tile width, rows per
+    thread, row groups)``."""
+    return (g["flat"], g["planes"] if g["flat"] else g["tile_w"],
+            g["rows_per_thread"], g["row_groups"])
+
+
+def _dw_args(strides, dilations, pads):
+    (sh, sw), (dh, dw) = ((int(a), int(b)) for a, b in (strides, dilations))
+    return sh, sw, dh, dw, int(pads[0]), int(pads[1])
+
+
+def dw_block_candidates(N: int, C: int, H: int, W: int, OH: int, OW: int,
+                        kh: int, kw: int, strides=(1, 1), dilations=(1, 1),
+                        pads=(0, 0, 0, 0), aligned: bool = True) -> list:
+    """``(cost, blocks)`` for every geometry B6's plan weighs at this shape,
+    cheapest first by the plan's ``_dw_cost`` (``blocks`` as
+    ``dw_launch_plan``'s ``override`` takes them).  Each is legal at any
+    batch."""
+    sh, sw, dh, dw, _, _ = _dw_args(strides, dilations, pads)
+    out = [(cost, _dw_key(g)) for cost, g in _dw_candidates(
+        N, C, H, W, OH, OW, kh, kw, sh, sw, dh, dw, aligned, any_batch=True)]
+    return sorted(out, key=lambda t: t[0])
+
+
+@functools.lru_cache(maxsize=1024)
+def dw_launch_plan(N: int, C: int, H: int, W: int, OH: int, OW: int, kh: int,
+                   kw: int, strides=(1, 1), dilations=(1, 1),
+                   pads=(0, 0, 0, 0), aligned: bool = True,
+                   override=None) -> DwPlan:
+    """B6's geometry for an (N, C, H, W) -> (N, C, OH, OW) depthwise conv
+    with ONNX [t, l, b, r] ``pads``; ``aligned``: x's pointer is on 16
+    bytes.  Of the candidates ``_dw_candidates`` gives, the cheapest by
+    ``_dw_cost`` wins; a tile's pitch then comes from ``_dw_pitches``.
+
+    ``override``: ``(flat, planes or tile width, rows per thread, row
+    groups)`` (``dw_blocks``, ``dw_block_candidates``), as the autotuner
+    gives them, in place of the cheapest; one that is no candidate of this
+    shape at any batch raises ``ValueError``."""
+    sh, sw, dh, dw, pt, pl = _dw_args(strides, dilations, pads)
+    nc = N * C
+    if nc <= 0 or OH <= 0 or OW <= 0:
+        raise ValueError("quant_depthwise_conv2d: empty launch")
+    fast = sh if (kh, kw, dh) == (3, 3, 1) and sh in (1, 2) else 0
+    cands = _dw_candidates(N, C, H, W, OH, OW, kh, kw, sh, sw, dh, dw, aligned,
+                           any_batch=override is not None)
+    if override is None:
+        best = min(cands, key=lambda t: t[0], default=None)
+        if best is None:
+            raise ValueError(f"quant_depthwise_conv2d: no tile of a {H}x{W} plane "
+                             f"fits {SMEM_MAX} bytes of shared memory")
+        g = best[1]
+    else:
+        want = tuple(int(v) for v in override)
+        g = next((g for _, g in cands if _dw_key(g) == want), None)
+        if g is None:
+            raise ValueError(f"quant_depthwise_conv2d: override {want} is no "
+                             f"candidate of a {H}x{W} -> {OH}x{OW} plane")
     P, RG, TW, R = g["planes"], g["row_groups"], g["tile_w"], g["rows_per_thread"]
     if g["flat"]:
         pitch, plane_pitch = W, H * W
@@ -584,6 +657,13 @@ def dw_launch_plan(N: int, C: int, H: int, W: int, OH: int, OW: int, kh: int,
                   buffer=buffer, smem_bytes=smem, fast=fast, **g)
 
 
+def dw_blocks(plan: DwPlan) -> tuple[int, int, int, int]:
+    """The choices of a plan, as ``dw_launch_plan``'s ``override`` takes
+    them: ``(flat, planes or tile width, rows per thread, row groups)``."""
+    return (plan.flat, plan.planes if plan.flat else plan.tile_w,
+            plan.rows_per_thread, plan.row_groups)
+
+
 def quant_depthwise_conv2d(x: torch.Tensor, w_taps: torch.Tensor, w_scale,
                            bias: Optional[torch.Tensor] = None,
                            act_scale=None, act_zero_point=None, *,
@@ -593,8 +673,8 @@ def quant_depthwise_conv2d(x: torch.Tensor, w_taps: torch.Tensor, w_scale,
                            act_narrow: bool = False,
                            act_rounding: str = "ROUND",
                            acc_dtype=torch.float32, requant=None,
-                           in_scale=None,
-                           int8_codes: bool = False) -> torch.Tensor:
+                           in_scale=None, int8_codes: bool = False,
+                           blocks=None) -> torch.Tensor:
     """Fused depthwise quantized conv (``group == C``, multiplier 1).
 
     x          — (N, C, H, W) activations (float32; contiguous on CUDA)
@@ -612,6 +692,8 @@ def quant_depthwise_conv2d(x: torch.Tensor, w_taps: torch.Tensor, w_scale,
                  keeps its body on the CUDA cores: at ~2 operations per
                  byte it is bound by bytes, where the int8 tensor cores
                  gain nothing.
+    blocks     — the launch plan's override (``dw_blocks``), None for the
+                 heuristic; the twin ignores it.
     Returns (N, C, OH, OW) float32."""
     name = "quant_depthwise_conv2d"
     mode = act_rounding.upper()
@@ -658,7 +740,8 @@ def quant_depthwise_conv2d(x: torch.Tensor, w_taps: torch.Tensor, w_scale,
     plan = dw_launch_plan(n, c, h, w, oh, ow, kh, kw,
                           *(tuple(int(v) for v in t)
                             for t in (strides, dilations, pads)),
-                          x.data_ptr() % 16 == 0)
+                          x.data_ptr() % 16 == 0,
+                          None if blocks is None else tuple(blocks))
     mode_s, div, mul = staging(in_scale)
     err = load().dw_launch(
         x.data_ptr(), w_taps.data_ptr(), s.data_ptr(),

@@ -385,10 +385,28 @@ class QmmPlan:
         return bx // self.split * bm, by * bn, bx % self.split
 
 
+def _qmm_kc(K: int, split: int) -> int:
+    """The K range one CTA of a ``split``-way cluster sums: whole K steps."""
+    return max(QMM_BK, -(-(-(-K // split)) // QMM_BK) * QMM_BK)
+
+
+def qmm_min_stages(tile: int, packed: bool, epi: int, K: int, split: int) -> int:
+    """The fewest raw stages a plan of this tile and split may have: as
+    many as a CTA takes K steps (up to QMM_STAGES), and with a split enough
+    that the ring holds the partial tile the cluster reduces."""
+    kc = _qmm_kc(K, split)
+    stages = min(QMM_STAGES, -(-min(kc, max(K, 1)) // QMM_BK))
+    if split > 1:
+        bm, bn = QMM_TILES[tile][:2]
+        one = qmm_smem_bytes(tile, packed, epi, 1, 0)
+        stages = max(stages, -(-4 * bm * bn // one))
+    return stages
+
+
 @functools.lru_cache(maxsize=1024)
 def qmm_launch_plan(M: int, K: int, N: int, packed: bool, epi: int,
                     x_vec: bool = True, w_vec: bool = True,
-                    o_vec: bool = True) -> QmmPlan:
+                    o_vec: bool = True, override=None) -> QmmPlan:
     """The CUDA-core body's geometry for (M, K) @ (K, N); ``epi`` the body
     (0 float32, 1 int32, 2 int32 + B3); ``x_vec`` / ``w_vec`` / ``o_vec``:
     x / the weights / the output lie on 16 bytes.
@@ -406,22 +424,43 @@ def qmm_launch_plan(M: int, K: int, N: int, packed: bool, epi: int,
     rows, so the block's rows are one span), by 16-byte row pieces where
     K % 4 == 0, else element by element; both copies need x on 16 bytes.
     The weights go by 16-byte pieces where N % 16 == 0 and w is on 16
-    bytes; outputs by float4 where N % 4 == 0."""
+    bytes; outputs by float4 where N % 4 == 0.
+
+    ``override``: ``(tile, split, stages)`` (``qmm_blocks``) in place of
+    the heuristic's choices, as the autotuner gives them; the alignment
+    modes are still this call's.  It raises ``ValueError`` unless the
+    kernel can run it: a tile of ``QMM_TILES``, a split of 1 to
+    ``QMM_CLUSTER_MAX`` CTAs that whole K steps give exactly, at least
+    ``qmm_min_stages`` and at most ``QMM_STAGES`` stages, and shared
+    memory within ``SMEM_MAX``."""
     if min(M, K, N) < 0 or epi not in (0, 1, 2) or (packed and K % 2):
         raise ValueError(f"qmm_launch_plan: bad problem {M}x{K}x{N} packed={packed} "
                          f"epi={epi}")
-    big = 2 if N <= 32 else 1
-    bm, bn = QMM_TILES[big][:2]
-    tile = big if -(-M // bm) * -(-N // bn) >= SMS // 2 else 0
+    if override is None:
+        big = 2 if N <= 32 else 1
+        bm, bn = QMM_TILES[big][:2]
+        tile = big if -(-M // bm) * -(-N // bn) >= SMS // 2 else 0
+        bm, bn = QMM_TILES[tile][:2]
+        tiles = max(1, -(-M // bm) * -(-N // bn))
+        split = 1
+        if tiles < SMS:
+            split = max(1, min(QMM_CLUSTER_MAX, SMS // tiles, K // (2 * QMM_BK)))
+        split = max(1, -(-K // _qmm_kc(K, split)))
+        stages = qmm_min_stages(tile, packed, epi, K, split)
+    else:
+        tile, split, stages = (int(v) for v in override)
+        if tile not in QMM_TILES or not 1 <= split <= QMM_CLUSTER_MAX or \
+                max(1, -(-K // _qmm_kc(K, split))) != split:
+            raise ValueError(f"qmm_launch_plan: override {tuple(override)} is not a "
+                             f"tile of QMM_TILES with a split that K={K} gives")
+        if not qmm_min_stages(tile, packed, epi, K, split) <= stages <= QMM_STAGES:
+            raise ValueError(f"qmm_launch_plan: override {tuple(override)}: "
+                             f"{stages} stages, the kernel needs "
+                             f"{qmm_min_stages(tile, packed, epi, K, split)} to "
+                             f"{QMM_STAGES}")
     bm, bn = QMM_TILES[tile][:2]
     tiles_m, tiles_n = -(-M // bm), -(-N // bn)
-    tiles = max(1, tiles_m * tiles_n)
-    split = 1
-    if tiles < SMS:
-        split = max(1, min(QMM_CLUSTER_MAX, SMS // tiles, K // (2 * QMM_BK)))
-    kc = max(QMM_BK, -(-(-(-K // split)) // QMM_BK) * QMM_BK)
-    split = max(1, -(-K // kc))
-    stages = min(QMM_STAGES, -(-min(kc, max(K, 1)) // QMM_BK))
+    kc = _qmm_kc(K, split)
     bufs = min(2, stages)
     if x_vec and 0 < K < QMM_BK:
         xmode = 2
@@ -432,13 +471,33 @@ def qmm_launch_plan(M: int, K: int, N: int, packed: bool, epi: int,
     plan = QmmPlan(M, K, N, tile, tiles_m, tiles_n, split, kc, stages, bufs, xmode,
                    int(w_vec and N % 16 == 0), int(o_vec and N % 4 == 0),
                    qmm_smem_bytes(tile, packed, epi, stages, bufs))
+    if plan.smem > SMEM_MAX:
+        raise ValueError(f"qmm_launch_plan: {plan.smem} bytes of shared memory "
+                         f"(at most {SMEM_MAX})")
     if plan.grid[0] >= 2 ** 31 or plan.grid[1] > 65535:
         raise ValueError(f"qmm_launch_plan: grid {plan.grid} beyond the launch limits")
     return plan
 
 
+def qmm_blocks(plan: QmmPlan) -> tuple[int, int, int]:
+    """The choices of a plan, as ``qmm_launch_plan``'s ``override`` takes
+    them: ``(tile, split, stages)``."""
+    return (plan.tile, plan.split, plan.stages)
+
+
+# B2's int8 tensor-core body has one geometry, the compile-time tile of the
+# kernel (csrc/quant_matmul.cu, namespace tc): 64x64 outputs, K steps of
+# 32 where K <= 32, else 64
+QMM_I8_TILE = (64, 64)
+
+
+def qmm_i8_blocks(K: int) -> tuple[int, int, int]:
+    """The int8 body's (BM, BN, BK), the one point its tuning has."""
+    return QMM_I8_TILE + (32 if K <= 32 else 64,)
+
+
 def _launch(name, x, w, w_scale, bias, k, packed, acc_dtype, requant,
-            in_scale, int8_codes=False) -> torch.Tensor:
+            in_scale, int8_codes=False, blocks=None) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
     if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():
@@ -462,6 +521,9 @@ def _launch(name, x, w, w_scale, bias, k, packed, acc_dtype, requant,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     bias_ptr = None if b is None else b.data_ptr()
     if int8_codes:
+        if blocks is not None and tuple(blocks) != qmm_i8_blocks(k):
+            raise ValueError(f"{name}: the int8 body has one geometry, "
+                             f"{qmm_i8_blocks(k)}, not {tuple(blocks)}")
         err = load().qmm_i8_launch(
             x.data_ptr(), w.data_ptr(), s.data_ptr(), bias_ptr, out.data_ptr(),
             m, k, n, int(s.numel() > 1), epi, in_div, staging(in_scale)[2], rq,
@@ -469,7 +531,8 @@ def _launch(name, x, w, w_scale, bias, k, packed, acc_dtype, requant,
         check(err, "qmm_i8_launch")
     else:
         plan = qmm_launch_plan(m, k, n, bool(packed), epi, x.data_ptr() % 16 == 0,
-                               w.data_ptr() % 16 == 0, out.data_ptr() % 16 == 0)
+                               w.data_ptr() % 16 == 0, out.data_ptr() % 16 == 0,
+                               None if blocks is None else tuple(blocks))
         mode, div, mul = staging(in_scale)
         err = load().qmm_launch(
             x.data_ptr(), w.data_ptr(), s.data_ptr(), bias_ptr, out.data_ptr(),
@@ -485,10 +548,13 @@ def _launch(name, x, w, w_scale, bias, k, packed, acc_dtype, requant,
 def quant_matmul(x: torch.Tensor, w_int: torch.Tensor, w_scale,
                  bias: Optional[torch.Tensor] = None, *,
                  acc_dtype=torch.float32, requant: Optional[IntRequant] = None,
-                 in_scale=None, int8_codes: bool = False) -> torch.Tensor:
+                 in_scale=None, int8_codes: bool = False,
+                 blocks=None) -> torch.Tensor:
     """out = epilogue(x @ w_int) [+ bias]; x (M, K) f32, w_int (K, N) int8
     (acc_dtype / requant / in_scale: see the module docstring; int8_codes
-    is accepted and B1 keeps its body)."""
+    is accepted and B1 keeps its body).  ``blocks``: the launch plan's
+    ``override`` (``qmm_blocks``), None for the heuristic; the twin
+    ignores it."""
     if x.shape[-1] != w_int.shape[0]:
         raise ValueError(f"quant_matmul: K mismatch {tuple(x.shape)} @ "
                          f"{tuple(w_int.shape)}")
@@ -496,17 +562,20 @@ def quant_matmul(x: torch.Tensor, w_int: torch.Tensor, w_scale,
     if x.device.type == "cpu":
         return quant_matmul_plain(x, w_int, w_scale, bias, **kw)
     return _launch("quant_matmul", x, w_int, w_scale, bias, w_int.shape[0],
-                   packed=False, **kw)
+                   packed=False, blocks=blocks, **kw)
 
 
 def quant_matmul_int4(x: torch.Tensor, w_packed: torch.Tensor, w_scale,
                       bias: Optional[torch.Tensor] = None, *,
                       acc_dtype=torch.float32,
                       requant: Optional[IntRequant] = None,
-                      in_scale=None, int8_codes: bool = False) -> torch.Tensor:
+                      in_scale=None, int8_codes: bool = False,
+                      blocks=None) -> torch.Tensor:
     """out = epilogue(x @ unpack(w_packed)) [+ bias]; w_packed (K/2, N).
     ``int8_codes``: the staged codes are proven to fit int8, so the integer
-    body runs on the int8 tensor cores."""
+    body runs on the int8 tensor cores.  ``blocks``: the CUDA-core plan's
+    ``override``, or on the int8 body its one point (``qmm_i8_blocks``);
+    None for the heuristic; the twin ignores it."""
     if x.shape[-1] != 2 * w_packed.shape[0]:
         raise ValueError(f"quant_matmul_int4: K mismatch {tuple(x.shape)} @ "
                          f"packed {tuple(w_packed.shape)}")
@@ -518,4 +587,5 @@ def quant_matmul_int4(x: torch.Tensor, w_packed: torch.Tensor, w_scale,
         raise ValueError("quant_matmul_int4: int8_codes=True needs "
                          "acc_dtype=torch.int32")
     return _launch("quant_matmul_int4", x, w_packed, w_scale, bias,
-                   x.shape[-1], packed=True, int8_codes=int8_codes, **kw)
+                   x.shape[-1], packed=True, int8_codes=int8_codes,
+                   blocks=blocks, **kw)

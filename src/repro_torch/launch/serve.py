@@ -34,10 +34,17 @@ CUDA graph; every flush after it replays that graph.
                         sync -> complete)
   --hold                with --metrics-port: keep the endpoint up until
                         Ctrl-C
+  --tune MODE           per-segment kernel launch geometry
+                        (``repro_torch.tune``): ``off`` (the plans'
+                        heuristics), ``cached`` (from the tune cache) or
+                        ``search`` (time the kernels on the first load and
+                        persist the winners)
+  --tune-cache-dir PATH the tune cache's root (default
+                        ``$REPRO_TUNE_CACHE_DIR`` or ``~/.cache/repro-tune``)
 
 Everything runs on CUDA unless ``--device cpu`` is given.  Mesh-sharded
-plans (``--mesh``), forced device counts (``--devices``) and tuned kernel
-tilings (``--tune`` other than ``off``) are not ported: those flags raise.
+plans (``--mesh``) and forced device counts (``--devices``) are not
+ported: those flags raise.
 """
 from __future__ import annotations
 
@@ -59,7 +66,6 @@ log = logging.getLogger("repro_torch.launch.serve")
 NOT_PORTED = {
     "mesh": "mesh-sharded plans: ROADMAP A16",
     "devices": "multi-device serving: ROADMAP A16",
-    "tune_cache_dir": "tuned kernel tilings: ROADMAP A15",
 }
 
 
@@ -89,11 +95,12 @@ def serve_graph(args) -> dict:
                 devices=None if args.device is None else [device],
                 metrics_registry=obs.default_registry(),
                 max_batch=args.max_batch, pipeline=not args.no_pipeline,
-                report_cost=False, tracer=tracer)
+                report_cost=False, tracer=tracer, tune=args.tune,
+                tune_cache_dir=args.tune_cache_dir)
             with SplitMergeFront(workers,
                                  metrics_registry=obs.default_registry()) as front:
-                eng0 = workers[0].engine
-                xs = [rng.standard_normal(eng0.sample_shape, dtype=np.float32)
+                eng = workers[0].engine
+                xs = [rng.standard_normal(eng.sample_shape, dtype=np.float32)
                       for _ in range(args.requests)]
                 for w in workers:                   # capture each worker's slot
                     w.engine(xs[0])
@@ -111,7 +118,9 @@ def serve_graph(args) -> dict:
             registry = EngineRegistry(max_batch=args.max_batch,
                                       pipeline=not args.no_pipeline,
                                       metrics_registry=obs.default_registry(),
-                                      tracer=tracer, device=device)
+                                      tracer=tracer, device=device,
+                                      tune=args.tune,
+                                      tune_cache_dir=args.tune_cache_dir)
             eng = registry.register(args.graph, zoo.ZOO[args.graph]())
             xs = [rng.standard_normal(eng.sample_shape, dtype=np.float32)
                   for _ in range(args.requests)]
@@ -154,6 +163,7 @@ def serve_graph(args) -> dict:
             server.close()
     return {"graph": args.graph, "requests": len(xs), "seconds": dt,
             "requests_per_s": len(xs) / dt, "stats": stats,
+            "tuning": eng.plan.tuning_stats(),
             "metrics_port": None if server is None else server.port,
             "results": np.stack([np.asarray(r) for r in rows])}
 
@@ -226,8 +236,6 @@ def main(argv=None):
     for flag, what in NOT_PORTED.items():
         if getattr(args, flag) not in (None, False):
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet: {what}")
-    if args.tune != "off":
-        raise SystemExit("--tune is not ported yet: tuned kernel tilings: ROADMAP A15")
     if args.graph:
         return serve_graph(args)
     return serve_lm(args)

@@ -33,6 +33,8 @@ linear (recipe-controlled), and at the KV-cache write.  The ``moe``,
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 from torch import nn
@@ -213,12 +215,16 @@ def params_from_reference(tree: dict, cfg: ModelConfig, device=None) -> Transfor
 
 # ------------------------------------------------------------- attention
 
-def takes_flash(sq: int, q_offset: int, kv_len: int, differentiated: bool = False) -> bool:
+def takes_flash(sq: int, q_offset: int, kv_len: int, differentiated: bool = False, *,
+                causal: bool = True, window: Optional[int] = None) -> bool:
     """Whether an attention call runs in B7: exactly the calls where B7
-    computes the reference's ``chunked_attention`` (every query sees keys
-    0..q, with no offset and as many valid keys as queries) and autograd
-    will not differentiate it (B7 has no backward)."""
-    return q_offset == 0 and kv_len == sq and not differentiated
+    computes the reference's ``chunked_attention`` (causal with no window,
+    so every query sees keys 0..q, with no offset and as many valid keys
+    as queries) and autograd will not differentiate it (B7 has no
+    backward).  B7 is causal only: a non-causal call (an encoder's, a
+    cross-attention's) or a windowed one runs the plain path."""
+    return (causal and window is None and q_offset == 0 and kv_len == sq
+            and not differentiated)
 
 
 def _flash(q, k, v) -> torch.Tensor:
@@ -262,7 +268,7 @@ def attention(x, p, cfg: ModelConfig, *, positions, kv_cache=None,
         kv_len, new_cache = S, None
     differentiated = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
-    if takes_flash(S, idx, kv_len, differentiated):
+    if takes_flash(S, idx, kv_len, differentiated, causal=True, window=None):
         out = _flash(q, k[:, :S], v[:, :S])
     else:
         out = chunked_attention(q, k, v, causal=True, q_offset=idx,

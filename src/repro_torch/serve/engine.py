@@ -42,12 +42,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.obs import MetricsRegistry
+from repro_torch.obs import MetricsRegistry, nearest_rank
 
 log = logging.getLogger("repro_torch.serve")
 
 # slot occupancy is a fraction of max_batch — linear buckets
 _OCCUPANCY_BUCKETS = tuple(i / 8 for i in range(1, 9))
+
+
+def percentile_ms(values, pct: float) -> float:
+    """Nearest-rank percentile over a latency sample (ms); nan when empty.
+    The reference's public name for ``obs.nearest_rank``."""
+    return nearest_rank(values, pct)
 
 
 @dataclass
@@ -137,16 +143,14 @@ class CompiledGraphEngine:
         ignored on the CPU, as in the reference).  The engine's slots are
         fresh pinned host buffers that the plan copies straight into its
         captured slot, so no caller memory is ever handed over and no
-        defensive copy is needed.  ``tune`` / ``mesh`` other than their
-        defaults raise ``NotImplementedError`` (ROADMAP.md A15 / A16)."""
+        defensive copy is needed.  ``tune`` / ``tune_cache_dir`` go to
+        ``compile_graph`` at every (re)load (the launch geometry from the
+        tune cache, or searched); ``mesh`` other than None raises
+        ``NotImplementedError`` (ROADMAP.md A16)."""
         from repro_torch.core.executor import resolve_device
-        if tune != "off":
-            raise NotImplementedError(
-                f"tune={tune!r} is not ported yet: ROADMAP.md A15 (tuning)")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= is not ported yet: ROADMAP.md A16 (multi-device)")
-        del tune_cache_dir                     # meaningful only with tune
         self.device = resolve_device(device)
         self.max_batch = max_batch
         self.queue: list[GraphRequest] = []
@@ -156,6 +160,7 @@ class CompiledGraphEngine:
             donate == "auto" or bool(donate))
         self._compile_kw = dict(use_kernels=use_kernels, use_int4=use_int4,
                                 interpret=interpret, use_analysis=use_analysis,
+                                tune=tune, tune_cache_dir=tune_cache_dir,
                                 device=self.device)
         self._report_cost = report_cost
         self.cost_report = None
@@ -227,6 +232,25 @@ class CompiledGraphEngine:
         with self._reload_lock:
             new_plan = compile_graph(graph, **self._compile_kw)
             g = new_plan.graph
+            if new_plan.tune_mode != "off":
+                ts = new_plan.tuning_stats()
+                self.metrics.counter(
+                    "serve_tune_cache_hits_total",
+                    help="segment geometries answered from the tune cache "
+                         "at engine load/reload",
+                    labels=self._metric_labels).inc(ts.get("hits", 0))
+                self.metrics.counter(
+                    "serve_tune_cache_misses_total",
+                    help="segment geometries that fell back to the "
+                         "heuristic at engine load/reload",
+                    labels=self._metric_labels).inc(ts.get("misses", 0))
+                log.info(
+                    "tune[%s] %s: %d/%d segments tuned (cache hits=%d "
+                    "misses=%d searched=%d, graph manifest %s)",
+                    new_plan.tune_mode, g.name, ts["tuned_segments"],
+                    ts["kernel_segments"], ts.get("hits", 0),
+                    ts.get("misses", 0), ts.get("searched", 0),
+                    "hit" if ts.get("graph_hit") else "miss")
             self.metrics.gauge(
                 "serve_plan_devices",
                 help="devices the served plan spans (1 = single-device)",

@@ -151,8 +151,10 @@ def test_use_kernels_false_is_all_interpreted():
 
 
 @pytest.mark.parametrize("kw,exc,item", [
-    ({"tune": "search"}, NotImplementedError, "A15"),
-    ({"tune": "cached"}, NotImplementedError, "A15"),
+    # tune= is ported (tests/test_torch_tune.py): a bad mode is refused,
+    # and a good one masks no raise
+    ({"tune": "aggressive"}, ValueError, "tune"),
+    ({"tune": "cached", "mesh": "auto"}, NotImplementedError, "A16"),
     ({"mesh": "auto"}, NotImplementedError, "A16"),
     ({"interpret": True}, ValueError, "interpret"),
 ])

@@ -11,6 +11,8 @@ bf16 within one bf16 step of the reference, or 2e-5 where both round a
 near-zero float32 value (the twin and the reference compute in float32
 from the same bf16 inputs and round once, to nearest even).
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,8 +22,10 @@ torch = pytest.importorskip("torch")
 from repro.kernels.flash_attention import flash_attention as ref_flash  # noqa: E402
 from repro.models.common import chunked_attention as ref_chunked  # noqa: E402
 
-from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.models import common as pcommon  # noqa: E402
+
+# the module: the package binds the name to the function
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
 
 TOL = 2e-5
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -156,6 +160,37 @@ def test_takes_flash_rule():
     assert not takes_flash(17, 0, 20)            # more valid keys than queries
 
 
+def test_takes_flash_only_causal_calls_without_a_window():
+    """B7 is causal only: a non-causal call (an encoder's self-attention, a
+    cross-attention with Sq == kv_len) or a windowed one must not reach it
+    (ROADMAP C8)."""
+    from repro_torch.models.transformer import takes_flash
+    assert takes_flash(17, 0, 17, causal=True, window=None)
+    assert not takes_flash(17, 0, 17, causal=False)
+    assert not takes_flash(17, 0, 17, window=2048)
+    assert not takes_flash(17, 0, 17, causal=False, window=16)
+    assert not takes_flash(17, 0, 17, True, causal=True)   # differentiated
+
+
+def test_attention_call_site_names_causal_and_window(monkeypatch):
+    """The dense family's attention asks the rule with causal=True and no
+    window, so its calls still take B7 as before."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import api, transformer
+    cfg = get_smoke_config("qwen2-1.5b")
+    params = api.init_params(0, cfg, "cpu")
+    asked = []
+    real = transformer.takes_flash
+
+    def spy(*a, **k):
+        asked.append(k)
+        return real(*a, **k)
+    monkeypatch.setattr(transformer, "takes_flash", spy)
+    toks = torch.randint(0, cfg.vocab, (1, 5), generator=torch.Generator().manual_seed(1))
+    api.forward(params, {"tokens": toks}, cfg)
+    assert asked == [{"causal": True, "window": None}] * cfg.n_layers
+
+
 def test_prefill_and_forward_take_b7_decode_does_not(monkeypatch):
     """Spy on the model's B7 call: forward and prefill launch it once per
     layer with (B, H, S, hd) views; decode never does."""
@@ -179,6 +214,6 @@ def test_prefill_and_forward_take_b7_decode_does_not(monkeypatch):
     nxt = torch.argmax(logits, -1)[:, None]
     api.decode_step(params, cache, nxt, 7, cfg)
     assert calls == []
-    monkeypatch.setattr(transformer, "takes_flash", lambda *a: False)
+    monkeypatch.setattr(transformer, "takes_flash", lambda *a, **k: False)
     api.prefill(params, {"tokens": toks}, cfg, 12)
     assert calls == []

@@ -42,6 +42,8 @@ def test_importing_every_port_module_leaves_jax_out():
     assert set(SERVING_TIER) <= set(mods)
     # the training path
     assert set(TRAINING) <= set(mods)
+    # the launch-geometry autotuner
+    assert set(TUNING) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -69,10 +71,16 @@ TRAINING = ("repro_torch.optim.schedule", "repro_torch.optim.adamw",
             "repro_torch.quantize.calibrate")
 
 
+TUNING = ("repro_torch.tune", "repro_torch.tune.config",
+          "repro_torch.tune.roofline", "repro_torch.tune.cache",
+          "repro_torch.tune.autotuner")
+
+
 @pytest.mark.parametrize("module", ["repro_torch.serve", "repro_torch.obs",
                                     "repro_torch.dist.fault",
                                     "repro_torch.launch.serve",
-                                    "repro_torch.launch.train"])
+                                    "repro_torch.launch.train",
+                                    "repro_torch.tune"])
 def test_serving_tier_imports_leave_jax_and_the_reference_out(module):
     """Each entry of the serving tier, and the training launcher (which
     imports the whole training path), alone in a fresh interpreter."""

@@ -11,6 +11,7 @@ B1/B2/B5 are bit-exact on dyadic activations, where every float32 partial
 sum is exact in any summation order, and give the same bits on repeated
 calls (B1 / B2 split K over a cluster and reduce in a fixed order).
 """
+import functools
 import importlib.util
 from pathlib import Path
 
@@ -817,7 +818,7 @@ def _qkv(seed, B, H, KV, Sq, Sk, hd, dtype, layout="bhsd"):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("H,KV", [(8, 2), (4, 4)])
 def test_flash_attention_kernel_matches_twin(cuda, dtype, hd, causal, H, KV):
-    from repro_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     for S in (1, 17, 64, 130):
         q, k, v = _qkv(S, 2, H, KV, S, S, hd, dtype)
         want = fa.flash_attention_plain(*_on(cuda, q, k, v), causal=causal)
@@ -832,7 +833,7 @@ def test_flash_attention_kernel_matches_twin(cuda, dtype, hd, causal, H, KV):
 
 def test_flash_attention_kernel_strided_and_ragged(cuda):
     """Transposed (B, S, H, hd) views, a cache slice as k/v, Sq != Sk."""
-    from repro_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = _qkv(7, 3, 12, 2, 75, 75, 128, dtype, layout="bshd")
         q, k, v = _on(cuda, q, k, v)
@@ -853,7 +854,7 @@ def test_flash_attention_kernel_strided_and_ragged(cuda):
 
 
 def test_flash_attention_rejects_what_it_does_not_take(cuda):
-    from repro_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     q, k, v = _on(cuda, *_qkv(0, 1, 4, 2, 8, 8, 48, torch.float32))
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q, k, v)
@@ -871,7 +872,7 @@ def test_flash_attention_rejects_what_it_does_not_take(cuda):
 def test_flash_attention_bf16_rejects_rows_off_16_bytes(cuda):
     """The bf16 body's 16-byte copies: a row stride of 132 elements (264
     bytes) or a base 2 bytes off raises; float32 takes any stride."""
-    from repro_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     q, k, v = _on(cuda, *_qkv(0, 1, 4, 2, 8, 8, 128, torch.bfloat16))
     wide = torch.randn(1, 4, 8, 132, device=cuda).to(torch.bfloat16)[..., :128]
     with pytest.raises(ValueError, match="16 bytes"):
@@ -937,7 +938,7 @@ def test_flash_attention_refuses_autograd(cuda):
     """B7 has no backward: a call that autograd would differentiate
     raises, and the same call under no_grad (or on inputs that take no
     gradient) launches."""
-    from repro_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     q = torch.randn(1, 2, 16, 16, device=cuda, requires_grad=True)
     k = torch.randn(1, 2, 16, 16, device=cuda)
     with pytest.raises(ValueError, match="no backward"):
@@ -967,3 +968,102 @@ def test_train_step_launches_no_b7_while_prefill_does(cuda):
     api.prefill(state["params"], batch, cfg, 16)
     torch.cuda.synchronize()
     assert tops.launch_counts()["flash_attention"] == cfg.n_layers
+
+
+# ------------------------------------ A15: every geometry the search times
+
+# signatures at the zoo's shapes, one per family and body (the tuner's
+# rows bucket, exact K / N, B6's geometry)
+TUNE_SIGS = [
+    dict(family="matmul", rows=256, n=64, k=784, bits=4, requant="int32",
+         body="imad"),
+    dict(family="matmul", rows=1, n=10, k=64, bits=4, requant="fp32",
+         body="f32"),
+    dict(family="matmul", rows=256, n=64, k=784, bits=8, requant="fp32",
+         body="f32"),
+    dict(family="matmul", rows=12544, n=32, k=27, bits=8, requant="int32",
+         body="imad"),
+    dict(family="matmul", rows=196, n=1024, k=512, bits=4, requant="int32",
+         body="int8_mma"),
+    dict(family="grouped", rows=196, n=16, k=72, groups=4, bits=8,
+         requant="int32"),
+    dict(family="grouped", rows=1000, n=40, k=300, groups=8, bits=4,
+         requant="fp32"),
+    dict(family="depthwise", rows=12544, n=32, k=9, requant="int32",
+         geometry=(112, 112, 112, 112, 3, 3, 1, 1, 1, 1, 1, 1, 1, 1)),
+    dict(family="depthwise", rows=49, n=1024, k=9, requant="int32",
+         geometry=(7, 7, 7, 7, 3, 3, 1, 1, 1, 1, 1, 1, 1, 1)),
+    dict(family="depthwise", rows=3136, n=64, k=9, requant="fp32",
+         geometry=(112, 112, 56, 56, 3, 3, 2, 2, 1, 1, 1, 1, 1, 1)),
+    dict(family="qdq", rows=672, n=224, k=0),
+    dict(family="qdq", rows=100352, n=64, k=0),
+]
+
+
+@pytest.mark.parametrize("i", range(len(TUNE_SIGS)))
+def test_every_tuning_candidate_equals_the_twin(cuda, tmp_path, i):
+    """The heuristic and every candidate the search would time at a zoo
+    shape, through the real wrapper with the candidate as its plan's
+    override, on integer-valued (dyadic) inputs: torch.equal to the twin."""
+    from repro_torch.kernels.requant import IntRequant
+    from repro_torch.tune import Autotuner, TuneCache
+    tuner = Autotuner(TuneCache(str(tmp_path), persist_executables=False),
+                      device=cuda)
+    d = dict(TUNE_SIGS[i])
+    sig = tuner.sig(d.pop("family"), **d)
+    cands = [tuner.heuristic(sig)] + [c for c in tuner.candidates(sig)
+                                      if c != tuner.heuristic(sig)]
+    assert all(tuner.valid(sig, c) for c in cands)
+    rng = np.random.RandomState(i)
+    int_path = sig.requant == "int32"
+    int_acc = int_path or sig.body in ("imad", "int8_mma")
+    in_scale = 0.125 if int_acc else None
+    body = dict(acc_dtype=torch.int32 if int_acc else torch.float32,
+                requant=IntRequant(shift=6, relu=True, has_act=True,
+                                   act_shift=4, act_lo=0, act_hi=15,
+                                   act_out_shift=2) if int_path else None,
+                in_scale=in_scale)
+
+    def acts(*shape):
+        return torch.from_numpy(rng.randint(-8, 8, shape).astype(np.float32)
+                                * np.float32(0.125))
+
+    def scale(n):
+        if int_path:
+            return torch.from_numpy((2 * rng.randint(0, 5, n) + 1).astype(np.int32))
+        return torch.from_numpy((2.0 ** -rng.randint(2, 6, n)).astype(np.float32))
+    m, n, k = sig.m, sig.n, sig.k
+    if sig.family == "matmul":
+        x, s = acts(m, k), scale(n)
+        w = torch.from_numpy(rng.randint(-7, 8, (k, n)).astype(np.int8))
+        if sig.bits == 4:
+            w = tops.pack_int4(w)
+            fn = functools.partial(tops.quant_matmul_int4,
+                                   int8_codes=sig.body == "int8_mma")
+        else:
+            fn = tops.quant_matmul
+        args = (x, w, s)
+    elif sig.family == "grouped":
+        x = acts(m, sig.groups * k).view(m, sig.groups, k).permute(1, 0, 2)
+        w = torch.from_numpy(rng.randint(-7, 8, (sig.groups, k, n)).astype(np.int8))
+        packed = sig.bits == 4
+        fn = functools.partial(tops.quant_grouped_matmul, packed=packed)
+        args = (x, tops.pack_int4_grouped(w) if packed else w,
+                scale(sig.groups * n))
+    elif sig.family == "depthwise":
+        H, W, OH, OW, kh, kw, sh, sw, dh, dw, *pads = sig.geometry
+        x = acts(max(1, m // (OH * OW)), n, H, W)
+        taps = torch.from_numpy(rng.randint(-7, 8, (kh * kw, n)).astype(np.int8))
+        fn = functools.partial(tops.quant_depthwise_conv2d, kernel_shape=(kh, kw),
+                               strides=(sh, sw), dilations=(dh, dw), pads=pads)
+        args = (x, taps, scale(n))
+    else:
+        x = torch.from_numpy(_acts(i, (m, n)))
+        fn = functools.partial(tops.quant_dequant, bit_width=4)
+        args, body = (x, torch.tensor(0.25), torch.tensor(0.0)), {}
+    want = fn(*args, **body)
+    dev_args = _on(cuda, *args)
+    for c in cands:
+        got = fn(*dev_args, blocks=c, **body)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), (sig, c)

@@ -261,9 +261,16 @@ def test_serve_launcher_smoke_on_cpu():
     out = serve.main(["--arch", "qwen2-1.5b", "--smoke", "--device", "cpu",
                       "--requests", "3", "--max-new-tokens", "4"])
     assert out["requests"] == 3 and out["tokens"] == 12
-    # the compiled-graph flags serve now (tests/test_torch_serve_tier.py);
-    # the multi-device and tuning ones still raise, naming their items
-    for flag in (["--mesh"], ["--devices", "2"], ["--tune", "cached"],
-                 ["--tune-cache-dir", "x"]):
-        with pytest.raises(SystemExit, match="A1[56]"):
+    # the compiled-graph and tuning flags serve now
+    # (tests/test_torch_serve_tier.py, tests/test_torch_tune.py; the LM
+    # path takes no tuning, as the reference's); the multi-device ones
+    # still raise, naming their item
+    for flag in (["--mesh"], ["--devices", "2"],
+                 ["--mesh", "--tune", "cached"],
+                 ["--devices", "2", "--tune-cache-dir", "x"]):
+        with pytest.raises(SystemExit, match="A16"):
             serve.main(["--smoke", "--device", "cpu"] + flag)
+    out = serve.main(["--arch", "qwen2-1.5b", "--smoke", "--device", "cpu",
+                      "--requests", "1", "--max-new-tokens", "2",
+                      "--tune", "cached", "--tune-cache-dir", "unused"])
+    assert out["requests"] == 1

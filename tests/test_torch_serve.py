@@ -132,7 +132,9 @@ def test_metric_names_match_the_reference():
             "serve_deadline_misses_total"} <= names
 
 
-@pytest.mark.parametrize("kw,item", [({"tune": "cached"}, "A15"),
+# tune= is ported (tests/test_torch_tune.py) and masks no raise
+@pytest.mark.parametrize("kw,item", [({"tune": "cached", "mesh": object()},
+                                      "A16"),
                                      ({"mesh": object()}, "A16")])
 def test_unported_engine_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):

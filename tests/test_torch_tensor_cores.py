@@ -21,6 +21,7 @@ here are the parts a CPU can hold:
   ``test_torch_kernels_cuda.py`` hold the kernel to against its twin, at
   qwen2-1.5B's head shape.
 """
+import importlib
 import math
 
 import jax.numpy as jnp
@@ -33,10 +34,12 @@ from repro.kernels import ops as rops  # noqa: E402
 from repro.kernels.requant import IntRequant as RIntRequant  # noqa: E402
 from repro.models import zoo as rzoo  # noqa: E402
 from repro_torch.core import compile_graph as t_compile  # noqa: E402
-from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels.requant import IntRequant  # noqa: E402
 from repro_torch.models import zoo as tzoo  # noqa: E402
+
+# the module: the package binds the name to the function
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
 
 F32 = np.finfo(np.float32)
 
