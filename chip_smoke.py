@@ -6,6 +6,7 @@
     python3 chip_smoke.py --served          # only the build and phase 8
     python3 chip_smoke.py --train           # only the build and phase 9
     python3 chip_smoke.py --tune            # only the build and phase 10
+    python3 chip_smoke.py --families        # only the build and phase 11
 
 Phases, in order; any failure raises and the script exits non-zero without
 printing a result:
@@ -214,12 +215,34 @@ printing a result:
    tuned plan at least 0.90 of the heuristic's throughput; (e) an engine
    serving TFC-w2a2 from the cache (hits counted, rows bit-exact) and the
    launcher's ``--tune cached --tune-cache-dir`` answering 16 requests from
-   the manifest of one search of the zoo's TFC-w2a2.
+   the manifest of one search of the zoo's TFC-w2a2;
+11. the vlm, moe and audio families (llava-next-34b, deepseek-moe-16b,
+   moonshot-v1-16b-a3b, whisper-base): (a) each SMOKE config, one seeded
+   init on the CPU and its copy on the card, FP32 and W8A8-kv8: forward,
+   prefill plus two decode steps with every layer's cache, and
+   greedy_generate (with img_embeds / frames) on the card against the
+   CPU within the CPU tests' bounds, decode against forward on the card
+   (moe at capacity 8.0); (b) serving at published width, bf16
+   activations, seeded float32 weights, W8A8 (8-bit KV cache except
+   whisper's, which the family never quantizes): whisper-base whole (B=4,
+   1,500 frames, prompts of 4 tokens, 64 new), deepseek-moe-16b whole
+   (B=4, 512, 16) and llava-next-34b cut to 24 layers (2,880 patches,
+   B=2, 128, 16): one greedy_generate with B7 launched once per decoder
+   layer and nothing else, the prefill's wall and busy share
+   (torch.profiler), the decode step's wall and tokens/s (no B7), peak
+   memory, deepseek's dropped share at capacity 1.25 and its moe_aux; B7
+   per launch at those three prefill shapes beside its twin, SDPA and its
+   bound; (c) one W8A8 QAT train step per family at published width (the
+   training launcher's configuration, B=2, S=128; whisper whole,
+   deepseek and llava cut to 2 layers): finite positive loss and
+   grad_norm, no kernel launch, llava's loss equal to loss_fn's and to
+   the sliced logits' loss; step wall and peak memory.
 
 Launch counts are read in windows of their own: phase 3's plans, phase
 4's engines, phases 3' and 4' likewise, each fused plan's own call in
 3'' (its use_fusion=False twin runs outside the window), 3''', and phase
-6 (a) and (b), phase 9 (b)'s steps (where no kernel may launch), and
+6 (a) and (b), phase 9 (b)'s steps (where no kernel may launch), phase
+11 (b)'s generation, prefill and decode steps and (c)'s steps, and
 phase 10's tuned plans (the search's own timing launches the wrappers
 too, before those windows);
 every kernel of each window's path must have launched in it.  Phases 3
@@ -634,8 +657,13 @@ def check_depthwise(ops, torch, np, dev, err):
 # ------------------------------------------------ phase 2, B7 flash attention
 
 FA_TOL = 2e-5    # float32: the bound of the reference's tests/test_flash_attention.py
-# (H, KV, hd): qwen2-1.5B's GQA (G = 6) and olmo-1B's G = 1
-FA_SHAPES = {"qwen2": (12, 2, 128), "olmo": (16, 16, 128)}
+# (H, KV, hd): qwen2-1.5B's GQA (G = 6) and olmo-1B's G = 1; the families'
+# prefills: llava-next-34b (G = 7), deepseek-moe-16b (G = 1) and whisper-base's
+# decoder (hd 64), also at llava's S_total = 2880 patches + 128 tokens and one
+# row off it (FA_FAMILY_S)
+FA_SHAPES = {"qwen2": (12, 2, 128), "olmo": (16, 16, 128), "llava": (56, 8, 128),
+             "deepseek": (16, 16, 128), "whisper": (8, 8, 64)}
+FA_FAMILY_S = (2880 + 128, 2880 + 127)
 
 
 def _bf16_steps(torch, a, b):
@@ -646,18 +674,37 @@ def _bf16_steps(torch, a, b):
     return (key(a) - key(b)).abs()
 
 
+def _hold_flash_attention(torch, got, want, what) -> tuple:
+    """B7's output against its twin's on the same inputs.  float32: within
+    FA_TOL (abs + rel).  bf16: within one bf16 step of the twin, or within
+    FA_TOL where both round a near-zero float32 value (the two sum in other
+    orders before their one rounding to bf16).  Raises beyond the bound;
+    returns (max abs diff, the most bf16 steps apart beyond FA_TOL)."""
+    diff = (got.float() - want.float()).abs()
+    far = 0
+    if got.dtype == torch.float32:
+        ok = diff <= FA_TOL + FA_TOL * want.abs()
+    else:
+        steps = _bf16_steps(torch, got, want)
+        ok = (steps <= 1) | (diff <= FA_TOL)
+        far = int(steps[diff > FA_TOL].max()) if bool((diff > FA_TOL).any()) else 0
+    if not bool(ok.all()):
+        raise AssertionError(f"flash_attention {what}: {int((~ok).sum())} entries beyond the "
+                             f"bound, max diff {float(diff.max())}")
+    return float(diff.max()), far
+
+
 def check_flash_attention(ops, torch, dev, err):
-    """B7 against its twin at qwen2's and olmo's head shapes, S in {1, 17,
-    512, 2048, 2047}, B in {1, 4}, causal and not, float32 and bf16, q, k
-    and v as the model passes them (transposed views of (B, S, H, hd)).
-    float32: within FA_TOL (abs + rel).  bf16: within one bf16 step of the
-    twin, or within FA_TOL where both round a near-zero float32 value (the
-    two sum in other orders before their one rounding to bf16).  Returns
-    the number of cases."""
+    """B7 against its twin at qwen2's, olmo's and the families' head shapes,
+    S in {1, 17, 512, 2048, 2047} (the families' also FA_FAMILY_S), B in
+    {1, 4}, causal and not, float32 and bf16, q, k and v as the model
+    passes them (transposed views of (B, S, H, hd)), held by
+    _hold_flash_attention.  Returns the number of cases."""
     g = torch.Generator(device=dev).manual_seed(7)
     n_cases, worst_steps = 0, 0
     for label, (H, KV, hd) in FA_SHAPES.items():
-        for S in (1, 17, 512, 2048, 2047):
+        family = label in ("llava", "deepseek", "whisper")
+        for S in (1, 17, 512, 2048, 2047) + (FA_FAMILY_S if family else ()):
             for B in (1, 4):
                 for dtype in (torch.float32, torch.bfloat16):
                     q, k, v = (torch.randn(B, S, h, hd, generator=g, device=dev)
@@ -666,20 +713,10 @@ def check_flash_attention(ops, torch, dev, err):
                         got = ops.flash_attention(q, k, v, causal=causal)
                         want = ops.flash_attention_plain(q, k, v, causal=causal)
                         torch.cuda.synchronize()
-                        diff = (got.float() - want.float()).abs()
-                        if dtype == torch.float32:
-                            ok = diff <= FA_TOL + FA_TOL * want.abs()
-                        else:
-                            steps = _bf16_steps(torch, got, want)
-                            ok = (steps <= 1) | (diff <= FA_TOL)
-                            worst_steps = max(worst_steps, int(steps[diff > FA_TOL].max())
-                                              if bool((diff > FA_TOL).any()) else 0)
-                        if not bool(ok.all()):
-                            raise AssertionError(
-                                f"flash_attention {label} B={B} S={S} {dtype} causal={causal}: "
-                                f"{int((~ok).sum())} entries beyond the bound, max diff "
-                                f"{float(diff.max())}")
-                        err["flash_attention"] = max(err["flash_attention"], float(diff.max()))
+                        d, far = _hold_flash_attention(
+                            torch, got, want, f"{label} B={B} S={S} {dtype} causal={causal}")
+                        worst_steps = max(worst_steps, far)
+                        err["flash_attention"] = max(err["flash_attention"], d)
                         n_cases += 1
     print(f"flash_attention vs twin: {n_cases} cases, max abs diff "
           f"{err['flash_attention']:.3e} (bf16 entries beyond {FA_TOL}: at most "
@@ -3749,6 +3786,415 @@ def run_tuning(torch, np, dev):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# --------------------------------------------- phase 11: the A17 families
+
+FAMILY_ARCHS = ("llava-next-34b", "deepseek-moe-16b", "moonshot-v1-16b-a3b", "whisper-base")
+FAM_TIGHT = 1e-5               # the CPU tests' float32 bound (tests/torch_lm_parity.py)
+# (b): the served models at published width and their cuts (PERF.md section 4):
+# arch -> (layers kept or None for all, B, prompt tokens, new tokens)
+FAM_SERVE = {"whisper-base": (None, 4, 4, 64),
+             "deepseek-moe-16b": (None, 4, 512, 16),
+             "llava-next-34b": (24, 2, 128, 16)}
+# (c): depth kept for one QAT step.  The train state is 16 bytes a
+# parameter, but AdamW's _foreach temporaries and the gradients take the
+# step's peak to about 30 bytes a parameter: deepseek at 4 layers (2.77e9
+# parameters) ran out of the card's 79 GiB in AdamW; 2 layers of each fit
+FAM_TRAIN_LAYERS = {"whisper-base": None, "deepseek-moe-16b": 2, "llava-next-34b": 2}
+FAM_TRAIN_B, FAM_TRAIN_S = 2, 128
+
+
+def _fam_batch(torch, cfg, B, S, dev, seed):
+    """Tokens (B, S) and the family's frontend stub embeddings, drawn from
+    a CPU generator seeded with ``seed``, on ``dev``."""
+    from repro_torch.models import api
+    g = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(1, cfg.vocab, (B, S), generator=g, dtype=torch.int32)}
+    batch.update(api.frontend_batch(g, cfg, B, "cpu"))
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def _hold_logits(torch, got, want, rule, what):
+    """The CPU tests' float32 logits rule: 'tight' every entry within
+    1e-5 (abs + rel); 'w8a8' at most 1 % beyond that and none beyond 5 %
+    of the largest logit (a value within ulps of a rounding tie may take
+    the neighbouring code; for moe, two near-equal experts may swap)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)} "
+                             "or non-finite values")
+    d = (got - want).abs()
+    beyond = d > FAM_TIGHT * (1 + want.abs())
+    share, big = float(beyond.float().mean()), float(want.abs().max())
+    ok = (share == 0.0) if rule == "tight" else (share <= 0.01 and float(d.max()) <= 0.05 * big)
+    if not ok:
+        raise AssertionError(f"{what} [{rule}]: {share:.4f} of entries beyond {FAM_TIGHT}, max "
+                             f"diff {float(d.max()):.3e} (largest logit {big:.3e})")
+    return float(d.max()), share
+
+
+def _hold_cache(torch, got, want, quantized, rule, what):
+    """One cache tensor, card vs CPU, float32: unquantized by the logits'
+    ``rule``; 8-bit codes (s = max|x| / 127 on each side) with the scales
+    within 2^-21 and the codes within one step on at most 1 % of the
+    entries (the CPU tests' rule)."""
+    if not quantized:
+        _hold_logits(torch, got, want, rule, what)
+        return
+    got, want = got.float().cpu(), want.float().cpu()
+    s_got, s_want = float(got.abs().max()) / 127, float(want.abs().max()) / 127
+    if s_want == 0:
+        if s_got != 0:
+            raise AssertionError(f"{what}: a zero cache on the CPU, not on the card")
+        return
+    dc = (got / s_got - want / s_want).abs()
+    if (abs(s_got / s_want - 1) > 2.0 ** -21 or float(dc.max()) > 1 + 1e-3
+            or float((dc > 1e-3).float().mean()) > 0.01):
+        raise AssertionError(f"{what}: scales {s_got} / {s_want}, codes off by up to "
+                             f"{float(dc.max()):.3f} on {float((dc > 1e-3).float().mean()):.4f}")
+
+
+def _cache_names(cfg):
+    return ("self_k", "self_v", "cross_k", "cross_v") if cfg.family == "audio" else ("k", "v")
+
+
+def families_card_vs_cpu(torch, dev):
+    """Phase 11 (a): the SMOKE configs of the four archs, one seeded init
+    on the CPU copied to the card (float32 activations), under FP32 and
+    W8A8-kv8: forward logits (with n_prefix and moe_aux), prefill plus two
+    decode steps (logits and every layer's cache), greedy_generate tokens
+    (with img_embeds / frames) on the card against the CPU, within the CPU
+    tests' bounds (moe logits by the W8A8 rule under both recipes); decode
+    after a prefill against forward's last position on the card (moe at
+    capacity 8.0, as the reference's test)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import api
+    from repro_torch.quantize.config import FP32
+    from repro_torch.serve import greedy_generate
+    for arch in FAMILY_ARCHS:
+        for recipe, tag in ((FP32, "fp32"), (_lm_recipe(), "w8a8kv8")):
+            cfg = get_smoke_config(arch).replace(quant=recipe)
+            rule = "tight" if (tag == "fp32" and cfg.family != "moe") else "w8a8"
+            kv_q = tag == "w8a8kv8" and cfg.family != "audio"
+            p_cpu = api.init_params(5, cfg, "cpu")
+            p_dev = api.init_params(5, cfg, "cpu").to(dev)
+            b_cpu = _fam_batch(torch, cfg, 2, 9, "cpu", 6)
+            b_dev = {k: v.to(dev) for k, v in b_cpu.items()}
+            with torch.no_grad():
+                want, aux_c = api.forward(p_cpu, b_cpu, cfg)
+                got, aux_d = api.forward(p_dev, b_dev, cfg)
+            fwd = _hold_logits(torch, got, want, rule, f"(a) {arch} {tag} forward")
+            if aux_d["n_prefix"] != aux_c["n_prefix"] or abs(
+                    float(aux_d["moe_aux"]) - float(aux_c["moe_aux"])) > FAM_TIGHT * (
+                    1 + abs(float(aux_c["moe_aux"]))):
+                raise AssertionError(f"(a) {arch} {tag}: aux {aux_d} vs {aux_c}")
+            n = 9 + api.n_prefix(cfg)
+            want, c_cpu = api.prefill(p_cpu, b_cpu, cfg, n + 4)
+            got, c_dev = api.prefill(p_dev, b_dev, cfg, n + 4)
+            _hold_logits(torch, got, want, rule, f"(a) {arch} {tag} prefill")
+            for idx in (n, n + 1):
+                nxt = torch.argmax(want, -1).to(torch.int32)[:, None]
+                want, c_cpu = api.decode_step(p_cpu, c_cpu, nxt, idx, cfg)
+                got, c_dev = api.decode_step(p_dev, c_dev, nxt.to(dev), idx, cfg)
+                _hold_logits(torch, got, want, rule, f"(a) {arch} {tag} decode at {idx}")
+            for i, (lc, ld) in enumerate(zip(c_cpu, c_dev)):
+                for name in _cache_names(cfg):
+                    _hold_cache(torch, ld[name], lc[name], kv_q and name in ("k", "v"), rule,
+                                f"(a) {arch} {tag} cache layer {i} {name}")
+            t_cpu = greedy_generate(p_cpu, cfg, b_cpu, 6)
+            t_dev = greedy_generate(p_dev, cfg, b_dev, 6).cpu()
+            same = float((t_cpu == t_dev).float().mean())
+            print(f"families (a) [{arch}, {tag}]: card vs CPU forward max diff {fwd[0]:.3e} "
+                  f"({fwd[1]:.4f} beyond {FAM_TIGHT}, rule {rule}), moe_aux "
+                  f"{float(aux_d['moe_aux']):.6f} vs {float(aux_c['moe_aux']):.6f}, prefill + 2 "
+                  f"decode steps and {len(c_dev)} layers' caches held; greedy tokens equal on "
+                  f"{same:.3f}", flush=True)
+            if not torch.equal(t_cpu, t_dev):
+                raise AssertionError(f"(a) {arch} {tag}: greedy tokens differ card vs CPU")
+            if tag != "fp32":
+                continue
+            # decode against forward on the card (FP32: forward's attention
+            # reads unquantized keys), moe at capacity 8.0 (no drops)
+            dcfg = cfg.replace(moe_capacity_factor=8.0) if cfg.family == "moe" else cfg
+            with torch.no_grad():
+                full, _ = api.forward(p_dev, b_dev, dcfg)
+            _, cache = api.prefill(p_dev, dict(b_dev, tokens=b_dev["tokens"][:, :8]), dcfg, n)
+            last, _ = api.decode_step(p_dev, cache, b_dev["tokens"][:, 8:9], n - 1, dcfg)
+            dvf = float((last - full[:, -1]).abs().max())
+            print(f"families (a) [{arch}]: decode after a prefill vs forward at the last "
+                  f"position, max diff {dvf:.3e} (atol 2e-3, rtol 1e-3)", flush=True)
+            if not torch.allclose(last, full[:, -1], atol=2e-3, rtol=1e-3):
+                raise AssertionError(f"(a) {arch}: decode differs from forward by {dvf}")
+
+
+def _busy_ms(torch, run, label, top=6) -> float:
+    """One call of ``run`` under torch.profiler: device kernel time (ms),
+    the largest kernels printed."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+            by_name[e.key] = (t / 1e3, e.count)
+    busy = sum(t for t, _ in by_name.values())
+    for key, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"profile[{label}]:   {t:.3f} ms in {n} launches  {key[:90]}", flush=True)
+    return busy
+
+
+def _wall_ms(torch, fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _moe_probe(transformer):
+    """Patches that record each moe_ffn's aux and each dispatch's kept
+    share during a prefill (the model calls them through the module)."""
+    seen = {"aux": [], "kept": [], "choices": []}
+    real_ffn, real_dispatch = transformer.moe_ffn, transformer.moe_dispatch
+
+    def ffn(x, p, cfg):
+        y, aux = real_ffn(x, p, cfg)
+        seen["aux"].append(aux)
+        return y, aux
+
+    def dispatch(xg, top_i, cfg, C):
+        buf, slot, keep = real_dispatch(xg, top_i, cfg, C)
+        seen["kept"].append(keep.sum())
+        seen["choices"].append(keep.numel())
+        return buf, slot, keep
+    return seen, (mock.patch.object(transformer, "moe_ffn", ffn),
+                  mock.patch.object(transformer, "moe_dispatch", dispatch))
+
+
+def serve_family(torch, dev, ops, arch):
+    """Phase 11 (b), one model: bf16 activations, seeded float32
+    parameters, W8A8 (with the 8-bit KV cache where the family quantizes
+    its cache: not whisper's), depth cut as FAM_SERVE says.  One request
+    batch through greedy_generate with B7's launches counted (one per
+    decoder layer, in the prefill only); then a prefill timed and
+    profiled, and the decode steps timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, transformer
+    from repro_torch.quantize.config import QuantRecipe
+    from repro_torch.serve import greedy_generate
+    layers, B, S, new = FAM_SERVE[arch]
+    cfg = get_config(arch)
+    kv = None if cfg.family == "audio" else 8.0
+    cfg = cfg.replace(quant=QuantRecipe.w_a(8.0, 8.0, kv_cache_bits=kv))
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(0, cfg, dev)
+    torch.cuda.synchronize()
+    n_prefix = api.n_prefix(cfg)
+    shape = f"{cfg.n_layers} decoder layers"
+    if layers:
+        shape += f", cut from {get_config(arch).n_layers}"
+    if cfg.family == "audio":
+        shape += f", {cfg.n_enc_layers} encoder layers, {cfg.n_frames} frames"
+    if n_prefix:
+        shape += f", {cfg.n_patches} image patches"
+    print(f"families (b) [{arch}]: {cfg.param_count()} float32 parameters ({shape}), recipe "
+          f"{cfg.quant.tag()}, {cfg.dtype} activations, B={B}, prompts of {S} tokens, {new} new "
+          f"tokens; init on the card in {time.perf_counter() - t0:.2f} s", flush=True)
+    batch = _fam_batch(torch, cfg, B, S, dev, 21)
+    seen, patches = _moe_probe(transformer)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with patches[0], patches[1]:
+        toks = greedy_generate(params, cfg, batch, new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    print(f"families (b) [{arch}] greedy_generate: {B}x{new} tokens in {gen_s:.3f} s (host "
+          f"clock, first call); launches {counts} [{card_line()}]", flush=True)
+    if tuple(toks.shape) != (B, new) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
+        raise AssertionError(f"(b) {arch}: generated tokens {tuple(toks.shape)} out of range")
+    if counts["flash_attention"] != cfg.n_layers or sum(counts.values()) != cfg.n_layers:
+        raise AssertionError(f"(b) {arch}: {counts}; want {cfg.n_layers} B7 launches (one per "
+                             "decoder layer of the one prefill) and nothing else")
+    if cfg.family == "moe":
+        L = cfg.n_layers          # the prefill's layers come first
+        kept = sum(int(k) for k in seen["kept"][:L])
+        total = sum(seen["choices"][:L])
+        aux = sum(float(a) for a in seen["aux"][:L])
+        print(f"families (b) [{arch}] prefill at capacity {cfg.moe_capacity_factor}: "
+              f"{1 - kept / total:.4f} of the {total} expert choices dropped; moe_aux (summed "
+              f"over {L} layers) {aux:.6f}", flush=True)
+        if not math.isfinite(aux):
+            raise AssertionError(f"(b) {arch}: moe_aux {aux}")
+
+    # the prefill alone: launches, logits, wall, busy
+    cache_len = S + n_prefix + new
+    ops.reset_launch_counts()
+    logits, cache = api.prefill(params, batch, cfg, cache_len)
+    torch.cuda.synchronize()
+    n_b7 = ops.launch_counts()["flash_attention"]
+    _finite(torch, logits, (B, cfg.vocab), f"(b) {arch} prefill logits")
+    walls = [_wall_ms(torch, lambda: api.prefill(params, batch, cfg, cache_len)) for _ in range(2)]
+    wall = min(walls)
+    busy = _busy_ms(torch, lambda: api.prefill(params, batch, cfg, cache_len),
+                    f"families {arch} prefill")
+    print(f"families (b) [{arch}] prefill B={B} S={S + n_prefix}: wall {wall:.3f} ms (best of "
+          f"{', '.join(f'{w:.3f}' for w in walls)}), device busy {busy:.3f} ms (profiler), busy "
+          f"share {busy / wall:.3f}; B7 launches {n_b7} (decoder layers {cfg.n_layers}"
+          f"{', 0 in the encoder and the cross-attention' if cfg.family == 'audio' else ''}) "
+          f"[{card_line()}]", flush=True)
+    if n_b7 != cfg.n_layers:
+        raise AssertionError(f"(b) {arch}: the prefill launched B7 {n_b7} times")
+    # decode steps on the prefill's cache
+    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    ops.reset_launch_counts()
+    dwalls = []
+    for i in range(min(new, 8)):
+        idx = S + n_prefix + i
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = api.decode_step(params, cache, tok, idx, cfg)
+        torch.cuda.synchronize()
+        dwalls.append((time.perf_counter() - t0) * 1e3)
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    d_counts = ops.launch_counts()
+    _finite(torch, logits, (B, cfg.vocab), f"(b) {arch} decode logits")
+    dwall = statistics.median(dwalls[1:])
+    dbusy = _busy_ms(torch, lambda: api.decode_step(params, cache, tok, S + n_prefix + 8, cfg),
+                     f"families {arch} decode step", top=4)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"families (b) [{arch}] decode step B={B}: median wall {dwall:.3f} ms over steps 2-"
+          f"{len(dwalls)} ({B / dwall * 1e3:.1f} tokens/s), device busy {dbusy:.3f} ms; B7 "
+          f"launches in decode {d_counts['flash_attention']}; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB [{card_line()}]", flush=True)
+    if d_counts["flash_attention"] != 0:
+        raise AssertionError(f"(b) {arch}: decode launched B7")
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return {"prefill_ms": wall, "busy_ms": busy, "decode_ms": dwall, "peak_gib": peak / 2 ** 30}
+
+
+def family_b7_timings(torch, ops, dev, err):
+    """B7 at the served prefills' attention shapes (bf16, causal, the
+    models' layout), held against its twin on the same inputs by phase 2's
+    rule, then timed per launch: kernel, twin and SDPA, beside the bound."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    for arch, (layers, B, S, _) in FAM_SERVE.items():
+        cfg = get_config(arch)
+        S = S + api.n_prefix(cfg)
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        g = torch.Generator(device=dev).manual_seed(29)
+        q, k, v = (torch.randn(B, S, h, hd, generator=g, device=dev).to(torch.bfloat16)
+                   .transpose(1, 2) for h in (H, KV, KV))
+        got, want = ops.flash_attention(q, k, v), ops.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        d, far = _hold_flash_attention(torch, got, want, f"{arch} B={B} S={S} bf16 causal")
+        err["flash_attention"] = max(err["flash_attention"], d)
+        del got, want
+        r = _timed(ms=lambda: ops.flash_attention(q, k, v),
+                   plain_ms=lambda: ops.flash_attention_plain(q, k, v),
+                   library_ms=lambda: F.scaled_dot_product_attention(
+                       q, k, v, is_causal=True, enable_gqa=True))
+        ops_ms = 2 * B * H * S * (S + 1) * hd / BF16_FLOPS * 1e3     # causal pairs, 4·hd each
+        bytes_ms = (2 * q.numel() + 2 * k.numel()) * 2 / HBM_BYTES_PER_S * 1e3
+        print(f"time[families B7 {arch}] B={B} H={H} KV={KV} S={S} hd={hd} bf16 causal, per "
+              f"launch: kernel {r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, sdpa "
+              f"{r['library_ms']:.6f} ms, bound {max(ops_ms, bytes_ms):.6f} ms "
+              f"({'operations' if ops_ms >= bytes_ms else 'bytes'}); x{layers or cfg.n_layers} "
+              f"per prefill; vs twin max abs diff {d:.3e} (bf16 entries beyond {FA_TOL}: at "
+              f"most {far} bf16 step apart) [{card_line()}]", flush=True)
+        del q, k, v
+
+
+def train_family(torch, dev, ops, arch):
+    """Phase 11 (c), one model: the training launcher's configuration
+    (W8A8 QAT, remat, moe_aux_weight 0.01 for moe) at published width
+    with the depth cut to FAM_TRAIN_LAYERS, B=2, S=128 from
+    SyntheticLMStream with the frontend stubs; one train step with the
+    launch counts at 0 before it (no kernel may launch: B7 is forward
+    only).  For llava the step's loss equals loss_fn's and the
+    cross-entropy of the sliced logits, computed at the same parameters
+    before the step."""
+    from repro_torch.data import SyntheticLMStream, to_device
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import api
+    from repro_torch.train import loop
+    args = launcher.parse(["--arch", arch, "--steps", "10", "--global-batch", str(FAM_TRAIN_B),
+                           "--seq", str(FAM_TRAIN_S)])
+    cfg, hyper = launcher.build(args)
+    layers = FAM_TRAIN_LAYERS[arch]
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = loop.init_train_state(0, cfg, hyper, dev)
+    stream = SyntheticLMStream(vocab=cfg.vocab, global_batch=FAM_TRAIN_B, seq_len=FAM_TRAIN_S,
+                               seed=0, extra_specs=launcher.frontend_specs(cfg))
+    batch = to_device(stream.next(), dev)
+    check = ""
+    if cfg.family == "vlm":
+        # with gradients on, as in the step (outside autograd the attention
+        # would take B7); each graph is dropped at once
+        with torch.enable_grad():
+            lf = float(loop.loss_fn(state["params"], batch, cfg, hyper)[0].detach())
+            logits, _ = api.forward(state["params"], batch, cfg)
+            sliced = logits[:, cfg.n_patches:].detach()
+            del logits
+        lse = torch.logsumexp(sliced, -1)
+        ce = torch.nn.functional.cross_entropy(sliced.reshape(-1, cfg.vocab),
+                                               batch["labels"].reshape(-1).long())
+        manual = float(ce + hyper.z_loss * torch.square(lse).mean())
+        del sliced, lse, ce
+        check = f"; loss_fn {lf:.6f}, the sliced logits' loss {manual:.6f}"
+    step = loop.make_train_step(cfg, hyper)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    loss, gn = float(m["loss"]), float(m["grad_norm"])
+    peak = torch.cuda.max_memory_allocated()
+    print(f"families (c) [{arch}]: {cfg.param_count()} float32 parameters ({cfg.n_layers} "
+          f"decoder layers), recipe {cfg.quant.tag()}, remat {cfg.remat}, B={FAM_TRAIN_B} "
+          f"S={FAM_TRAIN_S}{f' + {cfg.n_patches} patches' if cfg.family == 'vlm' else ''}: loss "
+          f"{loss:.6f}, grad_norm {gn:.6f}, moe_aux {float(m['moe_aux']):.6f}{check}; step wall "
+          f"{wall:.3f} ms (first step); peak memory {peak / 2 ** 30:.3f} GiB; launches "
+          f"{counts} [{card_line()}]", flush=True)
+    if not (math.isfinite(loss) and math.isfinite(gn) and loss > 0 and gn > 0):
+        raise AssertionError(f"(c) {arch}: loss {loss} or grad_norm {gn} not finite and positive")
+    if sum(counts.values()) != 0:
+        raise AssertionError(f"(c) {arch}: the train step launched {counts}")
+    if cfg.family == "vlm" and not (abs(loss - lf) <= FAM_TIGHT * abs(lf)
+                                    and abs(loss - manual) <= FAM_TIGHT * abs(manual)):
+        raise AssertionError(f"(c) {arch}: step loss {loss} vs loss_fn {lf} / sliced {manual}")
+    del state, batch, m
+    torch.cuda.empty_cache()
+    return {"step_ms": wall, "peak_gib": peak / 2 ** 30}
+
+
+def run_families(torch, dev, ops, err):
+    """Phase 11: the vlm, moe and audio families, (a) to (c); B7's
+    difference from its twin at the served shapes goes into err."""
+    t0 = time.perf_counter()
+    families_card_vs_cpu(torch, dev)
+    print(f"families (a): {time.perf_counter() - t0:.1f} s", flush=True)
+    for arch in FAM_SERVE:
+        serve_family(torch, dev, ops, arch)
+    family_b7_timings(torch, ops, dev, err)
+    for arch in FAM_TRAIN_LAYERS:
+        train_family(torch, dev, ops, arch)
+    print(f"families: phase 11 in {time.perf_counter() - t0:.1f} s [{card_line()}]", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3784,6 +4230,10 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--tune"]:
         run_tuning(torch, np, dev)
+        print(f"card: {card}")
+        return 0
+    if sys.argv[1:] == ["--families"]:
+        run_families(torch, dev, ops, {"flash_attention": 0.0})
         print(f"card: {card}")
         return 0
 
@@ -3895,6 +4345,9 @@ def main() -> int:
     # phase 10: the launch-geometry autotuner (A15)
     torch.cuda.empty_cache()
     run_tuning(torch, np, dev)
+    # phase 11: the vlm, moe and audio families (A17)
+    torch.cuda.empty_cache()
+    run_families(torch, dev, ops, err)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 
 Each module defines CONFIG (the exact assigned configuration, a copy of
 the reference's) and SMOKE (a reduced same-family config for CPU tests).
-The port holds the dense architectures; the others are not ported yet.
+The port holds the dense, vlm, moe and audio architectures; the hybrid
+and ssm ones (recurrentgemma-2b, rwkv6-7b) are not ported yet.
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ ARCH_IDS = [
     "rwkv6_7b",
     "llava_next_34b",
 ]
-PORTED = ("qwen2_1_5b", "olmo_1b", "starcoder2_3b", "starcoder2_7b")
+PORTED = ("qwen2_1_5b", "olmo_1b", "starcoder2_3b", "starcoder2_7b",
+          "llava_next_34b", "deepseek_moe_16b", "moonshot_v1_16b_a3b", "whisper_base")
 
 # canonical dashed ids (as listed in the assignment) -> module names
 ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
@@ -35,8 +37,8 @@ def _module(arch: str):
         raise ValueError(f"unknown arch {arch!r}; known: {', '.join(ARCH_IDS)}")
     if name not in PORTED:
         raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP A17: the moe, vlm, "
-            f"hybrid, ssm and audio families); ported: {', '.join(PORTED)}")
+            f"arch {arch!r} is not ported yet (ROADMAP A17: the hybrid and "
+            f"ssm families); ported: {', '.join(PORTED)}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

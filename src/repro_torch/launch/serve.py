@@ -12,7 +12,13 @@ with the recipe ``--wbits / --abits / --kv-bits`` (default W8A8 with an
 weights (seed 0) on the device, and serves ``--requests`` prompts of 4 to
 11 random tokens (``numpy.random.default_rng(0)``) through
 ``GenerationEngine`` in slots of 4, ``--max-new-tokens`` each; it logs
-tokens per second.
+tokens per second.  Every ported arch serves (``--arch llava-next-34b``,
+``deepseek-moe-16b``, ``moonshot-v1-16b-a3b``, ``whisper-base`` too).  The
+engine serves token prompts only (a vlm request runs without an image);
+the audio family's prefill needs frames the engine cannot pass (ROADMAP
+C16), so for it the launcher serves the same slots, left-padded as the
+engine pads them, through ``greedy_generate`` with seeded stub frames
+(``torch.Generator`` seeded with the slot's index).
 
 Compiled-QONNX-graph serving (the scheduler / registry stack: submit ->
 future over the pipelined engine, p50/p99 at the end):
@@ -53,12 +59,13 @@ import logging
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.executor import resolve_device
 from repro_torch.models import api
 from repro_torch.quantize.config import FP32, QuantRecipe
-from repro_torch.serve.generation import GenerationEngine
+from repro_torch.serve.generation import GenerationEngine, greedy_generate, left_pad
 
 log = logging.getLogger("repro_torch.launch.serve")
 
@@ -178,19 +185,37 @@ def serve_lm(args) -> dict:
     device = resolve_device(args.device)
     log.info("%s on %s, recipe %s", cfg.name, device, recipe.tag())
     params = api.init_params(0, cfg, device)
-    eng = GenerationEngine(params, cfg, max_batch=4)
     rng = np.random.default_rng(0)
     t0 = time.monotonic()
-    reqs = [eng.submit(rng.integers(1, cfg.vocab, size=rng.integers(4, 12)),
-                       args.max_new_tokens)
-            for _ in range(args.requests)]
-    eng.run_pending()
+    prompts = [rng.integers(1, cfg.vocab, size=rng.integers(4, 12))
+               for _ in range(args.requests)]
+    if cfg.family == "audio":
+        results = _serve_audio(params, cfg, prompts, args.max_new_tokens, device)
+    else:
+        eng = GenerationEngine(params, cfg, max_batch=4)
+        reqs = [eng.submit(p, args.max_new_tokens) for p in prompts]
+        eng.run_pending()
+        results = [r.result for r in reqs]
     dt = time.monotonic() - t0
-    n_tok = sum(int(r.result.shape[0]) for r in reqs)
+    n_tok = sum(int(r.shape[0]) for r in results)
     log.info("%d requests, %d tokens in %.2fs (%.1f tok/s)",
-             len(reqs), n_tok, dt, n_tok / dt)
-    return {"requests": len(reqs), "tokens": n_tok, "seconds": dt,
-            "tokens_per_s": n_tok / dt, "results": [r.result for r in reqs]}
+             len(results), n_tok, dt, n_tok / dt)
+    return {"requests": len(results), "tokens": n_tok, "seconds": dt,
+            "tokens_per_s": n_tok / dt, "results": results}
+
+
+def _serve_audio(params, cfg, prompts, max_new_tokens: int, device, slot: int = 4) -> list:
+    """The engine's slots (``left_pad``) through ``greedy_generate`` with
+    seeded stub frames; int32 tokens on the host."""
+    out = []
+    for n, i in enumerate(range(0, len(prompts), slot)):
+        batch = prompts[i:i + slot]
+        toks = left_pad(batch)
+        frames = api.frontend_batch(torch.Generator().manual_seed(n), cfg, len(batch), device)
+        res = greedy_generate(params, cfg, dict(frames, tokens=toks.to(device)),
+                              max_new_tokens).cpu()
+        out.extend(res[j] for j in range(len(batch)))
+    return out
 
 
 def main(argv=None):

@@ -13,6 +13,12 @@ straggler ``Watchdog`` and ``run_with_restarts``, and saves every
 ``--ckpt-every`` steps and at the end.  One device: the reference's mesh
 over the devices present (``elastic_mesh``) waits for ROADMAP A16.
 Run as a script, it prints a JSON summary as its last line.
+
+Every ported arch trains.  For the vlm and audio families the stream
+also draws the modality frontend's stub embeddings (``img_embeds``
+(n_patches, d_model) or ``frames`` (n_frames, d_model) per row, standard
+normal, through the stream's ``extra_specs``), which the reference's
+launcher does not pass (its vlm and audio steps then fail on the batch).
 """
 from __future__ import annotations
 
@@ -22,15 +28,23 @@ import logging
 import os
 import tempfile
 
+import numpy as np
+
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.executor import resolve_device
 from repro_torch.data import SyntheticLMStream, to_device
 from repro_torch.dist.fault import RestartPolicy, Watchdog, run_with_restarts
+from repro_torch.models import api
 from repro_torch.quantize.config import FP32, QuantRecipe
 from repro_torch.train.loop import TrainHyper, init_train_state, make_train_step
 
 log = logging.getLogger("repro_torch.launch.train")
+
+
+def frontend_specs(cfg) -> dict:
+    """The stream's ``extra_specs`` for the family's frontend stub."""
+    return {name: (shape, np.float32) for name, shape in api.frontend_shapes(cfg).items()}
 
 
 def build(args):
@@ -79,7 +93,8 @@ def main(argv=None) -> dict:
 
     def make_state():
         stream = SyntheticLMStream(vocab=cfg.vocab, global_batch=args.global_batch,
-                                   seq_len=args.seq, seed=0)
+                                   seq_len=args.seq, seed=0,
+                                   extra_specs=frontend_specs(cfg))
         state = init_train_state(0, cfg, hyper, device)
         mgr.wait()                  # a save still in flight counts
         latest = mgr.latest_step()

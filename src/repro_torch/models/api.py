@@ -1,9 +1,9 @@
 """Unified LM API: family dispatch and the shape cells (counterpart of
 ``repro.models.api``).
 
-Families: ``dense`` -> ``transformer.py``.  The reference's ``moe``,
-``vlm``, ``hybrid``, ``ssm`` and ``audio`` families are not ported yet
-(ROADMAP A17) and raise ``NotImplementedError``.
+Families: ``dense``, ``moe`` and ``vlm`` -> ``transformer.py``; ``audio``
+-> ``encdec.py``.  The reference's ``hybrid`` and ``ssm`` families are not
+ported yet (ROADMAP A17) and raise ``NotImplementedError``.
 
 ``params_from_reference`` loads the reference's parameter pytree (as
 numpy arrays), so that both packages compute with the same weights: the
@@ -18,11 +18,13 @@ import torch
 
 from repro_torch.core.executor import resolve_device
 
-from . import transformer
+from . import encdec, transformer
 from .common import ModelConfig
 
 
 def _mod(cfg: ModelConfig):
+    if cfg.family == "audio":
+        return encdec
     transformer.check_family(cfg)
     return transformer
 
@@ -94,10 +96,42 @@ def shape_applicable(cfg: ModelConfig, shape_name: str) -> Optional[str]:
 def make_batch(generator: torch.Generator, cfg: ModelConfig, batch: int,
                seq: int, device=None) -> dict:
     """Concrete random batch (smoke tests / examples): tokens and labels,
-    drawn on ``generator``'s device and placed on ``device`` (CUDA unless
-    given another)."""
+    and the modality frontend's stub embeddings (the audio family's
+    ``frames`` (B, n_frames, D), the vlm family's ``img_embeds``
+    (B, n_patches, D), standard normal in the activation dtype), drawn on
+    ``generator``'s device and placed on ``device`` (CUDA unless given
+    another)."""
     _mod(cfg)
     device = resolve_device(device)
-    return {k: torch.randint(0, cfg.vocab, (batch, seq), generator=generator,
-                             dtype=torch.int32, device=generator.device).to(device)
-            for k in ("tokens", "labels")}
+    out = {k: torch.randint(0, cfg.vocab, (batch, seq), generator=generator,
+                            dtype=torch.int32, device=generator.device).to(device)
+           for k in ("tokens", "labels")}
+    out.update(frontend_batch(generator, cfg, batch, device))
+    return out
+
+
+def frontend_shapes(cfg: ModelConfig) -> dict:
+    """The modality frontend's stub embeddings, per batch row: {"frames":
+    (n_frames, D)} (audio), {"img_embeds": (n_patches, D)} (vlm), {} for
+    the text families."""
+    if cfg.family == "audio":
+        return {"frames": (cfg.n_frames, cfg.d_model)}
+    if cfg.family == "vlm":
+        return {"img_embeds": (cfg.n_patches, cfg.d_model)}
+    return {}
+
+
+def n_prefix(cfg: ModelConfig) -> int:
+    """Positions the modality frontend prepends to the token sequence: the
+    vlm family's ``n_patches`` image embeddings, 0 for every other family
+    (whisper's frames feed its encoder, not the decoder's sequence)."""
+    return cfg.n_patches if cfg.family == "vlm" else 0
+
+
+def frontend_batch(generator: torch.Generator, cfg: ModelConfig, batch: int,
+                   device=None) -> dict:
+    """``frontend_shapes``' embeddings for ``batch`` rows."""
+    return {name: torch.randn((batch,) + shape, generator=generator, dtype=torch.float32,
+                              device=generator.device).to(cfg.act_dtype)
+            .to(resolve_device(device))
+            for name, shape in frontend_shapes(cfg).items()}

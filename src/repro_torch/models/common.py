@@ -21,6 +21,7 @@ not ported (ROADMAP A16).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass, field
 from typing import Optional
@@ -108,7 +109,10 @@ class ModelConfig:
         """Params active per token (MoE: shared + top_k routed)."""
         if self.family != "moe":
             return self.param_count()
-        raise NotImplementedError("the moe family is not ported yet (ROADMAP A17)")
+        total = self.param_count()
+        expert = 3 * self.d_model * self.d_ff          # gate/up/down per expert
+        inactive = self.n_layers * (self.n_experts - self.top_k) * expert
+        return int(total - inactive)
 
 
 # ----------------------------------------------------------------- norms
@@ -161,6 +165,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 def sinusoidal_embedding(n_pos: int, d: int, device=None) -> torch.Tensor:
+    """The (n_pos, d) float32 table of the reference's numpy expression,
+    built once per (n_pos, d, device) and cached: whisper's decode step
+    asks for the 8192-row table on every token.  Callers must not write
+    into it."""
+    return _sinusoidal(int(n_pos), int(d), torch.device(device or "cpu"))
+
+
+@functools.lru_cache(maxsize=32)
+def _sinusoidal(n_pos: int, d: int, device: torch.device) -> torch.Tensor:
     pos = np.arange(n_pos)[:, None]
     i = np.arange(d)[None, :]
     angle = pos / np.power(10000, (2 * (i // 2)) / d)

@@ -1,5 +1,5 @@
-"""Decoder-only transformer stack, dense family (counterpart of
-``repro.models.transformer``).
+"""Decoder-only transformer stack: dense GQA, fine-grained MoE, VLM
+(counterpart of ``repro.models.transformer``).
 
 The parameters are ``nn.Module``s named after the reference's pytree keys
 (``Transformer.layers`` is an ``nn.ModuleList`` of ``Block``s); ``forward``
@@ -27,21 +27,30 @@ does every other case (decode).  On CUDA tensors B7 launches or raises.
 ``jax.checkpoint``.
 
 QONNX quantization enters through ``repro_torch.quantize.layers`` at every
-linear (recipe-controlled), and at the KV-cache write.  The ``moe``,
-``vlm``, ``hybrid``, ``ssm`` and ``audio`` families are not ported yet
-(ROADMAP A17).
+linear (recipe-controlled), and at the KV-cache write.
+
+vlm: ``img_embeds`` (B, n_patches, D), projected by ``img_proj``, are
+prepended to the token embeddings; positions, the cache and the logits
+run over the whole S_total = n_patches + S.  moe: ``moe_ffn`` replaces
+the block's FFN (its parameters are the block's ``moe``), and its
+load-balance term is summed over the layers into ``aux["moe_aux"]``.
+The audio family is ``models/encdec.py``; the ``hybrid`` and ``ssm``
+families are not ported yet (ROADMAP A17).
 """
 from __future__ import annotations
 
+import math
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.quantize.layers import qlinear, quant_kv
+from repro_torch.quantize.layers import qlinear, qlinear_experts, quant_kv
 from .common import (
     ModelConfig,
     apply_rope,
@@ -54,14 +63,18 @@ from .common import (
     softcap,
 )
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe", "vlm")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family ({cfg.name}) is not ported yet "
-            "(ROADMAP A17); the port runs the dense family")
+    if cfg.family in PORTED_FAMILIES:
+        return
+    if cfg.family == "audio":
+        raise ValueError(f"{cfg.name} is an encoder-decoder (audio family): "
+                         "it runs in models/encdec.py")
+    raise NotImplementedError(
+        f"the {cfg.family!r} family ({cfg.name}) is not ported yet "
+        "(ROADMAP A17); the port runs the dense, moe, vlm and audio families")
 
 
 # ------------------------------------------------------------ parameters
@@ -79,6 +92,16 @@ def attn_param_shapes(cfg: ModelConfig) -> dict:
          "wo": (H * hd, d)}
     if cfg.qkv_bias:
         p.update(bq=(H * hd,), bk=(KV * hd,), bv=(KV * hd,))
+    return p
+
+
+def moe_param_shapes(cfg: ModelConfig) -> dict:
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {"router": (d, E), "we_gate": (E, d, f), "we_up": (E, d, f),
+         "we_down": (E, f, d)}
+    if cfg.n_shared_experts:
+        fs = cfg.n_shared_experts * cfg.d_ff
+        p.update(ws_gate=(d, fs), ws_up=(d, fs), ws_down=(fs, d))
     return p
 
 
@@ -122,12 +145,22 @@ class Block(nn.Module):
         self.attn_norm = Norm(cfg, device)
         self.attn = Params(attn_param_shapes(cfg), cfg.p_dtype, device)
         self.ffn_norm = Norm(cfg, device)
-        self.ffn = Params(ffn_param_shapes(cfg), cfg.p_dtype, device)
+        key, shapes = ffn_block_shapes(cfg)
+        setattr(self, key, Params(shapes, cfg.p_dtype, device))
+
+
+def ffn_block_shapes(cfg: ModelConfig) -> tuple:
+    """The block's feed-forward: ("moe", its experts' shapes) for the moe
+    family, else ("ffn", the FFN's)."""
+    if cfg.family == "moe":
+        return "moe", moe_param_shapes(cfg)
+    return "ffn", ffn_param_shapes(cfg)
 
 
 class Transformer(nn.Module):
-    """The parameters of one dense LM: ``embed`` (V, D), ``layers``,
-    ``final_norm`` and, without tied embeddings, ``lm_head`` (D, V)."""
+    """The parameters of one LM: ``embed`` (V, D), ``layers``,
+    ``final_norm``, without tied embeddings ``lm_head`` (D, V), and for
+    the vlm family the patch projector ``img_proj`` (D, D)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -138,6 +171,8 @@ class Transformer(nn.Module):
         self.final_norm = Norm(cfg, device)
         if not cfg.tie_embeddings:
             self.lm_head = _param((cfg.d_model, cfg.vocab), cfg.p_dtype, device)
+        if cfg.family == "vlm":
+            self.img_proj = _param((cfg.d_model, cfg.d_model), cfg.p_dtype, device)
 
     def head(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
@@ -151,13 +186,15 @@ def param_shapes(cfg: ModelConfig) -> dict:
     for sub, shapes in (("attn_norm", norm_param_shapes(cfg)),
                         ("attn", attn_param_shapes(cfg)),
                         ("ffn_norm", norm_param_shapes(cfg)),
-                        ("ffn", ffn_param_shapes(cfg))):
+                        ffn_block_shapes(cfg)):
         layer.update({f"{sub}.{k}": s for k, s in shapes.items()})
     for i in range(cfg.n_layers):
         out.update({f"layers.{i}.{k}": s for k, s in layer.items()})
     out.update({f"final_norm.{k}": s for k, s in norm_param_shapes(cfg).items()})
     if not cfg.tie_embeddings:
         out["lm_head"] = (cfg.d_model, cfg.vocab)
+    if cfg.family == "vlm":
+        out["img_proj"] = (cfg.d_model, cfg.d_model)
     return out
 
 
@@ -178,39 +215,50 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device=None) -> Tr
 
 def params_from_reference(tree: dict, cfg: ModelConfig, device=None) -> Transformer:
     """Load the reference's parameter pytree, as numpy arrays (layers
-    stacked on a leading L axis, layernorm weights as (g, b) tuples)."""
+    stacked on a leading L axis, a moe block's experts (L, E, ...),
+    layernorm weights as (g, b) tuples)."""
     model = Transformer(cfg, device)
-
-    def put(param: torch.Tensor, value) -> None:
-        value = torch.tensor(np.asarray(value))
-        if tuple(value.shape) != tuple(param.shape):
-            raise ValueError(f"shape {tuple(value.shape)} for a parameter "
-                             f"of shape {tuple(param.shape)}")
-        param.data.copy_(value.to(param.dtype))
-
-    def put_norm(mod: Norm, value, i=None) -> None:
-        pick = (lambda a: a) if i is None else (lambda a: a[i])
-        if cfg.norm == "rms":
-            put(mod.w, pick(value))
-        elif cfg.norm == "layernorm":
-            put(mod.g, pick(value[0]))
-            put(mod.b, pick(value[1]))
-
-    put(model.embed, tree["embed"])
+    put_param(model.embed, tree["embed"])
     if not cfg.tie_embeddings:
-        put(model.lm_head, tree["lm_head"])
+        put_param(model.lm_head, tree["lm_head"])
+    if cfg.family == "vlm":
+        put_param(model.img_proj, tree["img_proj"])
     if cfg.norm != "nonparam":
-        put_norm(model.final_norm, tree["final_norm"])
+        put_norm_param(model.final_norm, tree["final_norm"])
     lt = tree["layers"]
     for i, blk in enumerate(model.layers):
         if cfg.norm != "nonparam":
-            put_norm(blk.attn_norm, lt["attn_norm"], i)
-            put_norm(blk.ffn_norm, lt["ffn_norm"], i)
-        for sub in ("attn", "ffn"):
-            mod = getattr(blk, sub)
-            for name, _ in mod.named_parameters():
-                put(getattr(mod, name), lt[sub][name][i])
+            put_norm_param(blk.attn_norm, lt["attn_norm"], i)
+            put_norm_param(blk.ffn_norm, lt["ffn_norm"], i)
+        for sub in ("attn", ffn_block_shapes(cfg)[0]):
+            put_params(getattr(blk, sub), lt[sub], i)
     return model
+
+
+def put_param(param: torch.Tensor, value) -> None:
+    """Copy a reference leaf (numpy) into ``param``; shapes must agree."""
+    value = torch.tensor(np.asarray(value))
+    if tuple(value.shape) != tuple(param.shape):
+        raise ValueError(f"shape {tuple(value.shape)} for a parameter "
+                         f"of shape {tuple(param.shape)}")
+    param.data.copy_(value.to(param.dtype))
+
+
+def put_norm_param(mod: Norm, value, i=None) -> None:
+    """A reference norm leaf (w, or (g, b) for layernorm; layer i of a
+    stacked one) into ``mod``."""
+    pick = (lambda a: a) if i is None else (lambda a: a[i])
+    if mod.kind == "rms":
+        put_param(mod.w, pick(value))
+    elif mod.kind == "layernorm":
+        put_param(mod.g, pick(value[0]))
+        put_param(mod.b, pick(value[1]))
+
+
+def put_params(mod: Params, subtree: dict, i: int) -> None:
+    """Layer i of a stacked reference subtree {name: (L, ...)} into ``mod``."""
+    for name, param in mod.named_parameters():
+        put_param(param, subtree[name][i])
 
 
 # ------------------------------------------------------------- attention
@@ -233,6 +281,22 @@ def _flash(q, k, v) -> torch.Tensor:
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), causal=True)
     return out.transpose(1, 2)
+
+
+def attend(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset: int = 0,
+           kv_len: Optional[int] = None) -> torch.Tensor:
+    """Attention of q (B, Sq, H, hd) over k, v (B, Sk, KV, hd), keys valid
+    below ``kv_len`` (all by default), routed by ``takes_flash``: B7 on
+    the first Sq keys, or the plain ``chunked_attention``.  Every model's
+    attention call site comes through here (``models/encdec.py`` too)."""
+    Sq = q.shape[1]
+    kv_len = k.shape[1] if kv_len is None else int(kv_len)
+    differentiated = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    if takes_flash(Sq, q_offset, kv_len, differentiated, causal=causal, window=None):
+        return _flash(q, k[:, :Sq], v[:, :Sq])
+    return chunked_attention(q, k, v, causal=causal, q_offset=q_offset,
+                             chunk=cfg.attn_chunk, kv_len=kv_len)
 
 
 def attention(x, p, cfg: ModelConfig, *, positions, kv_cache=None,
@@ -266,15 +330,112 @@ def attention(x, p, cfg: ModelConfig, *, positions, kv_cache=None,
         new_cache = kv_cache
     else:
         kv_len, new_cache = S, None
-    differentiated = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (q, k, v))
-    if takes_flash(S, idx, kv_len, differentiated, causal=True, window=None):
-        out = _flash(q, k[:, :S], v[:, :S])
-    else:
-        out = chunked_attention(q, k, v, causal=True, q_offset=idx,
-                                chunk=cfg.attn_chunk, kv_len=kv_len)
+    out = attend(q, k, v, cfg, causal=True, q_offset=idx, kv_len=kv_len)
     out = out.reshape(B, S, H * hd)
     return qlinear(out, p.wo, recipe=recipe), new_cache
+
+
+# --------------------------------------------------------------------- MoE
+
+def moe_groups(B: int, S: int, cfg: ModelConfig) -> tuple:
+    """(G, Tl, C): token groups (gcd(B, 32), the reference's dp-alignable
+    split), tokens per group, and each expert's capacity per group,
+    computed on Python floats as the reference does."""
+    G = math.gcd(B, 32)
+    Tl = B * S // G
+    C = max(int(np.ceil(Tl * cfg.top_k * cfg.moe_capacity_factor / cfg.n_experts)), 1)
+    return G, Tl, C
+
+
+def top_k_lower_index(probs: torch.Tensor, k: int):
+    """The k largest along the last axis, ties to the lower index, as
+    ``lax.top_k``: the first k of a stable descending sort (``torch.topk``
+    does not promise the tie order on CUDA)."""
+    w, i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return w[..., :k], i[..., :k]
+
+
+def moe_route(xg: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+    """Router over token groups xg (G, Tl, D): (top_w (G, Tl, k)
+    normalised, top_i (G, Tl, k), load-balance aux float32)."""
+    E, k = cfg.n_experts, cfg.top_k
+    logits = torch.einsum("gtd,de->gte", xg.to(torch.float32), router.to(torch.float32))
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_i = top_k_lower_index(probs, k)
+    top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
+    # Switch's load-balancing term E * sum_e f_e * P_e; jnp.mean is the sum
+    # times the float32 reciprocal of the count (C5), and the division by
+    # the constant k a reciprocal product under jit (C7)
+    inv_n = torch.full((), 1.0 / (xg.shape[0] * xg.shape[1]), dtype=torch.float32,
+                       device=xg.device)
+    inv_k = torch.full((), 1.0 / k, dtype=torch.float32, device=xg.device)
+    me = probs.sum(dim=(0, 1)) * inv_n
+    counts = F.one_hot(top_i.long(), E).to(torch.float32).sum(2)     # (G, Tl, E)
+    ce = counts.sum(dim=(0, 1)) * inv_n * inv_k
+    return top_w, top_i, E * torch.sum(me * ce)
+
+
+def moe_dispatch(xg: torch.Tensor, top_i: torch.Tensor, cfg: ModelConfig, C: int):
+    """Capacity dispatch of token groups xg (G, Tl, D) to the experts
+    top_i (G, Tl, k) chose.  Returns (buf (E, G·C, D) in x's dtype, slot
+    (G, Tl·k) int64: each choice's row of buf, keep (G, Tl·k)).
+
+    The (g, e, pos) slot of a kept choice (pos, its rank among group g's
+    choices of expert e, below C) receives exactly one token, so a
+    non-accumulating write into zeros gives the reference's
+    ``.at[].add(mode="drop")`` values (there a dropped choice adds a
+    zero); dropped choices write to one spare row past the buffer's end.
+    Row e·G·C + g·C + pos of ``buf`` is the reference's buf[g, e, pos]."""
+    G, Tl, D = xg.shape
+    E, k = cfg.n_experts, cfg.top_k
+    flat_e = top_i.reshape(G, Tl * k).long()
+    oh = F.one_hot(flat_e, E).to(torch.int32)                       # (G, Tl*k, E)
+    pos_in_e = torch.cumsum(oh, dim=1, dtype=torch.int32) - oh
+    pos = torch.gather(pos_in_e, 2, flat_e[..., None])[..., 0].long()
+    keep = pos < C
+    g_idx = torch.arange(G, device=xg.device)[:, None]
+    slot = flat_e * (G * C) + g_idx * C + torch.clamp_max(pos, C - 1)
+    rows = E * G * C
+    dest = torch.where(keep, slot, rows)
+    tok = g_idx * Tl + torch.arange(Tl * k, device=xg.device)[None] // k
+    buf = torch.zeros((rows + 1, D), dtype=xg.dtype, device=xg.device)
+    buf.index_put_((dest.reshape(-1),), xg.reshape(G * Tl, D)[tok.reshape(-1)])
+    return buf[:rows].view(E, G * C, D), slot, keep
+
+
+def moe_ffn(x, p, cfg: ModelConfig):
+    """Fine-grained MoE (DeepSeekMoE-style): shared experts (dense) + top-k
+    routed experts with the reference's grouped capacity dispatch.
+
+    The experts run as batched matmuls over E (``qlinear_experts``: each
+    expert's weight and activation scales its own, as the reference's
+    ``vmap``); each token's k weighted contributions are summed in the
+    order j = 0..k-1 from zeros in x's dtype, as the reference's scatter
+    adds them (no atomics).  Returns (y (B, S, D), aux float32)."""
+    recipe = cfg.quant
+    B, S, D = x.shape
+    k = cfg.top_k
+    G, Tl, C = moe_groups(B, S, cfg)
+    xg = x.reshape(G, Tl, D)
+    top_w, top_i, aux = moe_route(xg, p.router, cfg)
+    buf, slot, keep = moe_dispatch(xg, top_i, cfg, C)
+
+    g = qlinear_experts(buf, p.we_gate, recipe)
+    u = qlinear_experts(buf, p.we_up, recipe)
+    h = F.silu(g.to(torch.float32)).to(buf.dtype) * u
+    ybuf = qlinear_experts(h, p.we_down, recipe)                    # (E, G*C, D)
+
+    yt = ybuf.reshape(-1, D)[slot.reshape(-1)].view(G, Tl * k, D)
+    yt = torch.where(keep[..., None], yt, yt.new_zeros(()))
+    yt = (yt * top_w.reshape(G, Tl * k, 1).to(x.dtype)).view(G, Tl, k, D)
+    y = torch.zeros((G, Tl, D), dtype=yt.dtype, device=x.device)
+    for j in range(k):
+        y = y + yt[:, :, j]
+
+    if cfg.n_shared_experts:
+        shared = SimpleNamespace(w_gate=p.ws_gate, w_up=p.ws_up, w_down=p.ws_down)
+        y = y + ffn_apply(x, shared, cfg.replace(ffn="swiglu"), recipe).reshape(G, Tl, D)
+    return y.reshape(B, S, D), aux
 
 
 # ------------------------------------------------------------------ blocks
@@ -287,18 +448,29 @@ def block(x, lp: Block, cfg: ModelConfig, *, positions, kv_cache=None,
                              kv_cache=kv_cache, cache_index=cache_index)
     x = x + a
     h = norm(x, lp.ffn_norm.weight(), cfg.norm)
-    return x + ffn_apply(h, lp.ffn, cfg, cfg.quant), new_cache, 0.0
+    if cfg.family == "moe":
+        f, aux = moe_ffn(h, lp.moe, cfg)
+    else:
+        f, aux = ffn_apply(h, lp.ffn, cfg, cfg.quant), 0.0
+    return x + f, new_cache, aux
 
 
 def embed_inputs(params: Transformer, batch: dict, cfg: ModelConfig):
-    """Token embedding.  Returns (h, n_prefix)."""
+    """Token embedding, with the vlm family's projected patch embeddings
+    prepended when the batch has ``img_embeds``.  Returns (h, n_prefix)."""
     check_family(cfg)
     tokens = torch.as_tensor(batch["tokens"], device=params.embed.device)
     h = params.embed[tokens.long()].to(cfg.act_dtype)
+    n_prefix = 0
+    if cfg.family == "vlm" and "img_embeds" in batch:
+        img = torch.as_tensor(batch["img_embeds"], device=h.device).to(cfg.act_dtype)
+        img = qlinear(img, params.img_proj, recipe=cfg.quant)
+        h = torch.cat([img, h], dim=1)
+        n_prefix = img.shape[1]
     if cfg.pos == "sinusoidal":
         emb = sinusoidal_embedding(h.shape[1], cfg.d_model, h.device)
         h = h + emb.to(h.dtype)[None]
-    return h, 0
+    return h, n_prefix
 
 
 def _logits(params: Transformer, h, cfg: ModelConfig) -> torch.Tensor:
@@ -308,26 +480,30 @@ def _logits(params: Transformer, h, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _train_block(x, lp: Block, cfg: ModelConfig, positions):
-    return block(x, lp, cfg, positions=positions)[0]
+    x, _, aux = block(x, lp, cfg, positions=positions)
+    return x, aux
 
 
 def forward(params: Transformer, batch: dict, cfg: ModelConfig):
-    """Training-path logits, differentiable.  batch: tokens (B, S).
+    """Training-path logits, differentiable.  batch: tokens (B, S)
+    [+ img_embeds (B, P, D)].
 
-    Returns (logits (B, S, V) float32, aux dict)."""
+    Returns (logits (B, S_total, V) float32, aux dict: ``moe_aux``, the
+    load-balance terms summed in layer order in float32, and
+    ``n_prefix``)."""
     h, n_prefix = embed_inputs(params, batch, cfg)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
     remat = cfg.remat and torch.is_grad_enabled()
+    moe_aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for lp in params.layers:
         if remat:       # the block draws no random numbers: no RNG state kept
-            h = checkpoint(_train_block, h, lp, cfg, positions,
-                           use_reentrant=False, preserve_rng_state=False)
+            h, a = checkpoint(_train_block, h, lp, cfg, positions,
+                              use_reentrant=False, preserve_rng_state=False)
         else:
-            h = _train_block(h, lp, cfg, positions)
+            h, a = _train_block(h, lp, cfg, positions)
+        moe_aux = moe_aux + a
     h = norm(h, params.final_norm.weight(), cfg.norm)
-    aux = {"moe_aux": torch.zeros((), dtype=torch.float32, device=h.device),
-           "n_prefix": n_prefix}
-    return _logits(params, h, cfg), aux
+    return _logits(params, h, cfg), {"moe_aux": moe_aux, "n_prefix": n_prefix}
 
 
 # ------------------------------------------------------------------ serving
@@ -349,9 +525,10 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None) -> lis
 
 @torch.no_grad()
 def prefill(params: Transformer, batch: dict, cfg: ModelConfig, cache_len: int):
-    """Prompt processing: runs the full prompt once, filling the KV cache.
+    """Prompt processing: runs the full prompt (with the vlm family's
+    image prefix) once, filling the KV cache.
 
-    Returns (last_token_logits (B, V), cache).  cache_len >= prompt length.
+    Returns (last_token_logits (B, V), cache).  cache_len >= S_total.
     """
     h, _ = embed_inputs(params, batch, cfg)
     B, S, _ = h.shape

@@ -26,17 +26,22 @@ from .config import QuantRecipe, TensorQuant
 
 
 def _dynamic_scale(x: torch.Tensor, tq: TensorQuant, bit_width: torch.Tensor, *,
-                   channel_axis=None):
-    """max-abs symmetric scale (float32); per-channel when requested.
+                   channel_axis=None, expert_axis=None):
+    """max-abs symmetric scale (float32); per-channel when requested, and
+    one per index of ``expert_axis`` when given.
 
     The reference writes ``amax / max_int``; under ``jit`` (every model
     path) the bound is a compile-time constant, and XLA computes a
     division by a constant as a product with its float32 reciprocal, as
     it does for ``jnp.mean`` (ROADMAP C5, C7).  The port computes that
     product."""
+    keep = set()
     if tq.channelwise and channel_axis is not None:
-        keep = channel_axis % x.ndim
-        axes = tuple(i for i in range(x.ndim) if i != keep)
+        keep.add(channel_axis % x.ndim)
+    if expert_axis is not None:
+        keep.add(expert_axis % x.ndim)
+    if keep:
+        axes = tuple(i for i in range(x.ndim) if i not in keep)
         amax = torch.amax(torch.abs(x), dim=axes, keepdim=True)
     else:
         amax = torch.amax(torch.abs(x))
@@ -45,14 +50,15 @@ def _dynamic_scale(x: torch.Tensor, tq: TensorQuant, bit_width: torch.Tensor, *,
     return torch.maximum(amax.to(torch.float32), eps) * torch.reciprocal(bound)
 
 
-def _fake_quant(x: torch.Tensor, tq: TensorQuant, *, channel_axis=None) -> torch.Tensor:
+def _fake_quant(x: torch.Tensor, tq: TensorQuant, *, channel_axis=None,
+                expert_axis=None) -> torch.Tensor:
     """The dynamic Quant: a scale from ``x``, cast to x's dtype, then the
     Quant forward.  The bit width is a 0-d float32 tensor filled on x's
     device, so the clip bounds are computed there: a bound made on the
     host would cost a host-to-device copy per call, and a copy from
     pageable memory holds the host until the device has caught up."""
     bw = torch.full((), float(tq.bit_width), dtype=torch.float32, device=x.device)
-    s = _dynamic_scale(x, tq, bw, channel_axis=channel_axis)
+    s = _dynamic_scale(x, tq, bw, channel_axis=channel_axis, expert_axis=expert_axis)
     return quant_ste(x, s.to(x.dtype), torch.zeros((), dtype=x.dtype, device=x.device),
                      bw, tq.signed, tq.narrow, tq.rounding_mode)
 
@@ -65,6 +71,31 @@ def quant_weight(w: torch.Tensor, tq: TensorQuant) -> torch.Tensor:
 def quant_act(x: torch.Tensor, tq: TensorQuant) -> torch.Tensor:
     """Fake-quant an activation tensor (tensor-wise dynamic scale)."""
     return _fake_quant(x, tq)
+
+
+def quant_weight_experts(w: torch.Tensor, tq: TensorQuant) -> torch.Tensor:
+    """Fake-quant stacked expert weights (E, ..., out_features): each
+    expert's own channel-wise scale, as ``quant_weight`` under the
+    reference's ``vmap`` over experts computes it (``quant_weight`` on the
+    stack would reduce over E as well)."""
+    return _fake_quant(w, tq, channel_axis=-1, expert_axis=0)
+
+
+def quant_act_experts(x: torch.Tensor, tq: TensorQuant) -> torch.Tensor:
+    """Fake-quant stacked per-expert activations (E, ...): one tensor-wise
+    scale per expert, the amax of its whole slice."""
+    return _fake_quant(x, tq, expert_axis=0)
+
+
+def qlinear_experts(x: torch.Tensor, w: torch.Tensor,
+                    recipe: QuantRecipe | None = None) -> torch.Tensor:
+    """``qlinear`` per expert, batched: x (E, M, K), w (E, K, N) ->
+    (E, M, N), each expert's operands fake-quantized with its own scales
+    (the reference maps ``qlinear`` over E with ``vmap``)."""
+    if recipe is not None and recipe.enabled:
+        w = quant_weight_experts(w, recipe.weights)
+        x = quant_act_experts(x, recipe.acts)
+    return torch.matmul(x, w.to(x.dtype))
 
 
 def qlinear(x: torch.Tensor, w: torch.Tensor, b=None,

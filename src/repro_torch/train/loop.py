@@ -5,7 +5,8 @@
 metrics) function.  Features, as the reference's:
 
   * causal-LM cross-entropy in float32 with z-loss (logit drift control)
-  * the MoE load-balance term (0 for the dense family, the one ported)
+  * the MoE load-balance term (``moe_aux``, weighted by ``moe_aux_weight``)
+  * the VLM image-prefix positions sliced off the logits
   * gradient accumulation over ``hyper.microbatches``, in float32
   * optional error-feedback int8 gradient compression (paper's Quant op)
   * the cosine schedule, then AdamW (``optim/``)
@@ -49,10 +50,15 @@ class TrainHyper:
 
 
 def loss_fn(params, batch, cfg: ModelConfig, hyper: TrainHyper):
-    """(loss, {"nll", "z_loss", "moe_aux"}), 0-d float32 tensors.  The gold
-    logit is gathered (the reference takes the same value by a masked sum
-    over the vocabulary, a choice for its sharded logits)."""
-    logits, aux = api.forward(params, batch, cfg)       # (B, S, V) float32
+    """(loss, {"nll", "z_loss", "moe_aux"}), 0-d float32 tensors.  The vlm
+    family's logits lose their first ``cfg.n_patches`` positions (the
+    image prefix), as the reference's do.  The gold logit is gathered
+    (the reference takes the same value by a masked sum over the
+    vocabulary, a choice for its sharded logits)."""
+    logits, aux = api.forward(params, batch, cfg)       # (B, S_total, V) float32
+    n_prefix = api.n_prefix(cfg)
+    if n_prefix:
+        logits = logits[:, n_prefix:]
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
@@ -121,10 +127,12 @@ def train_state_from_reference(tree: dict, cfg: ModelConfig, hyper: TrainHyper,
 def decayed(named: dict) -> set:
     """The parameters AdamW decays, as the reference decides: its rule is
     ``ndim >= 2`` on leaves whose layers are stacked on a leading axis, so
-    every per-layer parameter counts one dimension more than the port's
-    (a layer's norm weight is (L, d) there) and only the top-level vectors
-    escape the decay (ROADMAP C11)."""
-    return {k for k, p in named.items() if p.ndim + k.startswith("layers.") >= 2}
+    every per-layer parameter (under ``layers.``, or an encoder-decoder's
+    ``enc_layers.`` / ``dec_layers.``) counts one dimension more than the
+    port's (a layer's norm weight is (L, d) there) and only the top-level
+    vectors escape the decay (ROADMAP C11)."""
+    stacked = ("layers.", "enc_layers.", "dec_layers.")
+    return {k for k, p in named.items() if p.ndim + k.startswith(stacked) >= 2}
 
 
 def make_train_step(cfg: ModelConfig, hyper: TrainHyper):

@@ -33,6 +33,11 @@ def test_importing_every_port_module_leaves_jax_out():
             "repro_torch.configs.olmo_1b", "repro_torch.configs.starcoder2_3b",
             "repro_torch.configs.starcoder2_7b", "repro_torch.serve.generation",
             "repro_torch.launch.serve"} <= set(mods)
+    # the vlm, moe and audio families: the encoder-decoder and four configs
+    assert {"repro_torch.models.encdec", "repro_torch.configs.llava_next_34b",
+            "repro_torch.configs.deepseek_moe_16b",
+            "repro_torch.configs.moonshot_v1_16b_a3b",
+            "repro_torch.configs.whisper_base"} <= set(mods)
     # the fusion / formats slice: boundary glue, fusion, the paper's formats
     assert {"repro_torch.kernels.quant_pool", "repro_torch.core.lowering.fusion",
             "repro_torch.core.formats", "repro_torch.core.streamline",
@@ -76,7 +81,10 @@ TUNING = ("repro_torch.tune", "repro_torch.tune.config",
           "repro_torch.tune.autotuner")
 
 
-@pytest.mark.parametrize("module", ["repro_torch.serve", "repro_torch.obs",
+@pytest.mark.parametrize("module", ["repro_torch.models.encdec",
+                                    "repro_torch.configs.whisper_base",
+                                    "repro_torch.configs.llava_next_34b",
+                                    "repro_torch.serve", "repro_torch.obs",
                                     "repro_torch.dist.fault",
                                     "repro_torch.launch.serve",
                                     "repro_torch.launch.train",

@@ -831,6 +831,27 @@ def test_flash_attention_kernel_matches_twin(cuda, dtype, hd, causal, H, KV):
                                .to(cuda))
 
 
+# (H, KV, hd) of the families' prefills: llava-next-34b (G = 7),
+# deepseek-moe-16b (G = 1) and whisper-base's decoder (hd 64), at
+# llava's S_total = 2880 patches + 128 tokens and one row off it
+FAMILY_HEADS = {"llava": (56, 8, 128), "deepseek": (16, 16, 128), "whisper": (8, 8, 64)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [2880 + 128, 2880 + 127])
+@pytest.mark.parametrize("model", sorted(FAMILY_HEADS))
+def test_flash_attention_family_geometries_match_twin(cuda, model, S, dtype):
+    """The models' layout (transposed (B, S, H, hd) views), causal."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    H, KV, hd = FAMILY_HEADS[model]
+    q, k, v = _on(cuda, *_qkv(S, 1, H, KV, S, S, hd, dtype, layout="bshd"))
+    before = fa.launches
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert_attention_close(got, fa.flash_attention_plain(q, k, v))
+
+
 def test_flash_attention_kernel_strided_and_ragged(cuda):
     """Transposed (B, S, H, hd) views, a cache slice as k/v, Sq != Sk."""
     fa = importlib.import_module("repro_torch.kernels.flash_attention")

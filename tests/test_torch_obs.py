@@ -382,7 +382,9 @@ def test_disabled_tracer_adds_zero_allocations_to_submit():
 def test_scheduler_stats_totals_and_rejection_counter():
     from repro_torch.serve import QueueFull
     eng = _engine()
-    sched = ServeScheduler(eng, max_queue=2, block=False)
+    # a window that cannot expire between the submits: the flush loop
+    # must not drain the queue before the third submit finds it full
+    sched = ServeScheduler(eng, max_queue=2, block=False, window_ms=60_000)
     xs = np.random.RandomState(4).randn(3, 16).astype(np.float32)
     with sched:
         sched.submit(xs[0])

@@ -1,7 +1,8 @@
 """Shared set-up of the LM parity tests (``test_torch_lm.py``,
-``test_torch_generation.py``): the SMOKE configs of the dense archs in
-both packages, the reference's parameters carried into the port, and the
-tolerances.
+``test_torch_generation.py``, ``test_torch_families.py``,
+``test_torch_encdec.py``): the SMOKE configs in both packages, the
+reference's parameters carried into the port, the families' frontend
+stubs, and the tolerances.
 
 Weights: the reference's seeded init, as numpy, with every vector (norm
 weights, biases) redrawn from N(0, 0.1): the init leaves them at 0, and a
@@ -77,6 +78,31 @@ def both_params(arch: str, recipe: str, dtype: str):
     tree = reference_tree(arch)
     return (rc, jax.tree.map(jnp.asarray, tree), pc,
             port_api.params_from_reference(tree, pc, "cpu"))
+
+
+def frontend(cfg, batch: int, seed: int = 7) -> dict:
+    """The family's stub embeddings as numpy float32 (N(0, 1)):
+    ``img_embeds`` (vlm), ``frames`` (audio), nothing otherwise."""
+    rng = np.random.default_rng(seed)
+    rows = {"vlm": ("img_embeds", cfg.n_patches), "audio": ("frames", cfg.n_frames)}
+    if cfg.family not in rows:
+        return {}
+    name, n = rows[cfg.family]
+    return {name: rng.standard_normal((batch, n, cfg.d_model)).astype(np.float32)}
+
+
+def batches(rc, pc, arrays: dict):
+    """(reference batch, port batch) of numpy ``arrays``: int arrays as
+    they are, the frontend's embeddings cast to each config's activation
+    dtype (the port's from the reference's cast values)."""
+    jb, tb = {}, {}
+    for k, v in arrays.items():
+        if v.dtype.kind in "iu":
+            jb[k], tb[k] = jnp.asarray(v), torch.from_numpy(v)
+        else:
+            jb[k] = jnp.asarray(v).astype(rc.act_dtype)
+            tb[k] = torch.from_numpy(np.array(f32(jb[k]))).to(pc.act_dtype)
+    return jb, tb
 
 
 def tokens(seed: int, vocab: int, shape) -> np.ndarray:
