@@ -12,8 +12,9 @@ with the recipe ``--wbits / --abits / --kv-bits`` (default W8A8 with an
 weights (seed 0) on the device, and serves ``--requests`` prompts of 4 to
 11 random tokens (``numpy.random.default_rng(0)``) through
 ``GenerationEngine`` in slots of 4, ``--max-new-tokens`` each; it logs
-tokens per second.  Every ported arch serves (``--arch llava-next-34b``,
-``deepseek-moe-16b``, ``moonshot-v1-16b-a3b``, ``whisper-base`` too).  The
+tokens per second.  Every arch serves (``--arch llava-next-34b``,
+``deepseek-moe-16b``, ``moonshot-v1-16b-a3b``, ``whisper-base``,
+``rwkv6-7b`` and ``recurrentgemma-2b`` too).  The
 engine serves token prompts only (a vlm request runs without an image);
 the audio family's prefill needs frames the engine cannot pass (ROADMAP
 C16), so for it the launcher serves the same slots, left-padded as the

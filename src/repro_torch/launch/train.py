@@ -14,7 +14,8 @@ straggler ``Watchdog`` and ``run_with_restarts``, and saves every
 over the devices present (``elastic_mesh``) waits for ROADMAP A16.
 Run as a script, it prints a JSON summary as its last line.
 
-Every ported arch trains.  For the vlm and audio families the stream
+Every arch trains (the ssm and hybrid families through their time
+loop and RG-LRU scan).  For the vlm and audio families the stream
 also draws the modality frontend's stub embeddings (``img_embeds``
 (n_patches, d_model) or ``frames`` (n_frames, d_model) per row, standard
 normal, through the stream's ``extra_specs``), which the reference's

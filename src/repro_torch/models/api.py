@@ -2,8 +2,7 @@
 ``repro.models.api``).
 
 Families: ``dense``, ``moe`` and ``vlm`` -> ``transformer.py``; ``audio``
--> ``encdec.py``.  The reference's ``hybrid`` and ``ssm`` families are not
-ported yet (ROADMAP A17) and raise ``NotImplementedError``.
+-> ``encdec.py``; ``ssm`` -> ``rwkv6.py``; ``hybrid`` -> ``rglru.py``.
 
 ``params_from_reference`` loads the reference's parameter pytree (as
 numpy arrays), so that both packages compute with the same weights: the
@@ -18,13 +17,17 @@ import torch
 
 from repro_torch.core.executor import resolve_device
 
-from . import encdec, transformer
+from . import encdec, rglru, rwkv6, transformer
 from .common import ModelConfig
+
+# the families outside the decoder-only transformer, by module
+FAMILY_MODULES = {"audio": encdec, "ssm": rwkv6, "hybrid": rglru}
 
 
 def _mod(cfg: ModelConfig):
-    if cfg.family == "audio":
-        return encdec
+    mod = FAMILY_MODULES.get(cfg.family)
+    if mod is not None:
+        return mod
     transformer.check_family(cfg)
     return transformer
 
@@ -34,8 +37,10 @@ def param_shapes(cfg: ModelConfig) -> dict:
 
 
 def param_specs(cfg: ModelConfig) -> dict:
-    """{dotted name: meta-device tensor}: shapes and dtypes, no storage."""
-    return _mod(cfg).param_specs(cfg)
+    """{dotted name: meta-device tensor}: shapes and dtypes, no storage
+    (the reference's ShapeDtypeStruct tree)."""
+    return {name: torch.empty(shape, dtype=cfg.p_dtype, device="meta")
+            for name, shape in param_shapes(cfg).items()}
 
 
 def init_params(generator, cfg: ModelConfig, device=None):
@@ -71,7 +76,8 @@ def cache_specs(cfg: ModelConfig, batch: int, cache_len: int):
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
-    """A zeroed KV cache on ``device`` (CUDA unless given another)."""
+    """A zeroed cache on ``device`` (CUDA unless given another): KV
+    entries, or the recurrent families' per-layer states."""
     return _mod(cfg).init_cache(cfg, batch, cache_len, resolve_device(device))
 
 

@@ -32,7 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.quantize.layers import qlinear
 from . import transformer
-from .common import ModelConfig, ffn_apply, ffn_param_shapes, init_, norm, sinusoidal_embedding, softcap
+from .common import ModelConfig, ffn_apply, ffn_param_shapes, init_, norm, sinusoidal_embedding
 from .transformer import Norm, Params, _param, attn_param_shapes, norm_param_shapes
 
 # decode_step reads its position from a table of this many rows, as the
@@ -80,6 +80,9 @@ class EncDec(nn.Module):
         self.dec_layers = nn.ModuleList(DecLayer(cfg, device) for _ in range(cfg.n_layers))
         self.final_norm = Norm(cfg, device)
 
+    def head(self) -> torch.Tensor:
+        return self.embed.T
+
 
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family != "audio":
@@ -105,12 +108,6 @@ def param_shapes(cfg: ModelConfig) -> dict:
             out.update({f"enc_final_norm.{k}": s for k, s in norm_param_shapes(cfg).items()})
     out.update({f"final_norm.{k}": s for k, s in norm_param_shapes(cfg).items()})
     return out
-
-
-def param_specs(cfg: ModelConfig) -> dict:
-    """{dotted name: tensor on the meta device} of every parameter."""
-    return {name: torch.empty(shape, dtype=cfg.p_dtype, device="meta")
-            for name, shape in param_shapes(cfg).items()}
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig, device=None) -> EncDec:
@@ -193,17 +190,6 @@ def _with_positions(h, n_pos: int, cfg: ModelConfig):
     return h + sinusoidal_embedding(n_pos, cfg.d_model, h.device).to(h.dtype)[None]
 
 
-def _embed(params: EncDec, tokens, cfg: ModelConfig):
-    tokens = torch.as_tensor(tokens, device=params.embed.device)
-    return params.embed[tokens.long()].to(cfg.act_dtype)
-
-
-def _logits(params: EncDec, h, cfg: ModelConfig):
-    h = norm(h, params.final_norm.weight(), cfg.norm)
-    logits = torch.matmul(h, params.embed.T.to(h.dtype))
-    return softcap(logits, cfg.logits_softcap).to(torch.float32)
-
-
 def _frames(batch: dict, device) -> torch.Tensor:
     if "frames" not in batch:
         raise KeyError("the audio family needs the batch's 'frames' (B, n_frames, "
@@ -221,10 +207,10 @@ def encode(params: EncDec, frames, cfg: ModelConfig):
 
 def decode(params: EncDec, enc_out, tokens, cfg: ModelConfig):
     """Decoder logits (B, S, V) float32 for tokens (B, S) over enc_out."""
-    h = _embed(params, tokens, cfg)
+    h = transformer.token_embedding(params, tokens, cfg)
     h = _with_positions(h, h.shape[1], cfg)
     h = _run(_dec_layer, h, params.dec_layers, cfg, enc_out)
-    return _logits(params, h, cfg)
+    return transformer.final_logits(params, h, cfg)
 
 
 def forward(params: EncDec, batch: dict, cfg: ModelConfig):
@@ -263,7 +249,7 @@ def prefill(params: EncDec, batch: dict, cfg: ModelConfig, cache_len: int):
 
     Returns (last logits (B, V), cache).  cache_len >= prompt length."""
     enc_out = encode(params, _frames(batch, params.embed.device), cfg)
-    h = _embed(params, batch["tokens"], cfg)
+    h = transformer.token_embedding(params, batch["tokens"], cfg)
     B, S, _ = h.shape
     if S > cache_len:
         raise ValueError(f"cache of length {cache_len} cannot take {S} entries at 0")
@@ -288,7 +274,7 @@ def prefill(params: EncDec, batch: dict, cfg: ModelConfig, cache_len: int):
         h = h + _ffn(h, lp, cfg)
         cache.append({"self_k": sk, "self_v": sv, "cross_k": ck.to(cfg.act_dtype),
                       "cross_v": cv.to(cfg.act_dtype)})
-    return _logits(params, h[:, -1:], cfg)[:, -1], cache
+    return transformer.final_logits(params, h[:, -1:], cfg)[:, -1], cache
 
 
 @torch.no_grad()
@@ -296,7 +282,7 @@ def decode_step(params: EncDec, cache: list, tokens, cache_index: int, cfg: Mode
     """One decoder token against a cache filled to cache_index, the cross
     K / V precomputed by ``prefill``.  Returns (logits (B, V), cache), the
     self-attention entries written in place."""
-    h = _embed(params, tokens, cfg)
+    h = transformer.token_embedding(params, tokens, cfg)
     idx = int(cache_index)
     row = min(max(idx, 0), DECODE_POSITIONS - 1)
     pos = sinusoidal_embedding(DECODE_POSITIONS, cfg.d_model, h.device)[row:row + 1]
@@ -321,4 +307,4 @@ def decode_step(params: EncDec, cache: list, tokens, cache_index: int, cfg: Mode
         h = h + _out(transformer.attend(qc, c["cross_k"], c["cross_v"], cfg, causal=False),
                      p, cfg)
         h = h + _ffn(h, lp, cfg)
-    return _logits(params, h, cfg)[:, -1], cache
+    return transformer.final_logits(params, h, cfg)[:, -1], cache

@@ -34,8 +34,10 @@ prepended to the token embeddings; positions, the cache and the logits
 run over the whole S_total = n_patches + S.  moe: ``moe_ffn`` replaces
 the block's FFN (its parameters are the block's ``moe``), and its
 load-balance term is summed over the layers into ``aux["moe_aux"]``.
-The audio family is ``models/encdec.py``; the ``hybrid`` and ``ssm``
-families are not ported yet (ROADMAP A17).
+The audio family is ``models/encdec.py``, the ssm family
+``models/rwkv6.py`` and the hybrid family ``models/rglru.py``, whose
+windowed attention layers call ``attention`` and ``attend`` here with
+their window.
 """
 from __future__ import annotations
 
@@ -69,12 +71,13 @@ PORTED_FAMILIES = ("dense", "moe", "vlm")
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family in PORTED_FAMILIES:
         return
-    if cfg.family == "audio":
-        raise ValueError(f"{cfg.name} is an encoder-decoder (audio family): "
-                         "it runs in models/encdec.py")
-    raise NotImplementedError(
-        f"the {cfg.family!r} family ({cfg.name}) is not ported yet "
-        "(ROADMAP A17); the port runs the dense, moe, vlm and audio families")
+    from .api import FAMILY_MODULES     # api imports this module
+    module = FAMILY_MODULES.get(cfg.family)
+    if module is None:
+        raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
+    raise ValueError(f"{cfg.name} ({cfg.family} family) runs in models/"
+                     f"{module.__name__.rsplit('.', 1)[-1]}.py, not in the decoder-only "
+                     "transformer")
 
 
 # ------------------------------------------------------------ parameters
@@ -198,13 +201,6 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return out
 
 
-def param_specs(cfg: ModelConfig) -> dict:
-    """{dotted name: tensor on the meta device} of every parameter: shapes
-    and dtypes without storage (the reference's ShapeDtypeStruct tree)."""
-    return {name: torch.empty(shape, dtype=cfg.p_dtype, device="meta")
-            for name, shape in param_shapes(cfg).items()}
-
-
 def init_params(generator: torch.Generator, cfg: ModelConfig, device=None) -> Transformer:
     """Seeded init with the reference's distribution (``common.init_``)."""
     model = Transformer(cfg, device)
@@ -264,14 +260,15 @@ def put_params(mod: Params, subtree: dict, i: int) -> None:
 # ------------------------------------------------------------- attention
 
 def takes_flash(sq: int, q_offset: int, kv_len: int, differentiated: bool = False, *,
-                causal: bool = True, window: Optional[int] = None) -> bool:
+                causal: bool = True, window: int = 0) -> bool:
     """Whether an attention call runs in B7: exactly the calls where B7
-    computes the reference's ``chunked_attention`` (causal with no window,
+    computes the reference's ``chunked_attention`` and autograd will not
+    differentiate it (B7 has no backward).  That is causal with no window
+    (``window`` 0, as ``chunked_attention`` and ``ModelConfig`` spell it),
     so every query sees keys 0..q, with no offset and as many valid keys
-    as queries) and autograd will not differentiate it (B7 has no
-    backward).  B7 is causal only: a non-causal call (an encoder's, a
+    as queries.  B7 is causal only: a non-causal call (an encoder's, a
     cross-attention's) or a windowed one runs the plain path."""
-    return (causal and window is None and q_offset == 0 and kv_len == sq
+    return (causal and not window and q_offset == 0 and kv_len == sq
             and not differentiated)
 
 
@@ -284,38 +281,34 @@ def _flash(q, k, v) -> torch.Tensor:
 
 
 def attend(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset: int = 0,
-           kv_len: Optional[int] = None) -> torch.Tensor:
+           kv_len: Optional[int] = None, window: int = 0) -> torch.Tensor:
     """Attention of q (B, Sq, H, hd) over k, v (B, Sk, KV, hd), keys valid
-    below ``kv_len`` (all by default), routed by ``takes_flash``: B7 on
-    the first Sq keys, or the plain ``chunked_attention``.  Every model's
-    attention call site comes through here (``models/encdec.py`` too)."""
+    below ``kv_len`` (all by default), each query seeing the last
+    ``window`` positions (0: all), routed by ``takes_flash``: B7 on the
+    first Sq keys, or the plain ``chunked_attention``.  Every model's
+    attention call site comes through here (``models/encdec.py`` and
+    ``models/rglru.py`` too)."""
     Sq = q.shape[1]
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
     differentiated = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
-    if takes_flash(Sq, q_offset, kv_len, differentiated, causal=causal, window=None):
+    if takes_flash(Sq, q_offset, kv_len, differentiated, causal=causal, window=window):
         return _flash(q, k[:, :Sq], v[:, :Sq])
-    return chunked_attention(q, k, v, causal=causal, q_offset=q_offset,
+    return chunked_attention(q, k, v, causal=causal, q_offset=q_offset, window=window,
                              chunk=cfg.attn_chunk, kv_len=kv_len)
 
 
 def attention(x, p, cfg: ModelConfig, *, positions, kv_cache=None,
-              cache_index: int = 0):
-    """Self-attention with an optional KV cache.
+              cache_index: int = 0, window: int = 0):
+    """Self-attention with an optional KV cache, over the last ``window``
+    positions (0: all).
 
     x: (B, S, D).  kv_cache: dict(k=(B, C, KV, hd), v=...) or None; it is
     updated in place.  Returns (out, kv_cache_or_None).
     """
     recipe = cfg.quant
     B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = qlinear(x, p.wq, getattr(p, "bq", None), recipe=recipe).reshape(B, S, H, hd)
-    k = qlinear(x, p.wk, getattr(p, "bk", None), recipe=recipe).reshape(B, S, KV, hd)
-    v = qlinear(x, p.wv, getattr(p, "bv", None), recipe=recipe).reshape(B, S, KV, hd)
-    if cfg.pos == "rope":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-
+    q, k, v = project_qkv(x, p, cfg, positions)
     idx = int(cache_index)
     if kv_cache is not None:
         if recipe.enabled and recipe.kv_cache_bits:
@@ -330,9 +323,23 @@ def attention(x, p, cfg: ModelConfig, *, positions, kv_cache=None,
         new_cache = kv_cache
     else:
         kv_len, new_cache = S, None
-    out = attend(q, k, v, cfg, causal=True, q_offset=idx, kv_len=kv_len)
-    out = out.reshape(B, S, H * hd)
-    return qlinear(out, p.wo, recipe=recipe), new_cache
+    out = attend(q, k, v, cfg, causal=True, q_offset=idx, kv_len=kv_len, window=window)
+    return qlinear(out.reshape(B, S, -1), p.wo, recipe=recipe), new_cache
+
+
+def project_qkv(x, p, cfg: ModelConfig, positions):
+    """q (B, S, H, hd), k and v (B, S, KV, hd) of x (B, S, D), RoPE'd at
+    ``positions`` where the config uses it."""
+    recipe = cfg.quant
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = qlinear(x, p.wq, getattr(p, "bq", None), recipe=recipe).reshape(B, S, H, hd)
+    k = qlinear(x, p.wk, getattr(p, "bk", None), recipe=recipe).reshape(B, S, KV, hd)
+    v = qlinear(x, p.wv, getattr(p, "bv", None), recipe=recipe).reshape(B, S, KV, hd)
+    if cfg.pos == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
 
 
 # --------------------------------------------------------------------- MoE
@@ -459,8 +466,7 @@ def embed_inputs(params: Transformer, batch: dict, cfg: ModelConfig):
     """Token embedding, with the vlm family's projected patch embeddings
     prepended when the batch has ``img_embeds``.  Returns (h, n_prefix)."""
     check_family(cfg)
-    tokens = torch.as_tensor(batch["tokens"], device=params.embed.device)
-    h = params.embed[tokens.long()].to(cfg.act_dtype)
+    h = token_embedding(params, batch["tokens"], cfg)
     n_prefix = 0
     if cfg.family == "vlm" and "img_embeds" in batch:
         img = torch.as_tensor(batch["img_embeds"], device=h.device).to(cfg.act_dtype)
@@ -473,9 +479,18 @@ def embed_inputs(params: Transformer, batch: dict, cfg: ModelConfig):
     return h, n_prefix
 
 
-def _logits(params: Transformer, h, cfg: ModelConfig) -> torch.Tensor:
-    head = params.head()
-    logits = torch.matmul(h, head.to(h.dtype))
+def token_embedding(params, tokens, cfg: ModelConfig) -> torch.Tensor:
+    """The rows of ``params.embed`` for ``tokens`` (B, S), in the
+    activation dtype: every LM family's input embedding."""
+    tokens = torch.as_tensor(tokens, device=params.embed.device)
+    return params.embed[tokens.long()].to(cfg.act_dtype)
+
+
+def final_logits(params, h, cfg: ModelConfig) -> torch.Tensor:
+    """The final norm, the output head (``params.head()``) and the
+    softcap over h (B, S, D): every LM family's float32 logits."""
+    h = norm(h, params.final_norm.weight(), cfg.norm)
+    logits = torch.matmul(h, params.head().to(h.dtype))
     return softcap(logits, cfg.logits_softcap).to(torch.float32)
 
 
@@ -502,8 +517,7 @@ def forward(params: Transformer, batch: dict, cfg: ModelConfig):
         else:
             h, a = _train_block(h, lp, cfg, positions)
         moe_aux = moe_aux + a
-    h = norm(h, params.final_norm.weight(), cfg.norm)
-    return _logits(params, h, cfg), {"moe_aux": moe_aux, "n_prefix": n_prefix}
+    return final_logits(params, h, cfg), {"moe_aux": moe_aux, "n_prefix": n_prefix}
 
 
 # ------------------------------------------------------------------ serving
@@ -537,8 +551,7 @@ def prefill(params: Transformer, batch: dict, cfg: ModelConfig, cache_len: int):
     for lp, kc in zip(params.layers, cache):
         h, _, _ = block(h, lp, cfg, positions=positions, kv_cache=kc,
                         cache_index=0)
-    h = norm(h[:, -1:], params.final_norm.weight(), cfg.norm)
-    return _logits(params, h, cfg)[:, -1], cache
+    return final_logits(params, h[:, -1:], cfg)[:, -1], cache
 
 
 @torch.no_grad()
@@ -553,5 +566,4 @@ def decode_step(params: Transformer, cache: list, tokens, cache_index: int,
     for lp, kc in zip(params.layers, cache):
         h, _, _ = block(h, lp, cfg, positions=positions, kv_cache=kc,
                         cache_index=cache_index)
-    h = norm(h, params.final_norm.weight(), cfg.norm)
-    return _logits(params, h, cfg)[:, -1], cache
+    return final_logits(params, h, cfg)[:, -1], cache

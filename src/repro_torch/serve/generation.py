@@ -3,9 +3,10 @@
 
 ``greedy_generate`` runs a prompt batch (with the modality frontend's
 ``img_embeds`` or ``frames`` where the family takes them) through
-``prefill`` (whose causal attention is the flash-attention kernel B7) and
-then ``n_steps - 1`` ``decode_step`` calls, taking the argmax token each
-time.
+``prefill`` (whose causal full-prefix attention is the flash-attention
+kernel B7; the ssm family has no attention and the hybrid's is windowed)
+and then ``n_steps - 1`` ``decode_step`` calls, taking the argmax token
+each time; the recurrent families' caches are their per-layer states.
 ``GenerationEngine`` batches queued requests into slots of ``max_batch``,
 left-pads each slot's prompts with token 0 to a common length (the pad
 tokens take part in attention and in the dynamic activation scales, as in

@@ -127,11 +127,13 @@ def train_state_from_reference(tree: dict, cfg: ModelConfig, hyper: TrainHyper,
 def decayed(named: dict) -> set:
     """The parameters AdamW decays, as the reference decides: its rule is
     ``ndim >= 2`` on leaves whose layers are stacked on a leading axis, so
-    every per-layer parameter (under ``layers.``, or an encoder-decoder's
-    ``enc_layers.`` / ``dec_layers.``) counts one dimension more than the
+    every per-layer parameter (under ``layers.``, an encoder-decoder's
+    ``enc_layers.`` / ``dec_layers.``, or the hybrid's ``groups.``,
+    stacked on the group axis there) counts one dimension more than the
     port's (a layer's norm weight is (L, d) there) and only the top-level
-    vectors escape the decay (ROADMAP C11)."""
-    stacked = ("layers.", "enc_layers.", "dec_layers.")
+    vectors, and the hybrid's unstacked ``tail.`` vectors, escape the
+    decay (ROADMAP C11)."""
+    stacked = ("layers.", "enc_layers.", "dec_layers.", "groups.")
     return {k for k, p in named.items() if p.ndim + k.startswith(stacked) >= 2}
 
 

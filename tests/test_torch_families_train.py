@@ -32,6 +32,10 @@ TIGHT = lp.TIGHT
 # ------------------------------------------------ train steps
 
 HYPER = dict(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+# depth of the train cases where it is cut from SMOKE's: the hybrid keeps
+# its one group and one of its two tail layers (the reference compiles
+# each tail layer unrolled, ~3 s of its step's compile a layer)
+TRAIN_LAYERS = {"recurrentgemma-2b": 4}
 
 
 def _train_batch(rc, seed):
@@ -44,6 +48,8 @@ def _train_batch(rc, seed):
 
 def _train_configs(arch, recipe):
     rc, pc = lp.configs(arch, "fp32", "float32")
+    if arch in TRAIN_LAYERS:
+        rc, pc = (c.replace(n_layers=TRAIN_LAYERS[arch]) for c in (rc, pc))
     if recipe == "w4a8":
         rc, pc = rc.replace(quant=REF_W4A8), pc.replace(quant=W4A8)
     return rc, pc
@@ -56,7 +62,11 @@ def reference_train_run(arch, recipe):
     parameters."""
     rc, _ = _train_configs(arch, recipe)
     hyper = ref_loop.TrainHyper(**HYPER, moe_aux_weight=0.01 if rc.family == "moe" else 0.0)
-    tree = jax.tree.map(jnp.asarray, lp.reference_tree(arch))
+    tree = lp.reference_tree(arch)
+    if arch in TRAIN_LAYERS:
+        # the hybrid's stacked groups stay; its unrolled tail is cut
+        tree = dict(tree, tail=tree["tail"][:rc.n_layers % len(rc.block_pattern)])
+    tree = jax.tree.map(jnp.asarray, tree)
     state = {"params": tree, "opt": ref_adamw.adamw_init(tree),
              "step": jnp.zeros((), jnp.int32)}
     step = jax.jit(ref_loop.make_train_step(rc, hyper))

@@ -165,7 +165,7 @@ def test_takes_flash_only_causal_calls_without_a_window():
     cross-attention with Sq == kv_len) or a windowed one must not reach it
     (ROADMAP C8)."""
     from repro_torch.models.transformer import takes_flash
-    assert takes_flash(17, 0, 17, causal=True, window=None)
+    assert takes_flash(17, 0, 17, causal=True, window=0)
     assert not takes_flash(17, 0, 17, causal=False)
     assert not takes_flash(17, 0, 17, window=2048)
     assert not takes_flash(17, 0, 17, causal=False, window=16)
@@ -188,7 +188,7 @@ def test_attention_call_site_names_causal_and_window(monkeypatch):
     monkeypatch.setattr(transformer, "takes_flash", spy)
     toks = torch.randint(0, cfg.vocab, (1, 5), generator=torch.Generator().manual_seed(1))
     api.forward(params, {"tokens": toks}, cfg)
-    assert asked == [{"causal": True, "window": None}] * cfg.n_layers
+    assert asked == [{"causal": True, "window": 0}] * cfg.n_layers
 
 
 def test_prefill_and_forward_take_b7_decode_does_not(monkeypatch):

@@ -38,6 +38,9 @@ def test_importing_every_port_module_leaves_jax_out():
             "repro_torch.configs.deepseek_moe_16b",
             "repro_torch.configs.moonshot_v1_16b_a3b",
             "repro_torch.configs.whisper_base"} <= set(mods)
+    # the ssm and hybrid families: rwkv6, the RG-LRU hybrid and their configs
+    assert {"repro_torch.models.rwkv6", "repro_torch.models.rglru",
+            "repro_torch.configs.rwkv6_7b", "repro_torch.configs.recurrentgemma_2b"} <= set(mods)
     # the fusion / formats slice: boundary glue, fusion, the paper's formats
     assert {"repro_torch.kernels.quant_pool", "repro_torch.core.lowering.fusion",
             "repro_torch.core.formats", "repro_torch.core.streamline",

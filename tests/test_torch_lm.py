@@ -35,7 +35,7 @@ from repro.quantize.config import W8A8 as REF_W8A8  # noqa: E402
 
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.ste import fake_quant, quant_ste  # noqa: E402
-from repro_torch.models import api  # noqa: E402
+from repro_torch.models import api, transformer  # noqa: E402
 from repro_torch.quantize import layers  # noqa: E402
 from repro_torch.quantize.config import W4A4, W8A8  # noqa: E402
 
@@ -187,21 +187,25 @@ def test_configs_and_param_counts_match_reference(arch):
 
 
 def test_unported_archs_and_families_raise():
-    """Only the hybrid and ssm families (recurrentgemma-2b, rwkv6-7b) are
-    still to port; the vlm, moe and audio families run
-    (tests/test_torch_families.py, tests/test_torch_encdec.py)."""
+    """No arch or family is left to port: the hybrid and ssm families
+    (recurrentgemma-2b, rwkv6-7b) resolve and build
+    (tests/test_torch_ssm_hybrid.py holds them against the reference);
+    an unknown arch or family raises ValueError."""
     for arch in ("rwkv6-7b", "recurrentgemma-2b"):
-        with pytest.raises(NotImplementedError, match="A17"):
-            get_config(arch)
+        cfg = get_smoke_config(arch)
+        assert get_config(arch).family == cfg.family in ("ssm", "hybrid")
+        params = api.init_params(0, cfg, "cpu")
+        assert set(dict(params.named_parameters())) == set(api.param_shapes(cfg))
+        assert api.shape_applicable(cfg, "long_500k") is None      # sub-quadratic
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("gpt-17")
-    for family in ("hybrid", "ssm"):
+    # a family the decoder-only module does not hold names its module
+    for family, module in (("ssm", "rwkv6"), ("hybrid", "rglru"), ("audio", "encdec")):
         cfg = get_smoke_config("qwen2-1.5b").replace(family=family)
-        with pytest.raises(NotImplementedError, match="A17"):
-            api.init_params(0, cfg, "cpu")
-        with pytest.raises(NotImplementedError, match="A17"):
-            api.param_shapes(cfg)
-        assert api.shape_applicable(cfg, "long_500k") is None      # sub-quadratic
+        with pytest.raises(ValueError, match=f"models/{module}.py"):
+            transformer.param_shapes(cfg)
+    with pytest.raises(ValueError, match="unknown family"):
+        api.param_shapes(get_smoke_config("qwen2-1.5b").replace(family="cnn"))
     cfg = get_smoke_config("qwen2-1.5b")
     assert api.shape_applicable(cfg, "long_500k") is not None
     assert api.shape_applicable(cfg, "prefill_32k") is None

@@ -5,8 +5,9 @@ reference's parameters carried into the port, the families' frontend
 stubs, and the tolerances.
 
 Weights: the reference's seeded init, as numpy, with every vector (norm
-weights, biases) redrawn from N(0, 0.1): the init leaves them at 0, and a
-layernorm with g = 0 would zero the whole residual branch.
+weights, biases, gates, decays, token-shift mixes) redrawn from N(0, 0.1):
+the init leaves them at 0, and a layernorm with g = 0 would zero the
+whole residual branch.
 
 Tolerances, by what differs between the two computations:
 
@@ -61,15 +62,19 @@ def configs(arch: str, recipe: str, dtype: str):
 
 @functools.lru_cache(maxsize=None)
 def reference_tree(arch: str, seed: int = 0):
-    """The reference's parameters (numpy leaves), vectors redrawn."""
+    """The reference's parameters (numpy leaves), vectors redrawn: 1-D
+    leaves and 2-D leaves stacked on the layer axis, or, under the
+    hybrid's ``groups``, on the group axis."""
     cfg = ref_smoke(arch)
     tree = jax.tree.map(np.asarray, ref_api.init_params(jax.random.PRNGKey(seed), cfg))
     rng = np.random.default_rng(seed + 1)
+    n_groups = cfg.n_layers // len(cfg.block_pattern) if cfg.block_pattern else None
 
-    def redraw(x):
-        vec = x.ndim == 1 or (x.ndim == 2 and x.shape[0] == cfg.n_layers)
+    def redraw(path, x):
+        lead = n_groups if getattr(path[0], "key", None) == "groups" else cfg.n_layers
+        vec = x.ndim == 1 or (x.ndim == 2 and x.shape[0] == lead)
         return (rng.standard_normal(x.shape) * 0.1).astype(x.dtype) if vec else x
-    return jax.tree.map(redraw, tree)
+    return jax.tree_util.tree_map_with_path(redraw, tree)
 
 
 def both_params(arch: str, recipe: str, dtype: str):
