@@ -7,6 +7,7 @@
     python3 chip_smoke.py --train           # only the build and phase 9
     python3 chip_smoke.py --tune            # only the build and phase 10
     python3 chip_smoke.py --families        # only the build and phase 11 (the families)
+    python3 chip_smoke.py --mesh            # only the build and phase 12 (multi-device)
 
 Phases, in order; any failure raises and the script exits non-zero without
 printing a result:
@@ -247,6 +248,41 @@ printing a result:
    layers, rwkv6 to 4, recurrentgemma to 6, two groups): finite positive
    loss and grad_norm, no kernel launch, llava's loss equal to loss_fn's
    and to the sliced logits' loss; step wall and peak memory.
+12. multi-device (A16) against the one-device plan, on one card:
+   (a) ``elastic_mesh()`` and ``elastic_mesh(prefer_model=1)`` are
+   {data 1, model 1} and ``compile_graph(mesh="auto")`` spans one device
+   and equals the plain plan bit for bit (TFC-w1a1); (b) a 4-entry mesh
+   of ``cuda:0`` (``launch.mesh.make_virtual_mesh``): TFC-w1a1 and
+   CNV-w1a1 at 16 rows and the remainder batches 1, 5, 13, the rescaled
+   MobileNet-w4a4 at img 224 at 8 rows, all on the integer path and
+   ``torch.equal`` to the one-device plan (MobileNet's float32 final
+   MatMul within the order bound should its bits differ), placement
+   "mesh" over 4 devices, every entry's shard counter, one capture per
+   shard signature, every shard replayed, each eager mesh forward
+   launching exactly 4x the one-device forward's kernels (phase 3''s
+   kernel set over the three keys); the float32-epilogue tier of TFC-w2a2
+   and the rescaled MobileNet within the order bound of the CPU oracle;
+   (c) ``CompiledGraphEngine(mesh=...)`` serving TFC-w1a1 in 16-row slots
+   bit-exact, and ``SplitMergeFront`` over two mesh-sharded workers with a
+   fault injected in one (no request lost, submission order); (d) the
+   launcher's ``--graph TFC-w1a1 --mesh`` and ``--devices 4`` in two
+   subprocesses started together, their logs naming the devices spanned; (e)
+   ``quantized_psum`` on an NCCL group of one (a FileStore), equal to
+   ``ef_compress`` on the CPU bit for bit, through the ambient mesh and
+   through ``group=``; (f) the LM launcher under its (1, 1) mesh
+   (qwen2-1.5B SMOKE, ``shard_activations=True``): tokens equal to the
+   same generation with no mesh, B7 once per layer in each prefill; (g)
+   the plan-call walls of the 4-entry mesh and the one-device plan (TFC-w1a1
+   at 16 rows, the rescaled MobileNet at 8), in 10 turns, with their busy
+   time: on one card the shards run one after another, so this is the
+   cost of the split and the merge, not scaling.  Not gated.  On a host
+   of n cards (``--mesh`` alone, e.g. on four) the same checks run with
+   (a) ``elastic_mesh()`` over the n cards and ``mesh="auto"`` spanning
+   them, (b)-(d) and (g) over a mesh whose entries cycle over the cards
+   (4 distinct cards on four: the walls then show the split across
+   cards), (e) on cuda:0's one-entry mesh, and (f) checking first that
+   the LM launcher refuses several cards (A16b), then with ``--device
+   cuda:0``.
 
 Launch counts are read in windows of their own: phase 3's plans, phase
 4's engines, phases 3' and 4' likewise, each fused plan's own call in
@@ -4315,6 +4351,350 @@ def run_families(torch, dev, ops, err):
     print(f"families: phase 11 in {time.perf_counter() - t0:.1f} s [{card_line()}]", flush=True)
 
 
+# ------------------------------------------------ phase 12: multi-device
+
+MESH_ENTRIES = 4               # the virtual mesh's entries, all on cuda:0
+MESH_TURNS = 10                # plan-call walls in alternating turns
+
+
+def _mesh_models(np):
+    """(key, graph builder, rows) of phase 12 (b): inputs seeded as phase 8's."""
+    from repro_torch.models import zoo
+    x64 = np.random.RandomState(2).randn(64, 784).astype(np.float32)
+    cnv = np.random.RandomState(12).randn(3 * SLOT, 3, 32, 32).astype(np.float32)
+    x16 = np.random.RandomState(13).randn(2 * SLOT, 3, 224, 224).astype(np.float32)
+    return {"TFC-w1a1": (zoo.ZOO["TFC-w1a1"], x64[:16]),
+            "CNV-w1a1": (zoo.ZOO["CNV-w1a1"], cnv[:16]),
+            "MobileNet-w4a4 rescaled": (
+                lambda: zoo.rescale_conv_gains(zoo.build_mobilenet(4, 4, img=224)), x16)}
+
+
+def _mesh_bound(torch, key, build, x16, rows):
+    """The order bound of the rescaled MobileNet's final MatMul over
+    ``rows`` of the CPU oracle (cached with phase 3's), and its rows."""
+    g = build()
+    oracle = _oracle(g, x16, return_all=True, key=key)
+    pre, w_name = _final_matmul(g)
+    ref = oracle[g.output_names[0]][:rows]
+    return ref, order_bound(oracle[pre][:rows], oracle[w_name], ref)
+
+
+def _mesh_equal(torch, got, want, label, bound=None):
+    """torch.equal, or (where ``bound`` is given) within it; returns how."""
+    if torch.equal(got, want):
+        return "bit-exact"
+    if bound is not None and bool((got.cpu() - want.cpu()).abs().le(bound).all()):
+        return "within the order bound"
+    diff = float((got.float() - want.float()).abs().max())
+    raise AssertionError(f"mesh {label}: differs from the one-device plan (max {diff})")
+
+
+def _mesh_where(mesh) -> str:
+    """The entries of a virtual mesh, e.g. "4 entries of cuda:0"."""
+    devs = [str(d) for d in mesh.devices.flat]
+    if len(set(devs)) == 1:
+        return f"{len(devs)} entries of {devs[0]}"
+    return f"{len(devs)} entries ({', '.join(devs)})"
+
+
+def mesh_plans(torch, np, dev, ops):
+    """Phase 12 (a) + (b); returns the plans (g) times."""
+    from repro_torch.core import compile_graph
+    from repro_torch.dist.fault import elastic_mesh
+    from repro_torch.launch.mesh import make_virtual_mesh
+
+    n = torch.cuda.device_count()
+    model = max(c for c in range(1, min(16, n) + 1) if n % c == 0)
+    for m, want in ((elastic_mesh(), {"data": n // model, "model": model}),
+                    (elastic_mesh(prefer_model=1), {"data": n, "model": 1})):
+        if m.shape != want or m.devices.flat[0] != torch.device("cuda", 0):
+            raise AssertionError(f"elastic_mesh on {n} card(s): {m}, not {want}")
+    models = _mesh_models(np)
+    build, x = models["TFC-w1a1"]
+    auto, plain = compile_graph(build(), mesh="auto"), compile_graph(build())
+    name = plain.graph.input_names[0]
+    if auto.n_devices != n or auto.placement()["kind"] != ("device" if n == 1 else "mesh"):
+        raise AssertionError(f"mesh='auto' on {n} card(s): {auto.placement()}")
+    out = plain.graph.output_names[0]
+    _mesh_equal(torch, auto({name: x})[out], plain({name: x})[out], "(a) auto")
+    torch.cuda.synchronize()
+    print(f"mesh (a): on {n} card(s) elastic_mesh() is {elastic_mesh().shape} and "
+          f"elastic_mesh(prefer_model=1) {{data {n}, model 1}}; compile_graph(mesh='auto') "
+          f"spans {auto.n_devices} device(s), TFC-w1a1 at 16 rows bit-exact", flush=True)
+
+    mesh = make_virtual_mesh(MESH_ENTRIES)
+    where = _mesh_where(mesh)
+    keep, window = {}, {}
+    for key, (build, xs) in models.items():
+        one, sharded = compile_graph(build()), compile_graph(build(), mesh=mesh)
+        name, out = one.graph.input_names[0], one.graph.output_names[0]
+        if sharded.placement() != {"kind": "mesh", "devices": MESH_ENTRIES,
+                                   "mesh": {"data": MESH_ENTRIES, "model": 1}}:
+            raise AssertionError(f"mesh {key}: placement {sharded.placement()}")
+        rq = sharded.requant_stats()
+        mob = key.startswith("MobileNet")
+        batches = (SLOT,) if mob else (16, 1, 5, 13)
+        how = {}
+        for b in batches:
+            xb = xs[:b]
+            want = one({name: xb})[out]
+            got = sharded({name: xb})[out]
+            bound = _mesh_bound(torch, key, build, xs, b)[1] if mob and not \
+                torch.equal(got, want) else None
+            how[b] = _mesh_equal(torch, got, want, f"{key} batch {b}", bound)
+        torch.cuda.synchronize()
+        calls = len(batches)
+        # one capture per shard signature on each distinct card
+        sigs = len({-(-b // MESH_ENTRIES) for b in batches}) * len(set(sharded.shard_devices))
+        if sharded.shard_counts != [calls] * MESH_ENTRIES:
+            raise AssertionError(f"mesh {key}: shard counters {sharded.shard_counts}")
+        # every shard replays, the first of each signature right after its capture
+        if sharded.trace_count != sigs or sharded.replay_count != calls * MESH_ENTRIES:
+            raise AssertionError(f"mesh {key}: {sharded.trace_count} captures and "
+                                 f"{sharded.replay_count} replays for {calls} calls")
+        # launches: one eager forward of each, counted on its own
+        ops.reset_launch_counts()
+        one({name: xs[:16 if not mob else SLOT]}, jit=False)
+        torch.cuda.synchronize()
+        c1 = ops.launch_counts()
+        ops.reset_launch_counts()
+        sharded({name: xs[:16 if not mob else SLOT]}, jit=False)
+        torch.cuda.synchronize()
+        cm = ops.launch_counts()
+        if cm != {k: MESH_ENTRIES * v for k, v in c1.items()}:
+            raise AssertionError(f"mesh {key}: launches {cm}, not {MESH_ENTRIES} x {c1}")
+        for k, v in cm.items():
+            window[k] = window.get(k, 0) + v
+        print(f"mesh (b) {key} over {where}: "
+              f"{rq['int32_segments']} of {rq['kernel_segments']} int32 segments, rows "
+              f"{how} vs the one-device plan; shard counters {sharded.shard_counts}, "
+              f"{sharded.trace_count} capture(s), {sharded.replay_count} replays; one eager "
+              f"forward launches {cm} = {MESH_ENTRIES} x {c1}", flush=True)
+        keep[key] = (one, sharded, {name: xs[:16 if not mob else SLOT]})
+    check_launched(window, SERVED_KERNELS, "phase 12 (b), the mesh plans' eager forwards")
+
+    # the float32-epilogue tier: within the order bound of the CPU oracle
+    for key, rows in (("TFC-w2a2", 16), ("MobileNet-w4a4 rescaled", SLOT)):
+        if key == "TFC-w2a2":
+            from repro_torch.models import zoo
+            build, xs = zoo.ZOO["TFC-w2a2"], models["TFC-w1a1"][1]
+            g = build()
+            ref = _oracle(g, xs[:rows], key="mesh TFC-w2a2")[g.output_names[0]]
+            bound = None
+        else:
+            build, xs = models[key]
+            g = build()
+            ref, bound = _mesh_bound(torch, key, build, xs, rows)
+        one = compile_graph(build(), use_analysis=False)
+        sharded = compile_graph(build(), mesh=mesh, use_analysis=False)
+        name, out = g.input_names[0], g.output_names[0]
+        got, base = sharded({name: xs[:rows]})[out].cpu(), one({name: xs[:rows]})[out].cpu()
+        ok = torch.equal(got, ref) if bound is None else bool(
+            (got - ref).abs().le(bound).all())
+        if not ok:
+            raise AssertionError(f"mesh float32 tier {key}: outside the bound")
+        print(f"mesh (b) float32 tier {key} at {rows} rows over {where}: "
+              f"{'bit-exact' if bound is None else 'within the order bound'} vs the CPU "
+              f"oracle; vs the one-device plan {'equal' if torch.equal(got, base) else 'not equal'}"
+              , flush=True)
+    return keep
+
+
+def mesh_serving(torch, np, dev):
+    """Phase 12 (c): an engine over the mesh, and two mesh-sharded workers
+    behind the split-merge front with a fault injected."""
+    from repro_torch.core import compile_graph
+    from repro_torch.launch.mesh import make_virtual_mesh
+    from repro_torch.models import zoo
+    from repro_torch.serve import CompiledGraphEngine, SplitMergeFront, Worker
+
+    x = np.random.RandomState(2).randn(64, 784).astype(np.float32)
+    plain = compile_graph(zoo.ZOO["TFC-w1a1"]())
+    ref = plain({plain.graph.input_names[0]: x})[plain.graph.output_names[0]].cpu().numpy()
+    eng = CompiledGraphEngine(zoo.ZOO["TFC-w1a1"](), mesh=make_virtual_mesh(MESH_ENTRIES),
+                              max_batch=16, report_cost=False)
+    reqs = [eng.submit(r) for r in x]
+    eng.run_pending()
+    rows = np.stack([r.wait(timeout=120) for r in reqs])
+    if not np.array_equal(rows, ref) or not np.array_equal(eng(x[:13]), ref[:13]):
+        raise AssertionError("mesh engine: rows differ from the one-device plan")
+    print(f"mesh (c) CompiledGraphEngine over {_mesh_where(eng.mesh)}, TFC-w1a1, 16-row "
+          f"slots: 64 submitted requests and a 13-row batch bit-exact; shard counters "
+          f"{eng.plan.shard_counts}, {eng.plan.trace_count} capture(s), "
+          f"{eng.plan.replay_count} replays", flush=True)
+    workers = [Worker(name=f"mesh{i}", engine=CompiledGraphEngine(
+        zoo.ZOO["TFC-w1a1"](), mesh=make_virtual_mesh(2), max_batch=16,
+        report_cost=False)) for i in range(2)]
+    xs = [x[j % len(x)] for j in range(SERVE_REQUESTS)]
+    for w in workers:
+        w.engine(x[:1])
+    with SplitMergeFront(workers) as front:
+        workers[1].inject_fault()
+        got = front.submit_wave(xs).wait(timeout=120)
+        st = front.stats()
+    if len(got) != len(xs) or not all(np.array_equal(r, ref[j % len(x)])
+                                      for j, r in enumerate(got)):
+        raise AssertionError("mesh splitmerge: a row is lost or out of order")
+    if st["failed"] != ["mesh1"] or st["redispatched_shards"] < 1:
+        raise AssertionError(f"mesh splitmerge: fault not re-dispatched ({st})")
+    print(f"mesh (c) SplitMergeFront over two workers, each sharded over "
+          f"{_mesh_where(workers[0].engine.mesh)}, fault "
+          f"injected in mesh1: {len(got)} rows, none lost, in submission order, "
+          f"bit-exact; {st}", flush=True)
+
+
+def mesh_launcher():
+    """Phase 12 (d): the launcher's --mesh and --devices 4, each in a
+    subprocess of its own, both started together."""
+    import os
+
+    import torch
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    runs = []
+    t0 = time.perf_counter()
+    for flags, n in ((["--mesh"], torch.cuda.device_count()),
+                     (["--devices", str(MESH_ENTRIES)], MESH_ENTRIES)):
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--graph", "TFC-w1a1",
+             "--requests", "32", "--max-batch", "16", *flags],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        runs.append((flags, n, proc))
+    for flags, n, proc in runs:
+        try:
+            _, err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"launcher {flags} exited {proc.returncode}: {err[-3000:]}")
+        span = [ln for ln in err.splitlines() if "mesh-sharded plan spans" in ln]
+        if not span or f"spans {n} device(s)" not in span[-1] or "cuda:0" not in span[-1]:
+            raise AssertionError(f"launcher {flags}: no log of {n} device(s) spanned: "
+                                 f"{err[-2000:]}")
+        rate = [ln for ln in err.splitlines() if "req/s" in ln]
+        print(f"mesh (d) launcher --graph TFC-w1a1 {' '.join(flags)}: exit 0 by {wall:.3f} s; "
+              f"{span[-1].split(':', 2)[-1].strip()}; "
+              f"{rate[-1].split(':', 2)[-1].strip() if rate else ''}", flush=True)
+
+
+def mesh_psum(torch, dev):
+    """Phase 12 (e): quantized_psum on an NCCL group of one."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives
+    from repro_torch.dist.fault import elastic_mesh
+    g = torch.Generator().manual_seed(21)
+    x = {"w": torch.randn(256, 512, generator=g), "b": torch.randn(4099, generator=g) * 5}
+    res = {k: torch.randn(v.shape, generator=g) * 1e-3 for k, v in x.items()}
+    want, want_res = collectives.ef_compress(x, res)
+    xd = {k: v.to(dev) for k, v in x.items()}
+    rd = {k: v.to(dev) for k, v in res.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(str(Path(tmp) / "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            with elastic_mesh(device="cuda:0") as mesh:       # one entry: one rank
+                got, got_res = collectives.quantized_psum(xd, "data", rd)
+            by_group, _ = collectives.quantized_psum(xd, residual=rd, group=dist.group.WORLD)
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    for k in x:
+        for a, b, what in ((got[k], want[k], "summed"), (got_res[k], want_res[k], "residual"),
+                           (by_group[k], want[k], "summed (group=)")):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"quantized_psum {what} {k}: differs from the CPU's")
+    print(f"mesh (e) quantized_psum on an NCCL group of one (mesh {mesh.shape}): summed and "
+          f"residual torch.equal to ef_compress on the CPU for {sorted(x)}, through the "
+          f"ambient mesh and through group=", flush=True)
+
+
+def mesh_lm(torch, np, dev, ops):
+    """Phase 12 (f): the LM launcher under its (1, 1) mesh against the same
+    generation with no mesh."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import api
+    from repro_torch.serve import GenerationEngine
+
+    n_req, new = 8, 8
+    flags = ["--arch", LM_ARCH, "--smoke", "--requests", str(n_req), "--max-new-tokens",
+             str(new)]
+    if torch.cuda.device_count() > 1:
+        # an LM mesh of several cards needs one process per card (A16b)
+        try:
+            launcher.main(flags)
+        except NotImplementedError as e:
+            if "A16b" not in str(e):
+                raise
+            print(f"mesh (f) LM launcher on {torch.cuda.device_count()} cards raises "
+                  f"NotImplementedError naming A16b", flush=True)
+        else:
+            raise AssertionError("the LM launcher served over several cards in one process")
+        flags += ["--device", "cuda:0"]
+    ops.reset_launch_counts()
+    res = launcher.main(flags)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    cfg = get_smoke_config(LM_ARCH).replace(quant=_lm_recipe())
+    prefills = -(-n_req // 4)
+    if counts["flash_attention"] != cfg.n_layers * prefills:
+        raise AssertionError(f"LM launcher under its mesh: {counts}, want B7 once per "
+                             f"layer in each of {prefills} prefills")
+    params = api.init_params(0, cfg, dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, size=rng.integers(4, 12)) for _ in range(n_req)]
+    eng = GenerationEngine(params, cfg, max_batch=4)
+    reqs = [eng.submit(p, new) for p in prompts]
+    eng.run_pending()
+    for j, (a, r) in enumerate(zip(res["results"], reqs)):
+        if not torch.equal(torch.as_tensor(a).cpu(), torch.as_tensor(r.result).cpu()):
+            raise AssertionError(f"LM launcher under its mesh: request {j}'s tokens differ")
+    print(f"mesh (f) LM launcher {cfg.name} (shard_activations=True) under its "
+          f"{{data 1, model 1}} mesh: {res['tokens']} tokens of {n_req} requests equal to the same "
+          f"generation with no mesh; B7 {counts['flash_attention']} launches = "
+          f"{cfg.n_layers} layers x {prefills} prefills", flush=True)
+
+
+def mesh_walls(torch, keep, card):
+    """Phase 12 (g): one-device and mesh plan-call walls in alternating
+    turns, and each call's busy time; recorded, not gated."""
+    for key in ("TFC-w1a1", "MobileNet-w4a4 rescaled"):
+        one, sharded, x = keep[key]
+        rows = next(iter(x.values())).shape[0]
+        for p in (one, sharded):
+            p(x)
+        torch.cuda.synchronize()
+        walls = {"one-device": [], f"mesh {_mesh_where(sharded.mesh)}": []}
+        plans = dict(zip(walls, (one, sharded)))
+        for t in range(MESH_TURNS):
+            order = list(walls) if t % 2 == 0 else list(walls)[::-1]
+            for label in order:
+                walls[label].append(_wall_ms(torch, lambda: plans[label](x)))
+        for label, ws in walls.items():
+            busy, launches = _busy_ms(torch, lambda: plans[label](x), f"mesh {key} {label}",
+                                      top=3)
+            print(f"mesh (g) {key} at {rows} rows, {label}: plan-call wall median "
+                  f"{statistics.median(ws):.4f} ms (min {min(ws):.4f}, max {max(ws):.4f}, "
+                  f"{MESH_TURNS} turns), busy {busy:.4f} ms in {launches} device launches "
+                  f"({card})", flush=True)
+
+
+def run_mesh(torch, np, dev, ops):
+    """Phase 12: multi-device (A16) over a virtual mesh of the one card."""
+    t0 = time.perf_counter()
+    keep = mesh_plans(torch, np, dev, ops)
+    mesh_serving(torch, np, dev)
+    mesh_launcher()
+    mesh_psum(torch, dev)
+    mesh_lm(torch, np, dev, ops)
+    mesh_walls(torch, keep, card_line())
+    print(f"mesh: phase 12 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4354,6 +4734,10 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--families"]:
         run_families(torch, dev, ops, {"flash_attention": 0.0})
+        print(f"card: {card}")
+        return 0
+    if sys.argv[1:] == ["--mesh"]:
+        run_mesh(torch, np, dev, ops)
         print(f"card: {card}")
         return 0
 
@@ -4468,6 +4852,9 @@ def main() -> int:
     # phase 11: the vlm, moe, audio, ssm and hybrid families (A17)
     torch.cuda.empty_cache()
     run_families(torch, dev, ops, err)
+    # phase 12: multi-device (A16) over a virtual mesh of the card
+    torch.cuda.empty_cache()
+    run_mesh(torch, np, dev, ops)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

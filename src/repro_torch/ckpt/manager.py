@@ -9,7 +9,8 @@ with "/" between levels: a module's parameters by their dotted names
 (``params/layers.0.attn.wq``), a NamedTuple's fields by name
 (``opt/mu/...``, ``opt/step``).  A bfloat16 leaf is saved widened to
 float32 (numpy has no bfloat16) and narrowed back, exactly, on restore.
-One process writes: the port runs on one device (ROADMAP A16).
+One process writes: the port trains in one process on one device
+(multi-process training is ROADMAP A16b).
 """
 from __future__ import annotations
 

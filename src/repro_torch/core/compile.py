@@ -58,11 +58,24 @@ float32 boundaries and interpreted boundary ops.
 ``tune="cached"|"search"`` picks each kernel segment's launch geometry
 through ``repro_torch.tune`` (the plans' ``override``): from the on-disk
 tune cache, or by timing the real kernels with each candidate geometry
-(``tune.Autotuner``); ``tuning_stats()`` reports it.  Meshes are not
-ported: ``mesh=`` raises ``NotImplementedError`` naming ROADMAP.md A16.
+(``tune.Autotuner``); ``tuning_stats()`` reports it.
+
+``mesh=`` (a ``dist.sharding.Mesh``, or ``"auto"``) runs the plan
+data-parallel over the mesh's data axes: the constants are replicated
+once per distinct device, and each call zero-pads the batch to a
+multiple of the data degree, splits it into contiguous shards
+(``batch_pspecs``), runs each shard through the one-device path on its
+entry's device (captured per shard signature, replayed, outputs cloned),
+and concatenates the shards on the mesh's first device with the padding
+sliced off.  The reference returns one array spanning the devices; torch
+has none in one process, so the port returns the concatenation
+(ROADMAP C22), and ``placement()`` / ``shard_counts`` say where each
+shard ran.  Entries may repeat a device (the port's counterpart of XLA's
+forced virtual devices): their shards then run one after another.
 """
 from __future__ import annotations
 
+import logging
 import threading
 import time
 import warnings
@@ -122,18 +135,22 @@ def _end_rng_capture(dev) -> None:
             pass
 
 
+log = logging.getLogger("repro_torch.compile")
+
+
 def _signature(inputs: dict) -> tuple:
     return tuple(sorted((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
 
 
 @dataclass
 class CompiledPlan:
-    """A partitioned QonnxGraph execution plan on one device.
+    """A partitioned QonnxGraph execution plan on one device, or sharded
+    over the data axes of a ``mesh`` (see ``_init_placement``).
 
     On CUDA a call at a new input signature captures the plan in a CUDA
-    graph (its own memory pool, one per plan), and later calls replay it;
-    see ``__call__``.  ``trace_count`` counts the captures and the eager
-    ``jit=False`` calls, as the reference counts its traces."""
+    graph (its own memory pool, one per plan and device), and later calls
+    replay it; see ``__call__``.  ``trace_count`` counts the captures and
+    the eager ``jit=False`` calls, as the reference counts its traces."""
     graph: QonnxGraph
     segments: list[Segment]
     consts: dict
@@ -143,10 +160,11 @@ class CompiledPlan:
     tune_mode: str = "off"                 # "off" | "cached" | "search"
     tune_stats: dict = field(default_factory=dict)   # Autotuner.stats copy
     tune_log: list = field(default_factory=list)     # Autotuner.searches
+    mesh: Optional[object] = None          # dist.sharding.Mesh
     _captured: dict = field(default_factory=dict, repr=False)
     _signatures: set = field(default_factory=set, repr=False)
     _traces: int = field(default=0, repr=False)
-    _pool: object = field(default=None, repr=False)
+    _pools: dict = field(default_factory=dict, repr=False)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
     def __post_init__(self):
@@ -154,16 +172,51 @@ class CompiledPlan:
             "compile_plan_retraces_total",
             help="plan body traces (once per new input shape under jit)",
             labels={"model": self.graph.name})
+        self._init_placement()
+
+    def _init_placement(self) -> None:
+        """Stage the mesh-sharded path, if any: one shard per data entry
+        (the entry at model index 0), constants replicated once per
+        distinct device of those entries, a lock per device."""
+        self._dev_consts = {self.device: self.consts}
+        self._locks = {self.device: self._lock}
+        self.shard_devices: list = []
+        self.shard_counts: list = []
+        self._data_size = 1
+        if self.mesh is None:
+            return
+        from repro_torch.dist import sharding as dsh
+        self._data_size = dsh.data_axis_size(self.mesh)
+        if self._data_size <= 1:
+            return                      # degenerate mesh: the plain path
+        const_outputs = [n for n in self.graph.output_names if n in self.consts]
+        if const_outputs:
+            # a fully folded (constant) graph output is one tensor for the
+            # whole batch; sharding it along the batch dim would be wrong
+            log.warning("plan %s has constant graph outputs %s; mesh sharding "
+                        "disabled, running single-device", self.graph.name,
+                        const_outputs)
+            return
+        ent = self.mesh.devices
+        if "model" in self.mesh.axis_names:
+            ent = ent.take(0, axis=self.mesh.axis_names.index("model"))
+        self.shard_devices = list(ent.flat)
+        self.shard_counts = [0] * len(self.shard_devices)
+        for d in dict.fromkeys(self.shard_devices):
+            if d not in self._dev_consts:
+                self._dev_consts[d] = {k: v.to(d) for k, v in self.consts.items()}
+                self._locks[d] = threading.Lock()
 
     def _trace(self) -> None:
         self._traces += 1
         self._m_retrace.inc()
 
-    def _run(self, env: dict) -> dict:
+    def _run(self, env: dict, consts: Optional[dict] = None) -> dict:
+        consts = self.consts if consts is None else consts
         for seg in self.segments:
-            seg.run(self.consts, env)
+            seg.run(consts, env)
         # graph outputs may be compile-time constants (folded subgraphs)
-        return {name: env.get(name, self.consts.get(name))
+        return {name: env.get(name, consts.get(name))
                 for name in self.graph.output_names}
 
     @property
@@ -181,12 +234,20 @@ class CompiledPlan:
 
     @property
     def n_devices(self) -> int:
-        """Devices a plan call spans (meshes are not ported: always 1)."""
-        return 1
+        """Devices a plan call spans: the data degree when mesh-sharded
+        (repeated entries count, as XLA's virtual devices do), else 1."""
+        return self._data_size if self.shard_devices else 1
 
     def placement(self) -> dict:
         """Telemetry: where the plan runs."""
+        if self.shard_devices:
+            return {"kind": "mesh", "devices": self._data_size,
+                    "mesh": dict(self.mesh.shape)}
         return {"kind": "device", "devices": 1, "device": str(self.device)}
+
+    def devices(self) -> list:
+        """Every distinct device a call runs on, the first device first."""
+        return list(dict.fromkeys([self.device] + self.shard_devices))
 
     def __call__(self, inputs: dict, *, jit: bool = True,
                  donate: bool = False) -> dict:
@@ -211,29 +272,71 @@ class CompiledPlan:
         new signature the buffer itself becomes the capture's static input
         (no copy), and a later call passing that buffer again is not
         copied; the caller must not rely on its contents afterwards.
-        Ignored on the CPU, as in the reference."""
+        Ignored on the CPU, as in the reference, and on a mesh-sharded
+        plan, whose shards run through the same path one per data entry
+        (``_call_sharded``)."""
         for t in self.graph.inputs:
             if t.name not in inputs:
                 raise ValueError(f"missing graph input {t.name!r}")
+        if self.shard_devices:
+            return self._call_sharded(inputs, jit)
+        return self._call_on(self.device, inputs, jit, donate)
+
+    def _call_sharded(self, inputs: dict, jit: bool) -> dict:
+        """The mesh path: pad the batch to a multiple of the data degree
+        (on the host, or on the device the inputs lie on), split it into
+        contiguous shards, run shard i on entry i's device, concatenate on
+        the first device and slice the padding off.  Each shard holds only
+        its own device's lock, so shards on distinct devices overlap."""
+        from repro_torch.dist import sharding as dsh
+        host = {k: to_tensor(v) for k, v in inputs.items()}
+        batch = int(host[self.graph.input_names[0]].shape[0])
+        pad = (-batch) % self._data_size
+        if pad:
+            host = {k: torch.cat([v, v.new_zeros((pad,) + tuple(v.shape[1:]))])
+                    for k, v in host.items()}
+        specs = dsh.batch_pspecs(host, self.mesh)
+        for k, spec in specs.items():
+            if not spec or spec[0] is None:
+                raise ValueError(f"input {k!r} of {tuple(host[k].shape)} does not "
+                                 f"split over {self._data_size} data entries")
+        per = (batch + pad) // self._data_size
+        outs = []
+        for i, dev in enumerate(self.shard_devices):
+            shard = {k: v[i * per:(i + 1) * per] for k, v in host.items()}
+            outs.append(self._call_on(dev, shard, jit, False))
+            self.shard_counts[i] += 1
+        first = self.device
+        merged = {}
+        for name in self.graph.output_names:
+            parts = [o[name].to(first, non_blocking=True) for o in outs]
+            y = torch.cat(parts)
+            merged[name] = y[:batch] if pad else y
+        return merged
+
+    def _call_on(self, dev, inputs: dict, jit: bool, donate: bool) -> dict:
+        """The one-device path on ``dev`` (the plan's device, or a shard's)."""
+        consts = self._dev_consts[dev]
+        lock = self._locks[dev]
         if not jit:
-            with self._lock:
+            with lock:
                 self._trace()
-            return self._run({k: to_tensor(v, self.device)
-                              for k, v in inputs.items()})
-        if self.device.type != "cuda":
-            env = {k: to_tensor(v, self.device) for k, v in inputs.items()}
-            sig = _signature(env)
-            with self._lock:
-                if sig not in self._signatures:
-                    self._signatures.add(sig)
+            return self._run({k: to_tensor(v, dev) for k, v in inputs.items()},
+                             consts)
+        if dev.type != "cuda":
+            env = {k: to_tensor(v, dev) for k, v in inputs.items()}
+            key = (dev, _signature(env))
+            with lock:
+                if key not in self._signatures:
+                    self._signatures.add(key)
                     self._trace()
-            return self._run(env)
+            return self._run(env, consts)
         host = {k: to_tensor(v) for k, v in inputs.items()}
         sig = _signature(host)
-        with self._lock, torch.cuda.device(self.device):
-            cap = self._captured.get(sig)
+        with lock, torch.cuda.device(dev):
+            cap = self._captured.get((dev, sig))
             if cap is None:
-                cap = self._capture(sig, host, donate)
+                cap = self._capture(dev, sig, host, donate)
             else:
                 for k, v in host.items():
                     slot = cap.inputs[k]
@@ -243,10 +346,10 @@ class CompiledPlan:
             cap.replays += 1
             return {k: v.clone() for k, v in cap.outputs.items()}
 
-    def _capture(self, sig: tuple, host: dict, donate: bool) -> _Captured:
-        """Warm up, then capture the plan at ``sig`` (caller holds the
-        plan's lock and has made the plan's device current)."""
-        dev = self.device
+    def _capture(self, dev, sig: tuple, host: dict, donate: bool) -> _Captured:
+        """Warm up, then capture the plan at ``sig`` on ``dev`` (caller
+        holds that device's lock and has made it current)."""
+        consts = self._dev_consts[dev]
         slots = {}
         for k, v in host.items():
             if donate and v.device == dev and v.is_contiguous():
@@ -258,23 +361,23 @@ class CompiledPlan:
         side = torch.cuda.Stream(dev)
         side.wait_stream(stream)
         with torch.cuda.stream(side):
-            self._run(dict(slots))
+            self._run(dict(slots), consts)
         stream.wait_stream(side)
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
+        pool = self._pools.get(dev)
+        if pool is None:
+            pool = self._pools[dev] = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         failed = ended = None
         # capture_begin / capture_end by hand inside a stream context, so
         # the caller's stream comes back even when capture_end raises
         with _CAPTURE_LOCK, torch.cuda.stream(torch.cuda.Stream(dev)):
             torch.cuda.synchronize(dev)
-            graph.capture_begin(pool=self._pool,
-                                capture_error_mode="thread_local")
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             env = dict(slots)
             try:
                 for i, seg in enumerate(self.segments):
                     try:
-                        seg.run(self.consts, env)
+                        seg.run(consts, env)
                     except Exception as e:       # named below
                         failed = (i, seg, e)
                         break
@@ -284,8 +387,8 @@ class CompiledPlan:
                 except RuntimeError as e:        # the capture was invalidated
                     ended = e
         if failed is not None or ended is not None:
-            _release_capture_pool(self._pool)
-            self._pool = None                    # the next capture starts afresh
+            _release_capture_pool(pool)
+            del self._pools[dev]                 # the next capture starts afresh
         if ended is not None:
             _end_rng_capture(dev)
         if failed is not None:
@@ -298,10 +401,10 @@ class CompiledPlan:
             raise RuntimeError(
                 f"CUDA graph capture of plan {self.graph.name!r} failed at "
                 f"signature {sig}: {ended}") from ended
-        outs = {name: env.get(name, self.consts.get(name))
+        outs = {name: env.get(name, consts.get(name))
                 for name in self.graph.output_names}
         cap = _Captured(graph, slots, outs)
-        self._captured[sig] = cap
+        self._captured[(dev, sig)] = cap
         self._trace()
         return cap
 
@@ -431,7 +534,9 @@ class CompiledPlan:
         return out
 
     def describe(self) -> str:
-        head = (f"CompiledPlan({self.graph.name}) on {self.device}: "
+        where = (f"{self.device}" if not self.shard_devices else
+                 f"mesh {dict(self.mesh.shape)} from {self.device}")
+        head = (f"CompiledPlan({self.graph.name}) on {where}: "
                 f"{len(self.segments)} segments over {len(self.graph.nodes)} "
                 f"nodes {self.fused_counts}")
         return "\n".join([head] + ["  " + s.describe() for s in self.segments])
@@ -460,10 +565,7 @@ def _make_interp_segment(nodes: list[Node], static_consts: dict) -> Segment:
     return Segment("interp", nodes, ins, outs, run)
 
 
-def _unported(mesh, interpret) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet: ROADMAP.md A16 (multi-device)")
+def _unported(interpret) -> None:
     if interpret is not None:
         raise ValueError(
             "the port has no interpret mode: kernels launch on CUDA tensors "
@@ -521,8 +623,14 @@ def compile_graph(graph: QonnxGraph, *, run_cleanup: bool = True,
     tune_cache_dir — tune-cache root (default ``$REPRO_TUNE_CACHE_DIR`` or
                    ``~/.cache/repro-tune``)
     tune_repeats — best-of-N timing rounds per candidate in "search" mode
-    mesh         — not ported: anything but None raises
-                   NotImplementedError (ROADMAP.md A16)
+    mesh         — device placement: a ``dist.sharding.Mesh`` (the plan
+                   runs data-parallel over the mesh's data axes, one
+                   contiguous batch shard per entry, constants replicated
+                   per distinct device; see ``CompiledPlan``), or
+                   ``"auto"`` for ``dist.fault.elastic_mesh(prefer_model=1)``
+                   (every CUDA device data-parallel; the plain one-device
+                   path on a one-GPU host).  Exclusive with ``device``
+                   (ValueError); anything else raises TypeError
     interpret    — must stay None (see ``_unported``)
 
     Every compile records its wall time and plan-shape gauges (segments
@@ -532,11 +640,13 @@ def compile_graph(graph: QonnxGraph, *, run_cleanup: bool = True,
     ``model=graph.name``.
     """
     t_compile0 = time.perf_counter()
-    _unported(mesh, interpret)
+    _unported(interpret)
     if tune not in ("off", "cached", "search"):
         raise ValueError(f"tune must be 'off', 'cached' or 'search', "
                          f"got {tune!r}")
-    dev = resolve_device(device)
+    from repro_torch.dist.sharding import mesh_argument
+    mesh = mesh_argument(mesh, device)
+    dev = resolve_device(device) if mesh is None else mesh.devices.flat[0]
     if run_cleanup:
         from . import passes
         graph = passes.run_pipeline(graph, "compile_prep")
@@ -661,7 +771,8 @@ def compile_graph(graph: QonnxGraph, *, run_cleanup: bool = True,
                         fusion=fusion_plan,
                         tune_mode=tune if tuner is not None else "off",
                         tune_stats=dict(tuner.stats) if tuner is not None else {},
-                        tune_log=list(tuner.searches) if tuner is not None else [])
+                        tune_log=list(tuner.searches) if tuner is not None else [],
+                        mesh=mesh)
     _record_compile_metrics(plan, time.perf_counter() - t_compile0)
     return plan
 
@@ -683,6 +794,9 @@ def _record_compile_metrics(plan: CompiledPlan, wall_s: float) -> None:
     reg.gauge("compile_fused_nodes",
               help="graph nodes absorbed into kernel segments",
               labels=model).set(plan.n_fused_nodes)
+    reg.gauge("compile_plan_devices",
+              help="devices a plan call spans (data-parallel degree; 1 "
+                   "unless mesh-sharded)", labels=model).set(plan.n_devices)
     rq = plan.requant_stats()
     reg.gauge("compile_integer_requant_coverage",
               help="fraction of kernel segments on the integer-epilogue "

@@ -1,9 +1,19 @@
-"""repro_torch.dist — fault tolerance and gradient compression
-(counterpart of ``repro.dist``).
+"""repro_torch.dist — sharding rules, meshes, collectives and fault
+tolerance (counterpart of ``repro.dist``).
 
-``fault``        watchdog and bounded restarts;
-``collectives``  error-feedback int8 compression (``ef_compress``).
-The sharding rules, ``quantized_psum`` and ``elastic_mesh`` wait for
-ROADMAP.md A16 (multi-device).
+``sharding``     the ``Mesh`` type and the name-based partition-spec rules
+                 for params / batches / caches
+``collectives``  quantized all-reduce + error-feedback compression
+``fault``        watchdog, bounded restarts, elastic mesh derivation
 """
-from . import collectives, fault  # noqa: F401
+from . import collectives, fault, sharding  # noqa: F401
+from .sharding import (  # noqa: F401
+    Mesh,
+    P,
+    batch_pspecs,
+    cache_pspecs,
+    data_axis_size,
+    distribute,
+    param_pspecs,
+    to_shardings,
+)

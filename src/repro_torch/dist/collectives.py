@@ -11,8 +11,8 @@ The reference divides the leaf's max-abs by 127 under ``jit``, where XLA
 multiplies by the float32 reciprocal instead (ROADMAP C7), and fuses
 ``e - q * scale`` into one rounding; the port computes both the same way.
 
-``quantized_psum`` (compress locally, all-reduce the int8 payload,
-decompress) needs a collective across devices: ROADMAP A16.
+``quantized_psum`` compresses locally and all-reduces the compressed
+leaves over a process group (a mesh axis's, or one given).
 """
 from __future__ import annotations
 
@@ -47,8 +47,33 @@ def ef_compress(grads: dict, residual: dict):
     return out_g, out_r
 
 
-def quantized_psum(x, axis_name: str, residual=None):
-    """int8-compressed all-reduce across devices: not ported (one device)."""
-    raise NotImplementedError(
-        "quantized_psum needs a collective across devices (ROADMAP A16: "
-        "multi-device); one device compresses with ef_compress")
+def quantized_psum(x, axis_name=None, residual=None, *, group=None):
+    """int8-compressed all-reduce: compress the local contribution (with
+    the optional carried residual) by ``ef_compress``, then sum each
+    compressed leaf over the ranks with ``torch.distributed.all_reduce``.
+
+    ``x`` is a dict of tensors (or one tensor).  The ranks are ``group``,
+    or the process group of mesh axis ``axis_name`` of the ambient
+    ``Mesh`` (``with mesh:``; its ``device_mesh()``).  Returns ``(summed,
+    new_residual)``, the residual this rank's own, as the reference's."""
+    import torch.distributed as dist
+
+    from .sharding import current_mesh
+    if group is None:
+        mesh = current_mesh()
+        if mesh is None or axis_name is None:
+            raise ValueError("quantized_psum needs group= or an axis_name of "
+                             "the ambient mesh (with mesh: ...)")
+        group = mesh.device_mesh().get_group(axis_name)
+    single = isinstance(x, torch.Tensor)
+    if single:
+        x = {"x": x}
+        residual = None if residual is None else {"x": residual}
+    if residual is None:
+        residual = {k: torch.zeros_like(v, dtype=torch.float32) for k, v in x.items()}
+    summed, new_residual = ef_compress(x, residual)
+    for v in summed.values():
+        dist.all_reduce(v, op=dist.ReduceOp.SUM, group=group)
+    if single:
+        return summed["x"], new_residual["x"]
+    return summed, new_residual

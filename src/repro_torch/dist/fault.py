@@ -1,9 +1,9 @@
-"""Fault tolerance primitives: straggler watchdog, bounded restarts
-(counterpart of ``repro.dist.fault``).
+"""Fault tolerance primitives: straggler watchdog, bounded restarts,
+elastic mesh derivation (counterpart of ``repro.dist.fault``).
 
-All host-side logic, stdlib only, so the same code runs on a laptop and
-under a cluster process launcher.  ``elastic_mesh`` builds a device mesh
-in the reference; meshes are not ported, so it raises.
+All host-side logic, so the same code runs on a laptop and under a
+cluster process launcher.  ``elastic_mesh`` derives a ``Mesh``
+(``dist.sharding``) from the devices present.
 """
 from __future__ import annotations
 
@@ -14,6 +14,8 @@ import statistics
 import time
 from collections import deque
 from dataclasses import dataclass, field
+
+import numpy as np
 
 
 log = logging.getLogger("repro_torch.dist.fault")
@@ -135,9 +137,31 @@ def run_with_restarts(make_state, run, policy: RestartPolicy):
                 time.sleep(delay)
 
 
-def elastic_mesh(prefer_model: int = 16):
-    """The reference's ("data", "model") mesh over the devices present.
-    Meshes are not ported: raises ``NotImplementedError``."""
-    del prefer_model
-    raise NotImplementedError(
-        "elastic_mesh is not ported yet: ROADMAP.md A16 (multi-device)")
+def elastic_mesh(prefer_model: int = 16, device=None):
+    """Build a ("data", "model") ``Mesh`` from the devices actually present.
+
+    The model axis is the largest divisor of the device count that is
+    <= ``prefer_model``; everything else becomes data parallelism.  The
+    devices are the CUDA devices present (``device=None`` or ``"cuda"``;
+    raising without CUDA, as ``core.executor.resolve_device`` does), or
+    the one named device (``"cpu"``, ``"cuda:1"``): a (1, 1) mesh.  On a
+    one-device host this degenerates to (1, 1), so the same launcher runs
+    everywhere."""
+    import torch
+
+    from .sharding import Mesh
+    if device is None or str(device) == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' for a mesh on the CPU")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        devices = [torch.device(device)]
+    n = len(devices)
+    model = 1
+    for cand in range(min(prefer_model, n), 0, -1):
+        if n % cand == 0:
+            model = cand
+            break
+    return Mesh(np.array(devices, dtype=object).reshape(n // model, model),
+                ("data", "model"))

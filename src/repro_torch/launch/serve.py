@@ -8,8 +8,10 @@ LM generation (default):
 
 Builds the architecture's config (``--smoke``: its reduced SMOKE config)
 with the recipe ``--wbits / --abits / --kv-bits`` (default W8A8 with an
-8-bit KV cache; ``--wbits 0`` serves in float), initialises seeded
-weights (seed 0) on the device, and serves ``--requests`` prompts of 4 to
+8-bit KV cache; ``--wbits 0`` serves in float) and
+``shard_activations=True``, derives ``elastic_mesh()`` over the devices
+present (``--device`` names one: a (1, 1) mesh), initialises seeded
+weights (seed 0) on its device, and, under that mesh, serves ``--requests`` prompts of 4 to
 11 random tokens (``numpy.random.default_rng(0)``) through
 ``GenerationEngine`` in slots of 4, ``--max-new-tokens`` each; it logs
 tokens per second.  Every arch serves (``--arch llava-next-34b``,
@@ -49,9 +51,24 @@ CUDA graph; every flush after it replays that graph.
   --tune-cache-dir PATH the tune cache's root (default
                         ``$REPRO_TUNE_CACHE_DIR`` or ``~/.cache/repro-tune``)
 
-Everything runs on CUDA unless ``--device cpu`` is given.  Mesh-sharded
-plans (``--mesh``) and forced device counts (``--devices``) are not
-ported: those flags raise.
+Distributed serving (compiled-graph path):
+
+  --mesh                compile the served plan data-parallel over
+                        ``elastic_mesh(prefer_model=1)`` (every CUDA device,
+                        or the ``--device`` named: a (1, 1) mesh, the plain
+                        path)
+  --devices N           serve over an N-entry mesh cycling over the devices
+                        present (on one GPU: N entries of ``cuda:0``), the
+                        counterpart of the reference's forced host device
+                        count; implies ``--mesh`` (with ``--splitmerge``:
+                        one worker per entry)
+
+The LM path runs one process on one device: a mesh of more than one
+entry (``--devices N`` with N > 1, or several GPUs) raises
+``NotImplementedError`` naming ROADMAP A16b (tensor parallelism and FSDP
+need one process per device).
+
+Everything runs on CUDA unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -64,17 +81,32 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.executor import resolve_device
+from repro_torch.dist.fault import elastic_mesh
+from repro_torch.launch.mesh import make_virtual_mesh
 from repro_torch.models import api
 from repro_torch.quantize.config import FP32, QuantRecipe
 from repro_torch.serve.generation import GenerationEngine, greedy_generate, left_pad
 
 log = logging.getLogger("repro_torch.launch.serve")
 
-# flags of the reference launcher whose tiers the port does not have yet
-NOT_PORTED = {
-    "mesh": "mesh-sharded plans: ROADMAP A16",
-    "devices": "multi-device serving: ROADMAP A16",
-}
+
+
+def graph_mesh(args):
+    """The compiled-graph path's mesh: ``--devices N`` entries, or
+    ``--mesh``'s elastic mesh, or None (the plain one-device plan)."""
+    if args.devices:
+        return make_virtual_mesh(args.devices, args.device)
+    if args.mesh:
+        return elastic_mesh(prefer_model=1, device=args.device)
+    return None
+
+
+def lm_mesh(args):
+    """The LM path's mesh: ``--devices N`` entries, else ``elastic_mesh()``
+    over the devices present (or the one named)."""
+    if args.devices:
+        return make_virtual_mesh(args.devices, args.device)
+    return elastic_mesh(device=args.device)
 
 
 def serve_graph(args) -> dict:
@@ -86,7 +118,8 @@ def serve_graph(args) -> dict:
     from repro_torch.serve import (EngineRegistry, ServeScheduler,
                                    SplitMergeFront, device_workers)
 
-    device = resolve_device(args.device)
+    mesh = graph_mesh(args)
+    device = resolve_device(args.device) if mesh is None else mesh.devices.flat[0]
     server = tracer = sink = None
     try:
         if args.metrics_port is not None:
@@ -98,9 +131,13 @@ def serve_graph(args) -> dict:
             log.info("tracing spans to %s", args.trace_jsonl)
         rng = np.random.default_rng(0)
         if args.splitmerge:
+            if args.devices:
+                devices = list(mesh.devices.flat)       # one worker per entry
+            else:
+                devices = None if args.device is None else [device]
             workers = device_workers(
                 zoo.ZOO[args.graph],
-                devices=None if args.device is None else [device],
+                devices=devices,
                 metrics_registry=obs.default_registry(),
                 max_batch=args.max_batch, pipeline=not args.no_pipeline,
                 report_cost=False, tracer=tracer, tune=args.tune,
@@ -126,10 +163,15 @@ def serve_graph(args) -> dict:
             registry = EngineRegistry(max_batch=args.max_batch,
                                       pipeline=not args.no_pipeline,
                                       metrics_registry=obs.default_registry(),
-                                      tracer=tracer, device=device,
-                                      tune=args.tune,
-                                      tune_cache_dir=args.tune_cache_dir)
+                                      tracer=tracer, tune=args.tune,
+                                      tune_cache_dir=args.tune_cache_dir,
+                                      **({"device": device} if mesh is None
+                                         else {"mesh": mesh}))
             eng = registry.register(args.graph, zoo.ZOO[args.graph]())
+            if mesh is not None:
+                log.info("mesh-sharded plan spans %d device(s): mesh %s over %s, "
+                         "placement %s", eng.plan.n_devices, mesh.shape,
+                         [str(d) for d in eng.plan.devices()], eng.plan.placement())
             xs = [rng.standard_normal(eng.sample_shape, dtype=np.float32)
                   for _ in range(args.requests)]
             eng(xs[0])                            # capture the slot shape
@@ -172,19 +214,31 @@ def serve_graph(args) -> dict:
     return {"graph": args.graph, "requests": len(xs), "seconds": dt,
             "requests_per_s": len(xs) / dt, "stats": stats,
             "tuning": eng.plan.tuning_stats(),
+            "plan_devices": eng.plan.n_devices, "placement": eng.plan.placement(),
             "metrics_port": None if server is None else server.port,
             "results": np.stack([np.asarray(r) for r in rows])}
 
 
 def serve_lm(args) -> dict:
-    """Serve the launcher's traffic; returns the run's counts, rate and
-    results (one int32 token tensor per request, in submission order)."""
+    """Serve the launcher's traffic under the launcher's mesh; returns the
+    run's counts, rate and results (one int32 token tensor per request, in
+    submission order)."""
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     recipe = (QuantRecipe.w_a(args.wbits, args.abits, kv_cache_bits=args.kv_bits)
               if args.wbits else FP32)
-    cfg = cfg.replace(quant=recipe)
-    device = resolve_device(args.device)
-    log.info("%s on %s, recipe %s", cfg.name, device, recipe.tag())
+    cfg = cfg.replace(quant=recipe, shard_activations=True)
+    mesh = lm_mesh(args)
+    log.info("mesh %s, %s, recipe %s", mesh.shape, cfg.name, recipe.tag())
+    if mesh.size > 1:
+        raise NotImplementedError(
+            f"LM serving over a mesh of {mesh.size} entries {mesh.shape} needs one "
+            f"process per device (ROADMAP A16b: tensor parallelism and FSDP "
+            f"under torchrun); this launcher runs one process on one device")
+    with mesh:
+        return _serve_lm_on(args, cfg, mesh.devices.flat[0])
+
+
+def _serve_lm_on(args, cfg, device) -> dict:
     params = api.init_params(0, cfg, device)
     rng = np.random.default_rng(0)
     t0 = time.monotonic()
@@ -243,8 +297,12 @@ def main(argv=None):
     ap.add_argument("--splitmerge", action="store_true",
                     help="shard request waves across one engine per device "
                          "(SplitMergeFront)")
-    ap.add_argument("--mesh", action="store_true")
-    ap.add_argument("--devices", type=int, default=None, metavar="N")
+    ap.add_argument("--mesh", action="store_true",
+                    help="compile the served plan data-parallel over an "
+                         "elastic mesh of the devices present")
+    ap.add_argument("--devices", type=int, default=None, metavar="N",
+                    help="serve over an N-entry mesh cycling over the "
+                         "devices present (implies --mesh)")
     ap.add_argument("--tune", choices=("off", "cached", "search"), default="off")
     ap.add_argument("--tune-cache-dir", metavar="PATH", default=None)
     # observability
@@ -259,9 +317,6 @@ def main(argv=None):
                          "the run until Ctrl-C")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    for flag, what in NOT_PORTED.items():
-        if getattr(args, flag) not in (None, False):
-            raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet: {what}")
     if args.graph:
         return serve_graph(args)
     return serve_lm(args)

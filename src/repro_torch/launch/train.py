@@ -10,9 +10,14 @@ fake quant, activation checkpointing unless ``--smoke``, the warmup
 ``min(100, steps // 10 + 1)``), resumes from the checkpoint directory's
 latest step with the data stream's state, runs the steps under the
 straggler ``Watchdog`` and ``run_with_restarts``, and saves every
-``--ckpt-every`` steps and at the end.  One device: the reference's mesh
-over the devices present (``elastic_mesh``) waits for ROADMAP A16.
-Run as a script, it prints a JSON summary as its last line.
+``--ckpt-every`` steps and at the end.  As the reference, it derives
+``elastic_mesh()`` over the devices present (``--device`` names one: a
+(1, 1) mesh), logs it, runs the steps under it with
+``shard_activations=True`` and computes the state's ``param_pspecs``
+(the placement a restore would take; on one device the state stays where
+it is).  A mesh of more than one device raises ``NotImplementedError``
+naming ROADMAP A16b: FSDP and tensor parallelism need one process per
+device.  Run as a script, it prints a JSON summary as its last line.
 
 Every arch trains (the ssm and hybrid families through their time
 loop and RG-LRU scan).  For the vlm and audio families the stream
@@ -33,9 +38,9 @@ import numpy as np
 
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.core.executor import resolve_device
 from repro_torch.data import SyntheticLMStream, to_device
-from repro_torch.dist.fault import RestartPolicy, Watchdog, run_with_restarts
+from repro_torch.dist.fault import RestartPolicy, Watchdog, elastic_mesh, run_with_restarts
+from repro_torch.dist.sharding import param_pspecs
 from repro_torch.models import api
 from repro_torch.quantize.config import FP32, QuantRecipe
 from repro_torch.train.loop import TrainHyper, init_train_state, make_train_step
@@ -51,7 +56,9 @@ def frontend_specs(cfg) -> dict:
 def build(args):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     recipe = QuantRecipe.w_a(args.wbits, args.abits) if args.wbits else FP32
-    cfg = cfg.replace(quant=recipe, remat=not args.smoke)
+    # shard_activations: the reference's activation-sharding constraints
+    # (identities on one device)
+    cfg = cfg.replace(quant=recipe, remat=not args.smoke, shard_activations=True)
     hyper = TrainHyper(
         peak_lr=args.lr, warmup_steps=min(100, args.steps // 10 + 1),
         total_steps=args.steps, microbatches=args.microbatches,
@@ -82,14 +89,21 @@ def parse(argv=None):
 
 
 def main(argv=None) -> dict:
-    """Train; returns {"start", "steps", "losses" (step -> loss of the
-    last attempt's steps), "stragglers"}."""
+    """Train; returns {"start", "steps", "mesh" (its shape), "losses"
+    (step -> loss of the last attempt's steps), "stragglers"}."""
     args = parse(argv)
     logging.basicConfig(level=logging.INFO)
     cfg, hyper = build(args)
-    device = resolve_device(args.device)
-    log.info("%s (%s, remat %s) on one device, %s; no mesh until ROADMAP A16",
-             cfg.name, cfg.quant.tag(), cfg.remat, device)
+    mesh = elastic_mesh(device=args.device)   # from the devices actually present
+    log.info("mesh %s over %d devices; %s (%s, remat %s)", mesh.shape, mesh.size,
+             cfg.name, cfg.quant.tag(), cfg.remat)
+    if mesh.size > 1:
+        raise NotImplementedError(
+            f"training over a mesh of {mesh.size} devices {mesh.shape} needs one "
+            f"process per device (ROADMAP A16b: FSDP and tensor parallelism "
+            f"under torchrun by param_pspecs / to_shardings); pass --device to "
+            f"train on one")
+    device = mesh.devices.flat[0]
     mgr = CheckpointManager(args.ckpt_dir, keep=3, async_save=True)
 
     def make_state():
@@ -99,11 +113,14 @@ def main(argv=None) -> dict:
         state = init_train_state(0, cfg, hyper, device)
         mgr.wait()                  # a save still in flight counts
         latest = mgr.latest_step()
+        # the state's placement over the mesh; on a one-device mesh every
+        # spec is trivial and the state (restored in place) stays put
+        pspecs = param_pspecs(state, mesh)
         if latest is not None:
             log.info("resuming from step %d", latest)
             mgr.restore(latest, state)
             stream.load_state_dict(mgr.manifest(latest)["extra"])
-        return {"state": state, "stream": stream}
+        return {"state": state, "stream": stream, "pspecs": pspecs}
 
     def run(ctx):
         state, stream = ctx["state"], ctx["stream"]
@@ -113,7 +130,7 @@ def main(argv=None) -> dict:
         losses = {}
         for i in range(start, args.steps):
             # exception-safe: a crashed step is cancelled, not recorded
-            with wd.step(i):
+            with wd.step(i), mesh:
                 state, m = step_fn(state, to_device(stream.next(), device))
             losses[i + 1] = m["loss"]
             if (i + 1) % 10 == 0:
@@ -124,7 +141,7 @@ def main(argv=None) -> dict:
         mgr.wait()
         log.info("finished at step %d (stragglers flagged: %d)",
                  args.steps, len(wd.stragglers))
-        return {"start": start, "steps": args.steps,
+        return {"start": start, "steps": args.steps, "mesh": mesh.shape,
                 "losses": {k: float(v) for k, v in losses.items()},
                 "stragglers": list(wd.stragglers)}
 

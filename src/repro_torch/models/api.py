@@ -43,6 +43,15 @@ def param_specs(cfg: ModelConfig) -> dict:
             for name, shape in param_shapes(cfg).items()}
 
 
+def reference_layout(cfg: ModelConfig) -> dict:
+    """{port name: (reference path, reference shape, stacked)}: where each
+    parameter sits in the reference's tree (``params_from_reference``'s
+    source) and that leaf's shape, its layers stacked on a leading axis
+    where ``stacked``.  ``dist.sharding.param_pspecs`` judges each port
+    leaf by it."""
+    return _mod(cfg).reference_layout(cfg)
+
+
 def init_params(generator, cfg: ModelConfig, device=None):
     """Seeded parameters on ``device`` (CUDA unless given another).
     ``generator`` is a ``torch.Generator`` on that device, or an int seed

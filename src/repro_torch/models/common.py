@@ -15,8 +15,11 @@ kernel B7 (``kernels/flash_attention.py``), which computes the same
 function.
 
 The reference's mesh-sharding hooks (``constrain_logits``,
-``constrain_residual``, ``_shard_attn``) are no-ops on one device and are
-not ported (ROADMAP A16).
+``constrain_residual``, ``_shard_attn``) read the ambient ``Mesh``
+(``with mesh:``, ``dist.sharding``) and compute the reference's spec
+(``logits_spec``, ``residual_spec``, ``attn_specs``).  A sharding
+constraint is no arithmetic: each hook returns a plain tensor as it is,
+and redistributes a DTensor to the spec's placements (same values).
 """
 from __future__ import annotations
 
@@ -75,9 +78,10 @@ class ModelConfig:
     quant: QuantRecipe = field(default_factory=lambda: FP32)
     attn_chunk: int = 1024
     remat: bool = False            # recompute each block in the backward
-    # the reference's compile and mesh switches; the eager port ignores them
+    # gates the residual and attention sharding hooks, as in the reference
     shard_activations: bool = False
-    scan_unroll: bool = False
+    scan_unroll: bool = False      # the reference's scan switch; ignored
+
     logits_softcap: float = 0.0
     notes: str = ""
 
@@ -181,6 +185,145 @@ def _sinusoidal(n_pos: int, d: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(emb, dtype=torch.float32, device=device)
 
 
+# ------------------------------------------------------- sharding hooks
+
+def _ambient_mesh():
+    from repro_torch.dist.sharding import current_mesh
+    return current_mesh()
+
+
+def _model_axis_size() -> int:
+    """Size of the ambient mesh's 'model' axis (0 if no mesh context)."""
+    m = _ambient_mesh()
+    if m is not None and "model" in m.axis_names:
+        return int(m.shape["model"])
+    return 0
+
+
+def _dp_axes():
+    """DP axis names of the ambient mesh and the mesh (((), None) if no
+    mesh context)."""
+    m = _ambient_mesh()
+    if m is None:
+        return (), None
+    return tuple(a for a in ("pod", "data") if a in m.axis_names), m
+
+
+def _dp_size(dp, m) -> int:
+    size = 1
+    for a in dp:
+        size *= int(m.shape[a])
+    return size
+
+
+def _is_dtensor(x) -> bool:
+    if type(x) is torch.Tensor:
+        return False
+    try:
+        from torch.distributed.tensor import DTensor
+    except ImportError:
+        return False
+    return isinstance(x, DTensor)
+
+
+def _constrain(x, spec):
+    """x, redistributed to ``spec``'s placements over the ambient mesh if
+    it is a DTensor; a plain tensor (or no spec) as it is."""
+    if spec is None or not _is_dtensor(x):
+        return x
+    from repro_torch.dist.sharding import placements
+    want = placements(spec, _ambient_mesh(), tuple(x.placements))
+    if want == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, list(want))
+
+
+def logits_spec(shape: tuple):
+    """The reference's constraint on LM-head logits of ``shape``: batch
+    over DP, vocab over model; None outside a mesh with both."""
+    dp, m = _dp_axes()
+    if not dp or "model" not in m.axis_names:
+        return None
+    from repro_torch.dist.sharding import P
+    tp = int(m.shape["model"])
+    batch, vocab = shape[0], shape[-1]
+    b_ax = (dp if len(dp) > 1 else dp[0]) if batch % _dp_size(dp, m) == 0 else None
+    v_ax = "model" if vocab % tp == 0 else None
+    return P(*([b_ax] + [None] * (len(shape) - 2) + [v_ax]))
+
+
+def constrain_logits(logits):
+    """Pin the LM-head output to (batch over DP, vocab over model), as the
+    reference does; the values are unchanged."""
+    return _constrain(logits, logits_spec(tuple(logits.shape)))
+
+
+def residual_spec(shape: tuple, cfg: ModelConfig):
+    """The reference's Megatron-SP constraint on a (B, S, D) residual
+    stream: batch over DP, sequence over 'model' (not for moe), feature
+    replicated; None when ``cfg.shard_activations`` is off, the rank is
+    not 3 or there is no mesh with a model axis."""
+    if not cfg.shard_activations or len(shape) != 3:
+        return None
+    dp, m = _dp_axes()
+    if m is None or "model" not in m.axis_names:
+        return None
+    from repro_torch.dist.sharding import P
+    tp = int(m.shape["model"])
+    B, S, _ = shape
+    b_ax = (dp if len(dp) > 1 else dp[0]) if (dp and B % _dp_size(dp, m) == 0) else None
+    s_ax = "model" if (S % tp == 0 and S > 1 and cfg.family != "moe") else None
+    return P(b_ax, s_ax, None)
+
+
+def constrain_residual(x, cfg: ModelConfig):
+    """The residual stream's sharding constraint (``residual_spec``)."""
+    return _constrain(x, residual_spec(tuple(x.shape), cfg))
+
+
+def attn_specs(Sq: int, KV: int, G: int, hd: int, enabled: bool = True) -> dict:
+    """The reference's constraints on chunked attention's operands, in its
+    layouts: qg (B, Sq, KV, G, hd), kc / vc (B, n_chunks, C, KV, hd);
+    {} when disabled or the model axis is 1 or absent.  Prefill shards G,
+    else KV, else the query sequence over 'model'; decode (Sq == 1) the
+    head dim."""
+    if not enabled:
+        return {}
+    tp = _model_axis_size()
+    if tp <= 1:
+        return {}
+    from repro_torch.dist.sharding import P
+    U = P.UNCONSTRAINED
+    if Sq > 1:
+        if G % tp == 0:
+            return {"qg": P(U, U, U, "model", U)}
+        if KV % tp == 0:
+            kv = P(U, U, U, "model", U)
+            return {"qg": P(U, U, "model", U, U), "kc": kv, "vc": kv}
+        if Sq % tp == 0:
+            return {"qg": P(U, "model", U, U, U)}
+        return {}
+    if hd % tp == 0:
+        hd_spec = P(U, U, U, U, "model")
+        return {"qg": hd_spec, "kc": hd_spec, "vc": hd_spec}
+    return {}
+
+
+def _shard_attn(qg, k, v, Sq, KV, G, enabled):
+    """``attn_specs`` applied to qg and to the port's unchunked k / v
+    (B, Sk, KV, hd): the chunk axes (unconstrained in every spec) merge."""
+    specs = attn_specs(Sq, KV, G, qg.shape[-1], enabled)
+    if not specs:
+        return qg, k, v
+    from repro_torch.dist.sharding import P
+
+    def unchunked(spec):
+        return None if spec is None else P(spec[0], spec[2], spec[3], spec[4])
+
+    return (_constrain(qg, specs.get("qg")), _constrain(k, unchunked(specs.get("kc"))),
+            _constrain(v, unchunked(specs.get("vc"))))
+
+
 # ---------------------------------------------------- chunked attention
 
 NEG_INF = -1e30
@@ -188,7 +331,7 @@ NEG_INF = -1e30
 
 def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
                       window: int = 0, chunk: int = 1024,
-                      kv_len: Optional[int] = None) -> torch.Tensor:
+                      kv_len: Optional[int] = None, shard: bool = False) -> torch.Tensor:
     """Flash-style attention, chunked over KV, online softmax, GQA-grouped.
 
     q: (B, Sq, H, hd);  k, v: (B, Sk, KV, hd);  H = KV * G.
@@ -196,6 +339,7 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     window:  local attention span (0 = unbounded).
     kv_len:  valid length of k/v (decode with cache); keys at and past it
              are masked.
+    shard:   apply the attention sharding hook (``cfg.shard_activations``).
     Returns (B, Sq, H, hd) in q's dtype.
 
     The reference pads k/v to whole chunks and scans every chunk.  A key
@@ -213,6 +357,7 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     dev = q.device
 
     qg = q.reshape(B, Sq, KV, G, hd).to(torch.float32) * scale
+    qg, k, v = _shard_attn(qg, k, v, Sq, KV, G, shard)
     q_pos = q_offset + torch.arange(Sq, dtype=torch.int32, device=dev)
     last = min(valid_len, Sk)
     if causal:

@@ -32,7 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.quantize.layers import qlinear
 from . import transformer
-from .common import ModelConfig, ffn_apply, ffn_param_shapes, init_, norm, sinusoidal_embedding
+from .common import ModelConfig, constrain_residual, ffn_apply, ffn_param_shapes, init_, norm, sinusoidal_embedding
 from .transformer import Norm, Params, _param, attn_param_shapes, norm_param_shapes
 
 # decode_step reads its position from a table of this many rows, as the
@@ -110,6 +110,26 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return out
 
 
+def reference_layout(cfg: ModelConfig) -> dict:
+    """{port name: (reference path, reference shape, stacked)}, as
+    ``transformer.reference_layout``: both stacks on a leading axis."""
+    check_family(cfg)
+    out = {"embed": (("embed",), (cfg.vocab, cfg.d_model), False)}
+    for stack, n, subs in (("enc_layers", cfg.n_enc_layers, _ENC_SUBS),
+                           ("dec_layers", cfg.n_layers, _DEC_SUBS)):
+        for i in range(n):
+            for sub, kind in subs:
+                pre, ref = f"{stack}.{i}.{sub}", (stack, sub)
+                if kind == "norm":
+                    out.update(transformer.norm_layout(cfg, pre, ref, (n,)))
+                else:
+                    out.update(transformer.params_layout(_sub_shapes(cfg, kind), pre,
+                                                         ref, (n,)))
+    for name in ("enc_final_norm", "final_norm"):
+        out.update(transformer.norm_layout(cfg, name, (name,)))
+    return out
+
+
 def init_params(generator: torch.Generator, cfg: ModelConfig, device=None) -> EncDec:
     """Seeded init with the reference's distribution (``common.init_``)."""
     model = EncDec(cfg, device)
@@ -164,11 +184,13 @@ def _ffn(x, lp, cfg: ModelConfig):
 
 
 def _enc_layer(x, lp: EncLayer, cfg: ModelConfig):
+    x = constrain_residual(x, cfg)
     x = x + _mha(norm(x, lp.attn_norm.weight(), cfg.norm), lp.attn, cfg, causal=False)
     return x + _ffn(x, lp, cfg)
 
 
 def _dec_layer(x, lp: DecLayer, enc_out, cfg: ModelConfig):
+    x = constrain_residual(x, cfg)
     x = x + _mha(norm(x, lp.self_norm.weight(), cfg.norm), lp.self_attn, cfg, causal=True)
     x = x + _mha(norm(x, lp.cross_norm.weight(), cfg.norm), lp.cross_attn, cfg,
                  kv=enc_out, causal=False)

@@ -45,7 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.quantize.layers import qlinear
 from . import transformer
-from .common import ModelConfig, ffn_apply, ffn_param_shapes, init_, norm
+from .common import ModelConfig, constrain_residual, ffn_apply, ffn_param_shapes, init_, norm
 from .transformer import Norm, Params, _param, attn_param_shapes, norm_param_shapes
 
 _C = 8.0  # RG-LRU decay sharpness constant
@@ -139,6 +139,34 @@ def param_shapes(cfg: ModelConfig) -> dict:
     out.update({f"final_norm.{k}": s for k, s in norms.items()})
     if not cfg.tie_embeddings:
         out["lm_head"] = (cfg.d_model, cfg.vocab)
+    return out
+
+
+def reference_layout(cfg: ModelConfig) -> dict:
+    """{port name: (reference path, reference shape, stacked)}, as
+    ``transformer.reference_layout``: layer j of every group comes from
+    the reference's ``groups[j]``, stacked on the group axis; tail layer
+    j from ``tail[j]``, unstacked."""
+    check_family(cfg)
+    pat, n_groups, tail = group_layout(cfg)
+    out = {"embed": (("embed",), (cfg.vocab, cfg.d_model), False)}
+
+    def layer(pre, ref, kind, lead):
+        for n in ("pre_norm", "ffn_norm"):
+            out.update(transformer.norm_layout(cfg, f"{pre}.{n}", ref + (n,), lead))
+        out.update(transformer.params_layout(_mix_shapes(cfg, kind), f"{pre}.mix",
+                                             ref + ("mix",), lead))
+        out.update(transformer.params_layout(ffn_param_shapes(cfg), f"{pre}.ffn",
+                                             ref + ("ffn",), lead))
+
+    for g in range(n_groups):
+        for j, kind in enumerate(pat):
+            layer(f"groups.{g}.{j}", ("groups", j), kind, (n_groups,))
+    for j, kind in enumerate(tail):
+        layer(f"tail.{j}", ("tail", j), kind, ())
+    out.update(transformer.norm_layout(cfg, "final_norm", ("final_norm",)))
+    if not cfg.tie_embeddings:
+        out["lm_head"] = (("lm_head",), (cfg.d_model, cfg.vocab), False)
     return out
 
 
@@ -314,6 +342,7 @@ def _ffn(x, lp: HybridLayer, cfg: ModelConfig):
 
 
 def _train_layer(x, lp: HybridLayer, cfg: ModelConfig, positions):
+    x = constrain_residual(x, cfg)
     h = norm(x, lp.pre_norm.weight(), cfg.norm)
     if lp.kind == "rec":
         mix = rec_mix(h, lp.mix, cfg)
@@ -375,6 +404,7 @@ def prefill(params: Hybrid, batch: dict, cfg: ModelConfig, cache_len: int):
     win = min(cache_len, cfg.window) if cfg.window else cache_len
     cache = init_cache(cfg, B, cache_len, h.device)
     for i, lp in enumerate(params.layers()):
+        h = constrain_residual(h, cfg)
         hn = norm(h, lp.pre_norm.weight(), cfg.norm)
         if lp.kind == "rec":
             mix = rec_mix(hn, lp.mix, cfg, state=cache[i])
@@ -392,6 +422,7 @@ def decode_step(params: Hybrid, cache: list, tokens, cache_index: int, cfg: Mode
     h = transformer.token_embedding(params, tokens, cfg)
     idx = int(cache_index)
     for lp, st in zip(params.layers(), cache):
+        h = constrain_residual(h, cfg)
         hn = norm(h, lp.pre_norm.weight(), cfg.norm)
         if lp.kind == "rec":
             mix = rec_mix(hn, lp.mix, cfg, state=st)

@@ -30,8 +30,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.quantize.layers import qlinear
 from . import transformer
-from .common import ModelConfig, init_, norm
-from .transformer import Norm, _param, norm_param_shapes, put_norm_param, put_param
+from .common import ModelConfig, constrain_residual, init_, norm
+from .transformer import (Norm, _param, norm_layout, norm_param_shapes, params_layout,
+                          put_norm_param, put_param)
 
 LORA_R = 64  # low-rank dim for the decay projection
 
@@ -98,6 +99,22 @@ def param_shapes(cfg: ModelConfig) -> dict:
     out.update({f"final_norm.{k}": s for k, s in norms.items()})
     if not cfg.tie_embeddings:
         out["lm_head"] = (cfg.d_model, cfg.vocab)
+    return out
+
+
+def reference_layout(cfg: ModelConfig) -> dict:
+    """{port name: (reference path, reference shape, stacked)}, as
+    ``transformer.reference_layout``."""
+    check_family(cfg)
+    out = {"embed": (("embed",), (cfg.vocab, cfg.d_model), False)}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = (("lm_head",), (cfg.d_model, cfg.vocab), False)
+    out.update(norm_layout(cfg, "final_norm", ("final_norm",)))
+    lead = (cfg.n_layers,)
+    for i in range(cfg.n_layers):
+        for ln in ("ln1", "ln2"):
+            out.update(norm_layout(cfg, f"layers.{i}.{ln}", ("layers", ln), lead))
+        out.update(params_layout(layer_param_shapes(cfg), f"layers.{i}", ("layers",), lead))
     return out
 
 
@@ -201,6 +218,7 @@ def channel_mix(x, p: RwkvLayer, cfg: ModelConfig, state=None):
 
 
 def block(x, lp: RwkvLayer, cfg: ModelConfig, state=None):
+    x = constrain_residual(x, cfg)
     x = x + time_mix(norm(x, lp.ln1.weight(), cfg.norm), lp, cfg, state)
     return x + channel_mix(norm(x, lp.ln2.weight(), cfg.norm), lp, cfg, state)
 

@@ -57,6 +57,8 @@ from .common import (
     ModelConfig,
     apply_rope,
     chunked_attention,
+    constrain_logits,
+    constrain_residual,
     ffn_apply,
     ffn_param_shapes,
     init_,
@@ -201,6 +203,50 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return out
 
 
+def norm_layout(cfg: ModelConfig, prefix: str, ref_path: tuple, lead: tuple = ()) -> dict:
+    """The reference layout (see ``reference_layout``) of a ``Norm`` at
+    ``prefix``, whose reference leaf is ``ref_path``: ``w``, or layernorm's
+    (g, b) tuple; ``lead`` is the reference's stacking axis, if any."""
+    d = (cfg.d_model,)
+    if cfg.norm == "rms":
+        return {f"{prefix}.w": (ref_path, lead + d, bool(lead))}
+    if cfg.norm == "layernorm":
+        return {f"{prefix}.{k}": (ref_path + (i,), lead + d, bool(lead))
+                for i, k in enumerate(("g", "b"))}
+    return {}
+
+
+def params_layout(shapes: dict, prefix: str, ref_path: tuple, lead: tuple = ()) -> dict:
+    """The reference layout of a ``Params`` of ``shapes`` at ``prefix``,
+    whose reference subtree is ``ref_path``, stacked on ``lead``."""
+    return {f"{prefix}.{k}": (ref_path + (k,), lead + tuple(s), bool(lead))
+            for k, s in shapes.items()}
+
+
+def reference_layout(cfg: ModelConfig) -> dict:
+    """{port name: (reference path, reference shape, stacked)} for every
+    parameter: where ``params_from_reference`` takes it from, and the
+    shape of that reference leaf (its layers stacked on a leading L axis,
+    which ``stacked`` marks).  The sharding rules read it
+    (``dist.sharding.param_pspecs``)."""
+    check_family(cfg)
+    out = {"embed": (("embed",), (cfg.vocab, cfg.d_model), False)}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = (("lm_head",), (cfg.d_model, cfg.vocab), False)
+    if cfg.family == "vlm":
+        out["img_proj"] = (("img_proj",), (cfg.d_model, cfg.d_model), False)
+    out.update(norm_layout(cfg, "final_norm", ("final_norm",)))
+    lead = (cfg.n_layers,)
+    ffn_key, ffn_shapes = ffn_block_shapes(cfg)
+    for i in range(cfg.n_layers):
+        pre = f"layers.{i}"
+        out.update(norm_layout(cfg, f"{pre}.attn_norm", ("layers", "attn_norm"), lead))
+        out.update(params_layout(attn_param_shapes(cfg), f"{pre}.attn", ("layers", "attn"), lead))
+        out.update(norm_layout(cfg, f"{pre}.ffn_norm", ("layers", "ffn_norm"), lead))
+        out.update(params_layout(ffn_shapes, f"{pre}.{ffn_key}", ("layers", ffn_key), lead))
+    return out
+
+
 def init_params(generator: torch.Generator, cfg: ModelConfig, device=None) -> Transformer:
     """Seeded init with the reference's distribution (``common.init_``)."""
     model = Transformer(cfg, device)
@@ -295,7 +341,8 @@ def attend(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset: int = 0,
     if takes_flash(Sq, q_offset, kv_len, differentiated, causal=causal, window=window):
         return _flash(q, k[:, :Sq], v[:, :Sq])
     return chunked_attention(q, k, v, causal=causal, q_offset=q_offset, window=window,
-                             chunk=cfg.attn_chunk, kv_len=kv_len)
+                             chunk=cfg.attn_chunk, kv_len=kv_len,
+                             shard=cfg.shard_activations)
 
 
 def attention(x, p, cfg: ModelConfig, *, positions, kv_cache=None,
@@ -450,6 +497,7 @@ def moe_ffn(x, p, cfg: ModelConfig):
 def block(x, lp: Block, cfg: ModelConfig, *, positions, kv_cache=None,
           cache_index: int = 0):
     """One transformer block.  Returns (x, kv_cache, aux)."""
+    x = constrain_residual(x, cfg)
     h = norm(x, lp.attn_norm.weight(), cfg.norm)
     a, new_cache = attention(h, lp.attn, cfg, positions=positions,
                              kv_cache=kv_cache, cache_index=cache_index)
@@ -490,7 +538,7 @@ def final_logits(params, h, cfg: ModelConfig) -> torch.Tensor:
     """The final norm, the output head (``params.head()``) and the
     softcap over h (B, S, D): every LM family's float32 logits."""
     h = norm(h, params.final_norm.weight(), cfg.norm)
-    logits = torch.matmul(h, params.head().to(h.dtype))
+    logits = constrain_logits(torch.matmul(h, params.head().to(h.dtype)))
     return softcap(logits, cfg.logits_softcap).to(torch.float32)
 
 

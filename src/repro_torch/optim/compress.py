@@ -2,7 +2,7 @@
 gradients (counterpart of ``repro.optim.compress``).
 
 On a cluster this wraps the data-parallel all-reduce
-(``dist.collectives.quantized_psum``, ROADMAP A16).  On one device it is
+(``dist.collectives.quantized_psum``).  On one device it is
 applied to the gradient before the optimizer: the same error-feedback
 math (``dist.collectives.ef_compress``).
 """

@@ -28,8 +28,9 @@ graphs and memory pool are freed when the last flush holding it returns.
 Every interval timestamp is ``time.monotonic()``; the metric and span
 names are the reference's.  ``report_cost=True`` (the default, as in the
 reference) logs the analysis tier's inference cost of the served model at
-each load.  ``tune`` and ``mesh`` raise ``NotImplementedError`` (ROADMAP.md
-A15, A16).
+each load.  ``tune`` picks the kernels' launch geometry
+(``repro_torch.tune``); ``mesh`` serves a plan sharded data-parallel over
+a ``dist.sharding.Mesh`` (``core/compile.py``).
 """
 from __future__ import annotations
 
@@ -118,7 +119,8 @@ class GraphRequest:
 
 class CompiledGraphEngine:
     """Slot-batched, pipelined inference over a compiled QonnxGraph on one
-    device (``device=None`` means CUDA, and raises without a GPU).
+    device (``device=None`` means CUDA, and raises without a GPU), or over
+    a mesh (``mesh=``).
 
     Each flush stacks up to ``max_batch`` requests along the leading dim,
     pads to exactly ``max_batch`` so the plan sees one input signature (on
@@ -145,23 +147,29 @@ class CompiledGraphEngine:
         captured slot, so no caller memory is ever handed over and no
         defensive copy is needed.  ``tune`` / ``tune_cache_dir`` go to
         ``compile_graph`` at every (re)load (the launch geometry from the
-        tune cache, or searched); ``mesh`` other than None raises
-        ``NotImplementedError`` (ROADMAP.md A16)."""
+        tune cache, or searched).  ``mesh`` (a ``Mesh``, or ``"auto"`` for
+        ``elastic_mesh(prefer_model=1)``; exclusive with ``device``) is
+        passed to ``compile_graph`` at every (re)load: each slot is split
+        into one shard per data entry, and donation is off, as in the
+        reference (the shards are fresh buffers already)."""
         from repro_torch.core.executor import resolve_device
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= is not ported yet: ROADMAP.md A16 (multi-device)")
-        self.device = resolve_device(device)
+        from repro_torch.dist.sharding import mesh_argument
+        self.mesh = mesh_argument(mesh, device)
+        self.device = (resolve_device(device) if self.mesh is None
+                       else self.mesh.devices.flat[0])
         self.max_batch = max_batch
         self.queue: list[GraphRequest] = []
         self._lock = threading.RLock()
         self.pipeline = pipeline
-        self._donate = self.device.type == "cuda" and (
+        self._donate = self.mesh is None and self.device.type == "cuda" and (
             donate == "auto" or bool(donate))
         self._compile_kw = dict(use_kernels=use_kernels, use_int4=use_int4,
                                 interpret=interpret, use_analysis=use_analysis,
-                                tune=tune, tune_cache_dir=tune_cache_dir,
-                                device=self.device)
+                                tune=tune, tune_cache_dir=tune_cache_dir)
+        if self.mesh is None:
+            self._compile_kw["device"] = self.device
+        else:
+            self._compile_kw["mesh"] = self.mesh
         self._report_cost = report_cost
         self.cost_report = None
         self.n_completed = 0
@@ -394,8 +402,11 @@ class CompiledGraphEngine:
         return rows.to(self.device)
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        devices = [self.device] if self.mesh is None else \
+            self.mesh.distinct_devices()
+        for d in devices:
+            if d.type == "cuda":
+                torch.cuda.current_stream(d).synchronize()
 
     def run_pending(self, *, only_full_slots: bool = False) -> int:
         """Flush the queue in max_batch-sized slots; returns #requests run.

@@ -1,5 +1,5 @@
 """Split-merge serving front: shard a request wave, merge deterministically
-(counterpart of ``repro.serve.splitmerge``, one device per worker).
+(counterpart of ``repro.serve.splitmerge``).
 
 ``SplitMergeFront`` takes a *wave* of requests (a list of samples destined
 for the same model), splits it into contiguous shards — one per worker —
@@ -9,9 +9,10 @@ matter which worker (or which retry) computed it, and no matter in what
 order the shards finished.
 
 A ``Worker`` wraps one serving backend: a ``CompiledGraphEngine`` (pinned to
-one device via ``device_workers``; a device may carry several workers) or
-an engine plus its ``ServeScheduler`` when a background flush loop owns
-the queue.  Mesh-sharded workers wait for ROADMAP.md A16.
+one device via ``device_workers``, a device carrying one or several
+workers, or mesh-sharded: ``CompiledGraphEngine(graph, mesh=...)``) or an
+engine plus its ``ServeScheduler`` when a background flush loop owns the
+queue.
 
 **Fault tolerance.**  Shard execution runs under
 ``repro_torch.dist.fault.run_with_restarts``: when a worker dies mid-shard

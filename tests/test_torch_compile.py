@@ -154,8 +154,10 @@ def test_use_kernels_false_is_all_interpreted():
     # tune= is ported (tests/test_torch_tune.py): a bad mode is refused,
     # and a good one masks no raise
     ({"tune": "aggressive"}, ValueError, "tune"),
-    ({"tune": "cached", "mesh": "auto"}, NotImplementedError, "A16"),
-    ({"mesh": "auto"}, NotImplementedError, "A16"),
+    # mesh= is ported (tests/test_torch_mesh_serve.py): it excludes
+    # device=, and anything but a Mesh or "auto" is refused
+    ({"tune": "cached", "mesh": "auto"}, ValueError, "mesh= / device="),
+    ({"mesh": object()}, TypeError, "Mesh"),
     ({"interpret": True}, ValueError, "interpret"),
 ])
 def test_unported_flags_raise(kw, exc, item):

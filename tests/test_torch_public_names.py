@@ -11,7 +11,9 @@ bits.
   * ``serve.engine.percentile_ms`` is the reference's nearest rank;
   * ``models.ModelConfig``, ``models.api``, ``core.lowering``'s
     ``select_accumulator``, and ``kernels.flash_attention`` bound to the
-    function, as ``repro.kernels`` binds it.
+    function, as ``repro.kernels`` binds it;
+  * ``dist``'s sharding rules, meshes and collectives and
+    ``launch.mesh``'s mesh builders (A16).
 """
 import importlib
 
@@ -39,6 +41,18 @@ NAMES = {
     "repro_torch.models": ("ModelConfig", "api"),
     "repro_torch.core.lowering": ("select_accumulator",),
     "repro_torch.kernels": ("flash_attention",),
+    # multi-device (A16): the sharding rules, meshes and collectives
+    "repro_torch.dist.sharding": ("param_pspecs", "batch_pspecs", "cache_pspecs",
+                                  "data_axis_size", "to_shardings", "P",
+                                  "_leaf_name", "_model_dim_for", "_data_axes",
+                                  "_FSDP_MIN_SIZE", "_ROW_PARALLEL"),
+    "repro_torch.dist": ("collectives", "fault", "sharding", "batch_pspecs",
+                         "cache_pspecs", "data_axis_size", "param_pspecs",
+                         "to_shardings"),
+    "repro_torch.dist.fault": ("elastic_mesh", "Watchdog", "RestartPolicy",
+                               "run_with_restarts"),
+    "repro_torch.dist.collectives": ("ef_compress", "quantized_psum"),
+    "repro_torch.launch.mesh": ("make_production_mesh", "make_host_mesh"),
 }
 
 

@@ -132,12 +132,14 @@ def test_metric_names_match_the_reference():
             "serve_deadline_misses_total"} <= names
 
 
-# tune= is ported (tests/test_torch_tune.py) and masks no raise
+# tune= and mesh= are ported (tests/test_torch_tune.py,
+# tests/test_torch_mesh_serve.py); a mesh that is no Mesh is refused, and
+# tune= masks no raise
 @pytest.mark.parametrize("kw,item", [({"tune": "cached", "mesh": object()},
-                                      "A16"),
-                                     ({"mesh": object()}, "A16")])
+                                      "Mesh"),
+                                     ({"mesh": object()}, "Mesh")])
 def test_unported_engine_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(TypeError, match=item):
         _engine(**kw)
 
 

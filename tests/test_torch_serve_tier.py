@@ -673,8 +673,13 @@ def test_watchdog_flags_stragglers_above_the_floor():
 
 
 def test_elastic_mesh_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A16"):
-        fault.elastic_mesh()
+    # ported: CUDA devices by default (raising without CUDA, as
+    # resolve_device does), or the one device named
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fault.elastic_mesh()
+    m = fault.elastic_mesh(device="cpu")
+    assert m.shape == {"data": 1, "model": 1} and m.axis_names == ("data", "model")
 
 
 # ------------------------------------------------------------- launcher
@@ -733,14 +738,19 @@ def test_launcher_metrics_port_serves_and_renders(capsys, tfc):
     assert "serve_requests_completed_total" in printed and "model=TFC-w2a2" in printed
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--mesh"], "A16"), (["--devices", "2"], "A16"),
-    # the tune flags are ported (A15) and mask neither raise
-    (["--mesh", "--tune", "cached"], "A16"),
-    (["--devices", "2", "--tune-cache-dir", "x"], "A16")])
-def test_launcher_unported_flags_raise(flags, item):
-    with pytest.raises(SystemExit, match=item):
-        launcher.main(["--graph", "TFC-w2a2", "--device", "cpu", *flags])
+# the multi-device flags are ported: --mesh over the one device named is
+# the plain plan, --devices N shards each slot over N entries of it; the
+# tune flags (A15) change neither
+@pytest.mark.parametrize("flags,n_devices", [
+    (["--mesh"], 1), (["--devices", "2"], 2),
+    (["--mesh", "--tune", "cached"], 1),
+    (["--devices", "2", "--tune-cache-dir", "x"], 2)])
+def test_launcher_unported_flags_raise(tfc, flags, n_devices):
+    x, ref = tfc
+    out = launcher.main(["--graph", "TFC-w2a2", "--device", "cpu",
+                         "--requests", "20", *flags])
+    np.testing.assert_array_equal(out["results"], ref[:20])
+    assert out["plan_devices"] == n_devices
 
 
 def test_launcher_graph_defaults_to_cuda():
