@@ -8,6 +8,7 @@
     python3 chip_smoke.py --tune            # only the build and phase 10
     python3 chip_smoke.py --families        # only the build and phase 11 (the families)
     python3 chip_smoke.py --mesh            # only the build and phase 12 (multi-device)
+    python3 chip_smoke.py --dryrun          # only the build and phase 13, both meshes
 
 Phases, in order; any failure raises and the script exits non-zero without
 printing a result:
@@ -275,14 +276,33 @@ printing a result:
    the plan-call walls of the 4-entry mesh and the one-device plan (TFC-w1a1
    at 16 rows, the rescaled MobileNet at 8), in 10 turns, with their busy
    time: on one card the shards run one after another, so this is the
-   cost of the split and the merge, not scaling.  Not gated.  On a host
+   cost of the split and the merge, not scaling.  Not gated.  (h) B7 on
+   a DTensor's shards: a fake process group of 4 ranks in this process, a
+   {data 2, model 2} ``cuda`` DeviceMesh, q, k, v whose rank-0 shards (half
+   the rows, half the KV groups, bf16) lie on the card;
+   ``transformer.attend`` launches B7 once, on those shards, and its
+   result's shard equals B7's twin on them by phase 2's rule (the shards
+   need no collective, so the fake group's empty ones change nothing).
+   On a host
    of n cards (``--mesh`` alone, e.g. on four) the same checks run with
    (a) ``elastic_mesh()`` over the n cards and ``mesh="auto"`` spanning
    them, (b)-(d) and (g) over a mesh whose entries cycle over the cards
    (4 distinct cards on four: the walls then show the split across
    cards), (e) on cuda:0's one-entry mesh, and (f) checking first that
    the LM launcher refuses several cards (A16b), then with ``--device
-   cuda:0``.
+   cuda:0``;
+13. the multi-pod dry-run (``python -m repro_torch.launch.dryrun``), one
+   child process per arch, as many at once as the host has cores (capped
+   at 8), so no process group outlives it: every (arch x shape) cell of the
+   ten archs traced on meta tensors over a fake process group of 256 ranks
+   (the 16x16 mesh; ``--dryrun``: and of 512, the 2x16x16 one) with a
+   ``cuda`` DeviceMesh; per cell its status, trace time (beside the other
+   children), collective count and bytes per device, per-chip FLOPs and
+   argument / output bytes; it fails on a failed cell or a matrix other
+   than 32 ok and 8 skipped per mesh.  It launches nothing on the card and
+   runs after phase 12, so no timed phase shares the host's cores with it.
+   Both meshes took longer than 300 s in one process, so the default run
+   takes the single-pod mesh and ``--dryrun`` both.
 
 Launch counts are read in windows of their own: phase 3's plans, phase
 4's engines, phases 3' and 4' likewise, each fused plan's own call in
@@ -4659,6 +4679,49 @@ def mesh_lm(torch, np, dev, ops):
           f"{cfg.n_layers} layers x {prefills} prefills", flush=True)
 
 
+def mesh_b7_shards(torch, dev, ops):
+    """Phase 12 (h): B7 on a DTensor's shards on the card, through
+    ``transformer.attend``, over a fake 4-rank group's {data 2, model 2}
+    cuda DeviceMesh (rank 0's shards); the group is destroyed."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Shard
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.dist import sharding as tsh
+    from repro_torch.models import transformer
+
+    (H, KV, hd), B, S = FA_SHAPES["qwen2"], 4, 2048
+    if dist.is_initialized():
+        raise AssertionError("mesh (h): a process group is already initialised")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        dm = DeviceMesh("cuda", torch.arange(4).reshape(2, 2), mesh_dim_names=("data", "model"))
+        sh = tsh.Sharding(dm, (Shard(0), Shard(2)), None)
+        g = torch.Generator(device=dev).manual_seed(11)
+        local = [torch.randn(B // 2, S, h // 2, hd, generator=g, device=dev).to(torch.bfloat16)
+                 for h in (H, KV, KV)]
+        q, k, v = (tsh.placed(t, sh, (B, S, 2 * t.shape[2], hd)) for t in local)
+        before = ops.launch_counts()["flash_attention"]
+        with torch.no_grad():
+            out = transformer.attend(q, k, v, get_smoke_config(LM_ARCH), causal=True)
+        torch.cuda.synchronize()
+        n = ops.launch_counts()["flash_attention"] - before
+        if n != 1 or not isinstance(out, DTensor) or tuple(out.placements) != sh.placements:
+            raise AssertionError(f"mesh (h): {n} B7 launches (want 1), result "
+                                 f"{type(out).__name__} {getattr(out, 'placements', None)}")
+        want = ops.flash_attention_plain(*(t.transpose(1, 2) for t in local),
+                                         causal=True).transpose(1, 2)
+        d, far = _hold_flash_attention(torch, out.to_local(), want, "on a DTensor's shards")
+    finally:
+        dist.destroy_process_group()
+    print(f"mesh (h) B7 on a DTensor's shards: q {tuple(q.shape)} / k, v {tuple(k.shape)} bf16 "
+          f"over {{data 2, model 2}} (rank 0's {tuple(local[0].shape)} / "
+          f"{tuple(local[1].shape)} on {dev}): {n} B7 launch through transformer.attend, "
+          f"max |diff| against the twin {d} ({far} bf16 steps beyond FA_TOL)", flush=True)
+
+
 def mesh_walls(torch, keep, card):
     """Phase 12 (g): one-device and mesh plan-call walls in alternating
     turns, and each call's busy time; recorded, not gated."""
@@ -4691,8 +4754,87 @@ def run_mesh(torch, np, dev, ops):
     mesh_launcher()
     mesh_psum(torch, dev)
     mesh_lm(torch, np, dev, ops)
+    mesh_b7_shards(torch, dev, ops)
     mesh_walls(torch, keep, card_line())
     print(f"mesh: phase 12 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ------------------------------------------------ phase 13: the dry-run
+
+def run_dryrun(meshes: str, timeout: float = 900.0):
+    """Phase 13: ``repro_torch.launch.dryrun --arch <arch> --mesh <meshes>
+    --device-type cuda``, one child process per arch (no process group
+    outlives them), as many at once as the host has cores (at most 8),
+    their records in a fresh directory.  Prints per cell its status,
+    trace time, collective count and bytes (per device), per-chip FLOPs
+    and argument / output bytes; fails on a child's non-zero exit, on
+    any ``failed`` cell, on a matrix other than 32 ok / 8 skipped per
+    mesh, or on an ok record without the three measures."""
+    import json as _json
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.configs import all_archs
+    out = Path(tempfile.mkdtemp(prefix="dryrun_torch_"))
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    pending, running, codes = list(all_archs()), [], {}
+    width = max(1, min(8, len(os.sched_getaffinity(0)), len(pending)))
+    t0 = time.perf_counter()
+    print(f"dryrun: phase 13 (--mesh {meshes}), {len(pending)} archs, {width} at once",
+          flush=True)
+    try:
+        while pending or running:
+            while pending and len(running) < width:
+                arch = pending.pop(0)
+                log = open(out / f"{arch}.log", "w")
+                running.append((arch, log, subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                     "--mesh", meshes, "--device-type", "cuda", "--results-dir", str(out)],
+                    env=env, stdout=log, stderr=subprocess.STDOUT, text=True)))
+            time.sleep(0.5)
+            for item in list(running):
+                arch, log, proc = item
+                if proc.poll() is not None:
+                    codes[arch] = proc.returncode
+                    log.close()
+                    running.remove(item)
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"phase 13: not done after {timeout} s "
+                                     f"({[a for a, _, _ in running]} running)")
+        wall = time.perf_counter() - t0
+        recs = [_json.loads(f.read_text()) for f in sorted(out.glob("*.json"))]
+        tails = {a: (out / f"{a}.log").read_text()[-1500:] for a, c in codes.items() if c}
+    finally:
+        for _, log, proc in running:
+            proc.kill()
+            proc.wait()
+            log.close()
+        shutil.rmtree(out, ignore_errors=True)
+    n = {"ok": 0, "skipped": 0, "failed": 0}
+    for r in recs:
+        n[r["status"]] = n.get(r["status"], 0) + 1
+        if r["status"] != "ok":
+            print(f"dryrun [{r['status']}] {r['arch']} {r['shape']} {r['mesh']}: "
+                  f"{r.get('reason', r.get('error', ''))[:120]}", flush=True)
+            continue
+        c = r["collectives"]
+        by = " ".join(f"{k}={v}" for k, v in c["counts"].items() if v)
+        print(f"dryrun [ok] {r['arch']} {r['shape']} {r['mesh']} {r['total_s']} s: "
+              f"{sum(c['counts'].values())} collectives ({by}), {c['total_bytes']} B per "
+              f"device, {r['cost_analysis']['flops']:.6g} FLOPs per chip, arguments "
+              f"{r['memory_analysis']['argument_size_in_bytes']} B, outputs "
+              f"{r['memory_analysis']['output_size_in_bytes']} B", flush=True)
+    n_mesh = 2 if meshes == "both" else 1
+    print(f"dryrun: phase 13 (--mesh {meshes}) {n['ok']} ok, {n['skipped']} skipped, "
+          f"{n['failed']} failed; {len(codes)} children, {len(tails)} non-zero exits; "
+          f"{wall:.1f} s", flush=True)
+    if tails or n != {"ok": 32 * n_mesh, "skipped": 8 * n_mesh, "failed": 0}:
+        raise AssertionError(f"phase 13: {n} (want {32 * n_mesh} ok, {8 * n_mesh} skipped, "
+                             f"0 failed), non-zero exits {tails}")
+    for r in recs:
+        if r["status"] == "ok" and not {"collectives", "cost_analysis",
+                                        "memory_analysis"} <= set(r):
+            raise AssertionError(f"phase 13: {r['arch']} {r['shape']} lacks a measure")
 
 
 def main() -> int:
@@ -4738,6 +4880,10 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--mesh"]:
         run_mesh(torch, np, dev, ops)
+        print(f"card: {card}")
+        return 0
+    if sys.argv[1:] == ["--dryrun"]:
+        run_dryrun("both", timeout=1000)
         print(f"card: {card}")
         return 0
 
@@ -4855,6 +5001,9 @@ def main() -> int:
     # phase 12: multi-device (A16) over a virtual mesh of the card
     torch.cuda.empty_cache()
     run_mesh(torch, np, dev, ops)
+    # phase 13: the dry-run, after every timed phase (the default run
+    # sweeps the single-pod mesh, --dryrun both)
+    run_dryrun("single")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

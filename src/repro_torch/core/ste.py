@@ -20,7 +20,9 @@ The forward is ``quant`` / ``bipolar_quant`` itself, bit for bit.  The
 backward saves only ``x`` and the scale (not the reference's ``pre`` and
 ``q``, two more copies of every weight) and recomputes ``x / s + z`` and
 its rounding from them: the same operations on the same values, so the
-same bits.
+same bits.  On DTensors (``models/common.py``) the backward runs as
+DTensor ops: ``sum_to_size`` sums the scale's gradient over the shards
+into a partial sum, reduced over the mesh where it is used.
 """
 from __future__ import annotations
 

@@ -137,22 +137,34 @@ class Mesh:
     def __exit__(self, *exc) -> None:
         _ambient.stack.pop()
 
-    def device_mesh(self):
+    def device_mesh(self, device_type: Optional[str] = None):
         """The ``torch.distributed`` DeviceMesh of this mesh's shape and
-        axis names, over the initialised process group (one rank per
-        entry); built once."""
+        axis names over the initialised process group, built once.
+
+        ``device_type`` (``"cpu"`` or ``"cuda"``) is the DeviceMesh's type;
+        it defaults to the entries' own and must be given for a mesh of
+        ``meta`` entries (a dry-run's: ``make_production_mesh(devices=
+        [meta] * 256)`` over a fake process group).  The group needs at
+        least one rank per entry; entry i is rank i, so a mesh smaller
+        than the group is a sub-mesh of its first ranks."""
         import torch.distributed as dist
-        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.device_mesh import DeviceMesh
         if self._device_mesh is None:
-            if not dist.is_initialized() or dist.get_world_size() != self.size:
+            if not dist.is_initialized() or dist.get_world_size() < self.size:
                 have = dist.get_world_size() if dist.is_initialized() else 0
                 raise RuntimeError(
                     f"a DeviceMesh over {self.size} entries needs an initialised "
                     f"process group of {self.size} ranks (have {have}): "
                     f"torch.distributed.init_process_group(...)")
-            self._device_mesh = init_device_mesh(
-                self.device_type, tuple(self.devices.shape),
-                mesh_dim_names=self.axis_names)
+            kind = device_type or self.device_type
+            if kind == "meta":
+                raise ValueError("a mesh of meta entries needs device_type= "
+                                 "('cpu' or 'cuda') for its DeviceMesh")
+            ranks = torch.arange(self.size).reshape(self.devices.shape)
+            self._device_mesh = DeviceMesh(kind, ranks, mesh_dim_names=self.axis_names)
+        elif device_type is not None and self._device_mesh.device_type != device_type:
+            raise ValueError(f"this mesh's DeviceMesh is of type "
+                             f"{self._device_mesh.device_type!r}, not {device_type!r}")
         return self._device_mesh
 
     def __repr__(self) -> str:
@@ -456,15 +468,119 @@ def to_shardings(pspecs, mesh):
     return _tree_map(lambda ps: Sharding(dm, placements(ps, mesh), ps), pspecs)
 
 
+def placed(local, sharding, shape, stride=None):
+    """The DTensor whose shard on this rank is ``local``, of global
+    ``shape`` with ``sharding``'s placements; no communication."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, sharding.device_mesh, list(sharding.placements),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=stride if stride is not None else
+                              torch.empty(shape, device="meta").stride())
+
+
+def local_shape(shape, sharding) -> tuple:
+    """This rank's shard shape of a global ``shape`` under ``sharding``."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    local, _ = compute_local_shape_and_global_offset(
+        tuple(shape), sharding.device_mesh, list(sharding.placements))
+    return tuple(local)
+
+
+def placed_zeros(shape, dtype, sharding, device) -> torch.Tensor:
+    """Zeros of global ``shape``, this rank's shard allocated on
+    ``device`` (``meta`` in a dry-run: shapes only); a plain tensor where
+    ``sharding`` has no DeviceMesh."""
+    if sharding.device_mesh is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return placed(torch.zeros(local_shape(shape, sharding), dtype=dtype, device=device),
+                  sharding, shape)
+
+
+def gather_fsdp(t):
+    """FSDP's all-gather of a parameter at its use: a DTensor's shards
+    over the data axes (every mesh dim not named "model") replicated, its
+    model-axis placement kept.  Its backward reduce-scatters the gradient
+    back to the shards.  A plain tensor or a DTensor without data shards
+    passes as it is.  ``distribute_model`` applies it where a model reads
+    such a parameter."""
+    from torch.distributed.tensor import Replicate, Shard
+    if not _data_sharded(t):
+        return t
+    names = t.device_mesh.mesh_dim_names
+    want = [Replicate() if isinstance(pl, Shard) and names[i] != "model" else pl
+            for i, pl in enumerate(t.placements)]
+    return t.redistribute(t.device_mesh, want)
+
+
+def _data_sharded(t) -> bool:
+    """Whether ``t`` is a DTensor sharded over a data axis (a mesh dim
+    not named "model")."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(t, DTensor):
+        return False
+    names = t.device_mesh.mesh_dim_names or ()
+    return any(isinstance(pl, Shard) and names[i] != "model"
+               for i, pl in enumerate(t.placements))
+
+
+def reduce_partial(t):
+    """A DTensor's pending sums reduced: every ``Partial`` placement made
+    ``Replicate`` (a row-parallel matmul's all-reduce, as GSPMD places it
+    after the matmul, or a vocab-parallel embedding's); anything else as
+    it is.  On a DTensor the backward hands the input the gradient of the
+    result replicated where it was partial (reduced first where it
+    arrives partial itself: DTensor's own backward would rebuild the
+    forward's partial type, which it cannot from another partial type)
+    and contiguous (a gradient gathered from uneven shards is a view of
+    a padded buffer, and a matmul's backward views it flat)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor):
+        return t
+    return _ReducePartial.apply(t)
+
+
+def _replicated_partials(t):
+    from torch.distributed.tensor import Partial, Replicate
+    want = [Replicate() if isinstance(p, Partial) else p for p in t.placements]
+    return t if want == list(t.placements) else t.redistribute(t.device_mesh, want)
+
+
+class _ReducePartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        out = _replicated_partials(t)
+        return out.view_as(out) if out is t else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return contiguous_shards(_replicated_partials(g))
+
+
+def contiguous_shards(t):
+    """A DTensor whose shard on this rank is contiguous (a copy where it is
+    not): DTensor reads contiguity off the global strides, so its
+    ``contiguous()`` leaves a shard that is a view of a padded buffer (a
+    gather of uneven shards) as it is, and a later view of it fails."""
+    local = t.to_local()
+    if local.is_contiguous():
+        return t
+    return placed(local.contiguous(), Sharding(t.device_mesh, tuple(t.placements), None),
+                  t.shape, t.stride())
+
+
 def distribute(tensors, shardings):
     """Tensors (a tree matching ``shardings``) -> DTensors with those
     placements; on a one-entry mesh, the tensors as placed.  Every rank
-    passes the same full tensors."""
+    passes the same full tensors.  A ``meta`` tensor becomes a DTensor of
+    meta shards, built without communication (a dry-run's)."""
     from torch.distributed.tensor import distribute_tensor
 
     def one(t, sh):
         if sh.device_mesh is None:
             return t
+        if t.is_meta:
+            return placed(torch.empty(local_shape(t.shape, sh), dtype=t.dtype,
+                                      device="meta"), sh, t.shape, t.stride())
         return distribute_tensor(t, sh.device_mesh, list(sh.placements))
 
     if isinstance(tensors, torch.nn.Module):
@@ -478,6 +594,54 @@ def distribute(tensors, shardings):
     return one(tensors, shardings)
 
 
+def distribute_model(model: torch.nn.Module, shardings: dict) -> torch.nn.Module:
+    """``model`` with each parameter replaced, in place, by its DTensor
+    under ``shardings`` ({parameter name: Sharding}, ``to_shardings`` of
+    ``param_pspecs(model, mesh)``); ``requires_grad`` is kept.  The
+    models' entry points then run on the DTensors (``models/common.py``).
+
+    The FSDP policy lives here: a parameter sharded over the data axes
+    reads, as its module's attribute, all-gathered over them
+    (``gather_fsdp``, whose backward reduce-scatters the gradient), so
+    the models use it whole on every rank without a call of their own.
+    ``named_parameters()`` and the optimizer see the shards."""
+    for name, dt in distribute(model, shardings).items():
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        old = getattr(mod, leaf)
+        setattr(mod, leaf, torch.nn.Parameter(dt.detach(), requires_grad=old.requires_grad))
+        if _data_sharded(dt):
+            _gather_at_use(mod, leaf)
+    return model
+
+
+class _GatheredAtUse:
+    """Mixed into a module's class by ``distribute_model``: the attribute
+    of an FSDP-sharded parameter reads all-gathered (``gather_fsdp``).
+    The parameter itself stays registered under its name."""
+
+    def __getattr__(self, name):
+        value = super().__getattr__(name)
+        if name in self.__dict__.get("_gathered_at_use", ()):
+            return gather_fsdp(value)
+        return value
+
+
+_GATHERING_CLASSES: dict = {}
+
+
+def _gather_at_use(mod: torch.nn.Module, leaf: str) -> None:
+    cls = type(mod)
+    if not issubclass(cls, _GatheredAtUse):
+        if cls not in _GATHERING_CLASSES:
+            _GATHERING_CLASSES[cls] = type(cls.__name__, (_GatheredAtUse, cls), {})
+        mod.__class__ = _GATHERING_CLASSES[cls]
+        mod.__dict__["_gathered_at_use"] = set()
+    mod.__dict__["_gathered_at_use"].add(leaf)
+
+
 __all__ = ["Mesh", "P", "Sharding", "batch_pspecs", "cache_pspecs",
-           "current_mesh", "data_axis_size", "distribute", "mesh_argument",
-           "param_pspecs", "placements", "to_shardings"]
+           "current_mesh", "data_axis_size", "distribute", "distribute_model",
+           "contiguous_shards", "gather_fsdp", "reduce_partial",
+           "local_shape", "mesh_argument", "param_pspecs", "placed", "placed_zeros",
+           "placements", "to_shardings"]

@@ -18,7 +18,7 @@ import torch
 from repro_torch.core.executor import resolve_device
 
 from . import encdec, rglru, rwkv6, transformer
-from .common import ModelConfig
+from .common import ModelConfig, dtensor_scope
 
 # the families outside the decoder-only transformer, by module
 FAMILY_MODULES = {"audio": encdec, "ssm": rwkv6, "hybrid": rglru}
@@ -52,6 +52,17 @@ def reference_layout(cfg: ModelConfig) -> dict:
     return _mod(cfg).reference_layout(cfg)
 
 
+def empty_params(cfg: ModelConfig, device=None):
+    """The model with zeroed parameters on ``device`` (CUDA unless given
+    another); on ``meta``, shapes and dtypes only (a dry-run's)."""
+    model_class = {"audio": encdec.EncDec, "ssm": rwkv6.Rwkv6,
+                   "hybrid": rglru.Hybrid}.get(cfg.family)
+    if model_class is None:
+        transformer.check_family(cfg)
+        model_class = transformer.Transformer
+    return model_class(cfg, resolve_device(device))
+
+
 def init_params(generator, cfg: ModelConfig, device=None):
     """Seeded parameters on ``device`` (CUDA unless given another).
     ``generator`` is a ``torch.Generator`` on that device, or an int seed
@@ -69,15 +80,18 @@ def params_from_reference(tree: dict, cfg: ModelConfig, device=None):
 
 
 def forward(params, batch, cfg: ModelConfig):
-    return _mod(cfg).forward(params, batch, cfg)
+    with dtensor_scope(params, batch):
+        return _mod(cfg).forward(params, batch, cfg)
 
 
 def prefill(params, batch, cfg: ModelConfig, cache_len: int):
-    return _mod(cfg).prefill(params, batch, cfg, cache_len)
+    with dtensor_scope(params, batch):
+        return _mod(cfg).prefill(params, batch, cfg, cache_len)
 
 
 def decode_step(params, cache, tokens, cache_index: int, cfg: ModelConfig):
-    return _mod(cfg).decode_step(params, cache, tokens, cache_index, cfg)
+    with dtensor_scope(params, cache, tokens):
+        return _mod(cfg).decode_step(params, cache, tokens, cache_index, cfg)
 
 
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int):
@@ -106,6 +120,42 @@ def shape_applicable(cfg: ModelConfig, shape_name: str) -> Optional[str]:
         return ("full-attention arch: O(S^2) at 524k tokens violates the "
                 "sub-quadratic requirement")
     return None
+
+
+def input_specs(cfg: ModelConfig, shape_name: str) -> dict:
+    """Meta-device stand-ins (shapes and dtypes, no storage) for every
+    model input of a shape cell, as the reference's ShapeDtypeStructs:
+
+    train   -> {"batch": {tokens, labels [, frames | img_embeds]}}
+    prefill -> {"batch": {tokens [, frames | img_embeds]}, "cache_len"}
+    decode  -> {"cache", "tokens" (B, 1), "cache_index" (0-d int32)}
+
+    The vlm's ``cache_len`` is S + n_patches.  The decode cache is the
+    port's: one dict per layer of meta tensors (``init_cache``), where
+    the reference stacks the layers on a leading axis."""
+    sh = SHAPES[shape_name]
+    return specs_for(cfg, sh["kind"], sh["global_batch"], sh["seq_len"])
+
+
+def specs_for(cfg: ModelConfig, kind: str, B: int, S: int) -> dict:
+    """``input_specs`` of a cell of ``kind`` with B rows of S tokens."""
+    meta = lambda shape, dtype=torch.int32: torch.empty(shape, dtype=dtype, device="meta")
+    if kind == "train":
+        spec = {"tokens": meta((B, S)), "labels": meta((B, S))}
+        spec.update(_frontend_specs(cfg, B))
+        return {"batch": spec}
+    if kind == "prefill":
+        spec = {"tokens": meta((B, S))}
+        spec.update(_frontend_specs(cfg, B))
+        return {"batch": spec, "cache_len": S + n_prefix(cfg)}
+    return {"cache": init_cache(cfg, B, S, "meta"), "tokens": meta((B, 1)),
+            "cache_index": meta(())}
+
+
+def _frontend_specs(cfg: ModelConfig, B: int) -> dict:
+    """The modality frontend's stub inputs for B rows, as meta tensors."""
+    return {name: torch.empty((B,) + shape, dtype=cfg.act_dtype, device="meta")
+            for name, shape in frontend_shapes(cfg).items()}
 
 
 def make_batch(generator: torch.Generator, cfg: ModelConfig, batch: int,

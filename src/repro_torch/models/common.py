@@ -20,11 +20,30 @@ The reference's mesh-sharding hooks (``constrain_logits``,
 (``logits_spec``, ``residual_spec``, ``attn_specs``).  A sharding
 constraint is no arithmetic: each hook returns a plain tensor as it is,
 and redistributes a DTensor to the spec's placements (same values).
+
+**DTensors.**  Every family's ``forward``, ``prefill`` and
+``decode_step`` (``models/api.py``) and the train step (``train/loop.py``,
+its backward included) run under ``dtensor_scope``: where a parameter or
+an input is a DTensor, the call runs under DTensor's
+``implicit_replication()``, so the tensors a model builds inside itself
+(the RoPE and sinusoidal tables, masks, ``arange`` positions, the 0-d
+constants of the fake quant) act as replicated on the DTensors' mesh;
+on plain tensors the scope does nothing.  Caches and carried states
+built inside a model are DTensors placed by ``cache_pspecs`` over the
+ambient mesh (``cache_zeros``), and a head split whose model-axis shard
+does not divide the heads replicates that axis first (``reshape``).
+Parameters sharded over the data axes (FSDP) read whole, all-gathered
+by ``dist.sharding.distribute_model``.  Attention, the wkv recurrence,
+the RG-LRU scan and MoE dispatch run on each rank's shards
+(``on_shards``): B7 among them where it applies, but on a dry-run's meta
+shards attention runs ``chunked_attention``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import itertools
 import math
 from dataclasses import dataclass, field
 from typing import Optional
@@ -216,7 +235,7 @@ def _dp_size(dp, m) -> int:
     return size
 
 
-def _is_dtensor(x) -> bool:
+def is_dtensor(x) -> bool:
     if type(x) is torch.Tensor:
         return False
     try:
@@ -226,10 +245,193 @@ def _is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def _leaves(tree):
+    if isinstance(tree, torch.nn.Module):
+        # a model's parameters are DTensors all or none (distribute_model)
+        yield from itertools.islice(tree.parameters(), 1)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+@contextlib.contextmanager
+def dtensor_scope(*trees):
+    """``implicit_replication()`` where any tensor of ``trees`` is a
+    DTensor, so plain tensors built inside the model act as replicated;
+    nothing otherwise.  ``trees``: modules, dicts, lists of tensors."""
+    if not any(is_dtensor(t) for tree in trees for t in _leaves(tree)):
+        yield
+        return
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    if DTensor._op_dispatcher._allow_implicit_replication:
+        yield           # an enclosing scope's; its exit, not ours, ends it
+        return
+    with implicit_replication():
+        yield
+
+
+def reshape(t, *shape):
+    """``t.reshape(*shape)``.  On a DTensor whose shard cannot follow the
+    reshape (a model-axis shard of H·hd features split into heads that
+    the axis does not divide), the mesh dims that shard a dim the reshape
+    changes are replicated first, as GSPMD would gather them; the
+    backward brings the gradient to the result's placements before it
+    reshapes it back (DTensor's own view backward would meet the same
+    split)."""
+    if not is_dtensor(t):
+        return t.reshape(*shape)
+    return _DReshape.apply(t, shape)
+
+
+def _placements_for_reshape(t, shape) -> list:
+    """``t``'s placements, its shards of dims the reshape changes made
+    replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    new = torch.empty(t.shape, device="meta").reshape(*shape).shape
+    pre_new, acc = {}, 1
+    for e, n in enumerate(new):
+        pre_new.setdefault((acc, n), e)
+        acc *= n
+    kept, pre = set(), 1
+    for d, n in enumerate(t.shape):
+        if (pre, n) in pre_new:
+            kept.add(d)
+        pre *= n
+    return [Replicate() if isinstance(pl, Shard) and pl.dim not in kept else pl
+            for pl in t.placements]
+
+
+class _DReshape(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, shape):
+        ctx.in_shape = tuple(t.shape)
+        try:
+            out = t.reshape(*shape)
+        except (RuntimeError, NotImplementedError):
+            out = t.redistribute(t.device_mesh, _placements_for_reshape(t, shape)) \
+                   .reshape(*shape)
+        ctx.out_placements = list(out.placements)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.dist.sharding import contiguous_shards
+        if list(g.placements) != ctx.out_placements:
+            g = g.redistribute(g.device_mesh, ctx.out_placements)
+        return contiguous_shards(g).reshape(*ctx.in_shape), None
+
+
+def on_shards(fn, args: tuple, dims: tuple, out_dims: tuple, heads: int = 1):
+    """``fn(*args)`` computed on each rank's shards where the arguments are
+    DTensors (``local_map``), for functions independent across the batch
+    (or MoE token groups) and across head groups (attention, the wkv
+    recurrence): argument i is sharded over the data axes on its batch
+    dim and over "model" on its head dim (``dims[i]``: (batch dim or
+    None, head dim or None)), output j likewise (``out_dims``).  A dim
+    the axes do not divide (the batch of the first argument that has one,
+    or ``heads``, the coarsest head grouping) is replicated over them.
+    On plain tensors, the call."""
+    if not any(is_dtensor(a) for a in args):
+        return fn(*args)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    dm = next(a for a in args if is_dtensor(a)).device_mesh
+    names = dm.mesh_dim_names or ()
+    data = [i for i, n in enumerate(names) if n != "model"]
+    n_data = math.prod(dm.size(i) for i in data)
+    batch = next(a.shape[d[0]] for a, d in zip(args, dims) if d[0] is not None)
+    split_b = batch % n_data == 0
+    split_h = "model" in names and heads % dm.size(names.index("model")) == 0
+
+    def pl(bdim, hdim):
+        out = []
+        for i, n in enumerate(names):
+            if n == "model":
+                out.append(Shard(hdim) if (split_h and hdim is not None) else Replicate())
+            else:
+                out.append(Shard(bdim) if (split_b and bdim is not None) else Replicate())
+        return tuple(out)
+
+    def local(*shards):
+        # DTensor wraps the shards' gradients as they come: give it
+        # contiguous ones, as it assumes of a local shard it later views
+        out = fn(*(_ContiguousGrad.apply(t) if t.requires_grad else t for t in shards))
+        return tuple(o.contiguous() for o in out) if isinstance(out, tuple) else out.contiguous()
+
+    run = local_map(local, out_placements=tuple(pl(*d) for d in out_dims),
+                    in_placements=tuple(pl(*d) for d in dims), device_mesh=dm,
+                    redistribute_inputs=True)
+    out = run(*args)
+    return out[0] if len(out_dims) == 1 and isinstance(out, (tuple, list)) else out
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, its gradient made contiguous."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def pad_seq(t, before: int, after: int = 0):
+    """``t`` zero-padded on dim 1 (the sequence), as ``F.pad``; a DTensor
+    by concatenating zeros shaped as its slices (placed alike), which
+    every DTensor version shards through."""
+    if not is_dtensor(t):
+        pad = [0, 0] * (t.ndim - 2) + [before, after]
+        return F.pad(t, pad)
+    parts = [t]
+    if before:
+        parts.insert(0, torch.zeros_like(t[:, :1]).expand(-1, before, *t.shape[2:]))
+    if after:
+        parts.append(torch.zeros_like(t[:, :1]).expand(-1, after, *t.shape[2:]))
+    return torch.cat(parts, dim=1)
+
+
+def roll_seq(t, shift: int):
+    """``torch.roll(t, shift, dims=1)``; a DTensor as the concatenation of
+    its two slices (the same values; DTensor has no sharding rule for
+    ``roll`` in every version)."""
+    if not is_dtensor(t):
+        return torch.roll(t, shift, dims=1)
+    shift %= t.shape[1]
+    if not shift:
+        return t
+    return torch.cat([t[:, -shift:], t[:, :-shift]], dim=1)
+
+
+def cache_zeros(shape, dtype, like) -> torch.Tensor:
+    """Zeros for a cache or carried state of ``shape``: on ``like``'s
+    device; where ``like`` is a DTensor, a DTensor over its mesh placed
+    by ``cache_pspecs`` over the ambient mesh (the batch dim over the data
+    axes), its shards allocated where ``like``'s are."""
+    if not is_dtensor(like):
+        return torch.zeros(shape, dtype=dtype, device=like.device)
+    from repro_torch.dist.sharding import Sharding, cache_pspecs, placed_zeros, placements
+    mesh = _ambient_mesh()
+    if mesh is None:
+        raise RuntimeError("a cache for DTensor inputs needs the ambient mesh "
+                           "(with mesh: ...)")
+    spec = cache_pspecs(tuple(shape), mesh)
+    return placed_zeros(tuple(shape), dtype,
+                        Sharding(like.device_mesh, placements(spec, mesh), spec),
+                        like.to_local().device)
+
+
 def _constrain(x, spec):
     """x, redistributed to ``spec``'s placements over the ambient mesh if
     it is a DTensor; a plain tensor (or no spec) as it is."""
-    if spec is None or not _is_dtensor(x):
+    if spec is None or not is_dtensor(x):
         return x
     from repro_torch.dist.sharding import placements
     want = placements(spec, _ambient_mesh(), tuple(x.placements))
@@ -277,8 +479,33 @@ def residual_spec(shape: tuple, cfg: ModelConfig):
 
 
 def constrain_residual(x, cfg: ModelConfig):
-    """The residual stream's sharding constraint (``residual_spec``)."""
-    return _constrain(x, residual_spec(tuple(x.shape), cfg))
+    """The residual stream's sharding constraint (``residual_spec``).  A
+    DTensor stream that spec leaves free is pinned to the layout GSPMD
+    propagates from the reference's Megatron rules: batch over DP, the
+    rest replicated (DTensor's own per-op choices drift from it)."""
+    spec = residual_spec(tuple(x.shape), cfg)
+    if spec is None:
+        return pin_batch(x)
+    return _constrain(x, spec)
+
+
+def pin_batch(x):
+    """A DTensor redistributed to ``batch_spec`` (batch over DP, the rest
+    replicated); a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    return _constrain(x, batch_spec(tuple(x.shape)))
+
+
+def batch_spec(shape: tuple):
+    """Batch over the ambient mesh's DP axes (where they divide it), every
+    other dim replicated; None outside a mesh."""
+    dp, m = _dp_axes()
+    if m is None:
+        return None
+    from repro_torch.dist.sharding import P
+    b_ax = (dp if len(dp) > 1 else dp[0]) if (dp and shape[0] % _dp_size(dp, m) == 0) else None
+    return P(b_ax, *([None] * (len(shape) - 1)))
 
 
 def attn_specs(Sq: int, KV: int, G: int, hd: int, enabled: bool = True) -> dict:
@@ -342,6 +569,11 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     shard:   apply the attention sharding hook (``cfg.shard_activations``).
     Returns (B, Sq, H, hd) in q's dtype.
 
+    On DTensors without the hook's constraints (``shard`` off, or a model
+    axis of 1), each rank computes its own batch rows and KV groups
+    (``on_shards``; groups the model axis does not divide run whole on
+    every rank): attention needs no communication then.
+
     The reference pads k/v to whole chunks and scans every chunk.  A key
     that is masked (padding, past ``kv_len``, or after every query) adds
     ``exp(-1e30 - m) = 0`` to the sums and leaves the running max alone,
@@ -351,12 +583,18 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     B, Sq, H, hd = q.shape
     _, Sk, KV, _ = k.shape
     G = H // KV
+    if is_dtensor(q) and not attn_specs(Sq, KV, G, hd, shard):
+        def local(ql, kl, vl):
+            return chunked_attention(ql, kl, vl, causal=causal, q_offset=q_offset,
+                                     window=window, chunk=chunk, kv_len=kv_len)
+        bh = (0, 2)
+        return on_shards(local, (q, k, v), (bh, bh, bh), (bh,), KV)
     scale = 1.0 / np.sqrt(hd)
     chunk = min(chunk, Sk)
     valid_len = Sk if kv_len is None else int(kv_len)
     dev = q.device
 
-    qg = q.reshape(B, Sq, KV, G, hd).to(torch.float32) * scale
+    qg = reshape(q, B, Sq, KV, G, hd).to(torch.float32) * scale
     qg, k, v = _shard_attn(qg, k, v, Sq, KV, G, shard)
     q_pos = q_offset + torch.arange(Sq, dtype=torch.int32, device=dev)
     last = min(valid_len, Sk)
@@ -387,7 +625,7 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
         acc = acc * corr[..., None] + pv
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]     # (B, KV, G, Sq, hd)
-    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+    out = reshape(out.permute(0, 3, 1, 2, 4), B, Sq, H, hd)
     return out.to(q.dtype)
 
 

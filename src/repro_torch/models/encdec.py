@@ -32,7 +32,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.quantize.layers import qlinear
 from . import transformer
-from .common import ModelConfig, constrain_residual, ffn_apply, ffn_param_shapes, init_, norm, sinusoidal_embedding
+from .common import (ModelConfig, constrain_residual, ffn_apply, ffn_param_shapes, init_, norm,
+                     reshape, sinusoidal_embedding)
 from .transformer import Norm, Params, _param, attn_param_shapes, norm_param_shapes
 
 # decode_step reads its position from a table of this many rows, as the
@@ -162,12 +163,12 @@ def params_from_reference(tree: dict, cfg: ModelConfig, device=None) -> EncDec:
 def _proj(x, p, name: str, cfg: ModelConfig, heads: int):
     """One of q / k / v: (B, S, D) -> (B, S, heads, hd)."""
     y = qlinear(x, getattr(p, f"w{name}"), getattr(p, f"b{name}", None), recipe=cfg.quant)
-    return y.reshape(x.shape[0], x.shape[1], heads, cfg.hd)
+    return reshape(y, x.shape[0], x.shape[1], heads, cfg.hd)
 
 
 def _out(a, p, cfg: ModelConfig):
     B, S = a.shape[:2]
-    return qlinear(a.reshape(B, S, cfg.n_heads * cfg.hd), p.wo, recipe=cfg.quant)
+    return qlinear(reshape(a, B, S, cfg.n_heads * cfg.hd), p.wo, recipe=cfg.quant)
 
 
 def _mha(x, p, cfg: ModelConfig, *, kv=None, causal: bool):
@@ -216,12 +217,12 @@ def _frames(batch: dict, device) -> torch.Tensor:
     if "frames" not in batch:
         raise KeyError("the audio family needs the batch's 'frames' (B, n_frames, "
                        "d_model): the encoder's input embeddings")
-    return torch.as_tensor(batch["frames"], device=device)
+    return transformer.as_input(batch["frames"], device)
 
 
 def encode(params: EncDec, frames, cfg: ModelConfig):
     """frames (B, n_frames, d_model) stub embeddings -> encoder states."""
-    h = torch.as_tensor(frames, device=params.embed.device).to(cfg.act_dtype)
+    h = transformer.as_input(frames, transformer.param_device(params)).to(cfg.act_dtype)
     h = _with_positions(h, h.shape[1], cfg)
     h = _run(_enc_layer, h, params.enc_layers, cfg)
     return norm(h, params.enc_final_norm.weight(), cfg.norm)
@@ -239,7 +240,7 @@ def forward(params: EncDec, batch: dict, cfg: ModelConfig):
     """Training-path logits, differentiable.  batch: frames, tokens.
 
     Returns (logits (B, S, V) float32, aux dict)."""
-    enc_out = encode(params, _frames(batch, params.embed.device), cfg)
+    enc_out = encode(params, _frames(batch, transformer.param_device(params)), cfg)
     logits = decode(params, enc_out, batch["tokens"], cfg)
     return logits, {"moe_aux": torch.zeros((), dtype=torch.float32, device=logits.device),
                     "n_prefix": 0}
@@ -270,7 +271,7 @@ def prefill(params: EncDec, batch: dict, cfg: ModelConfig, cache_len: int):
     decoder prompt, filling the self-attention cache.
 
     Returns (last logits (B, V), cache).  cache_len >= prompt length."""
-    enc_out = encode(params, _frames(batch, params.embed.device), cfg)
+    enc_out = encode(params, _frames(batch, transformer.param_device(params)), cfg)
     h = transformer.token_embedding(params, batch["tokens"], cfg)
     B, S, _ = h.shape
     if S > cache_len:
@@ -282,7 +283,7 @@ def prefill(params: EncDec, batch: dict, cfg: ModelConfig, cache_len: int):
         hn = norm(h, lp.self_norm.weight(), cfg.norm)
         p = lp.self_attn
         q = _proj(hn, p, "q", cfg, cfg.n_heads)
-        sk = torch.zeros((B, cache_len, KV, cfg.hd), dtype=cfg.act_dtype, device=h.device)
+        sk = transformer.new_zeros((B, cache_len, KV, cfg.hd), cfg.act_dtype, like=h)
         sv = torch.zeros_like(sk)
         sk[:, :S] = _proj(hn, p, "k", cfg, KV).to(sk.dtype)
         sv[:, :S] = _proj(hn, p, "v", cfg, KV).to(sv.dtype)

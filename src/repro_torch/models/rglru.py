@@ -45,7 +45,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.quantize.layers import qlinear
 from . import transformer
-from .common import ModelConfig, constrain_residual, ffn_apply, ffn_param_shapes, init_, norm
+from .common import (ModelConfig, constrain_residual, ffn_apply, ffn_param_shapes, init_, norm,
+                     on_shards, pad_seq, reshape, roll_seq)
 from .transformer import Norm, Params, _param, attn_param_shapes, norm_param_shapes
 
 _C = 8.0  # RG-LRU decay sharpness constant
@@ -258,7 +259,9 @@ def rg_lru(x, p, h0=None):
     if h0 is not None:
         first = gated[:, :1] + a[:, :1] * h0.to(torch.float32)[:, None]
         gated = torch.cat([first, gated[:, 1:]], dim=1)
-    _, h = associative_scan(a, gated)
+    # on DTensors each rank scans its own batch rows and channels
+    bw = (0, 2)
+    _, h = on_shards(associative_scan, (a, gated), (bw, bw), (bw, bw), a.shape[2])
     return h.to(x.dtype), h[:, -1]
 
 
@@ -273,7 +276,7 @@ def rec_mix(x, p, cfg: ModelConfig, state=None):
     if state is not None:
         u_ext = torch.cat([state["conv"].to(u.dtype), u], dim=1)
     else:
-        u_ext = F.pad(u, (0, 0, 3, 0))
+        u_ext = pad_seq(u, 3)
     ck = p.conv_k.to(torch.float32)
     L = u_ext.shape[1]
     uc = u_ext[:, 3:L].to(torch.float32) * ck[3]
@@ -295,14 +298,14 @@ def _prefill_window_attn(x, p, cfg: ModelConfig, positions, win: int):
     B, S, _ = x.shape
     q, k, v = transformer.project_qkv(x, p, cfg, positions)
     out = transformer.attend(q, k, v, cfg, causal=True, window=cfg.window)
-    out = qlinear(out.reshape(B, S, -1), p.wo, recipe=cfg.quant)
+    out = qlinear(reshape(out, B, S, -1), p.wo, recipe=cfg.quant)
     ring = {}
     for name, t in (("k", k), ("v", v)):
         if S >= win:
             # t[S - win + i] goes to slot (S - win + i) % win: a roll by (S - win) % win
-            t = torch.roll(t[:, S - win:], (S - win) % win, dims=1)
+            t = roll_seq(t[:, S - win:], (S - win) % win)
         else:
-            t = F.pad(t, (0, 0, 0, 0, 0, win - S))
+            t = pad_seq(t, 0, win - S)
         ring[name] = t.to(cfg.act_dtype)
     return out, ring
 
@@ -324,14 +327,14 @@ def _windowed_decode_attn(x, p, st: dict, slot: int, cache_index: int, cfg: Mode
     # the reference divides by the constant sqrt(hd); under jit XLA takes
     # the product with its float32 reciprocal (ROADMAP C7)
     inv = torch.full((), 1.0 / np.sqrt(hd), dtype=torch.float32, device=x.device)
-    qg = q.reshape(B, 1, KV, H // KV, hd).to(torch.float32) * inv
+    qg = reshape(q, B, 1, KV, H // KV, hd).to(torch.float32) * inv
     s = torch.einsum("bqkgh,bckh->bkgqc", qg, ck.to(torch.float32))
     written = torch.arange(win, device=x.device) < n_valid
     s = torch.where(written, s, torch.full((), -1e30, device=x.device))
     pr = torch.exp(s - s.amax(dim=-1, keepdim=True))
     out = torch.einsum("bkgqc,bckh->bkgqh", pr, cv.to(torch.float32))
     out = out / torch.clamp_min(pr.sum(-1)[..., None], 1e-30)
-    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H * hd).to(x.dtype)
+    out = reshape(out.permute(0, 3, 1, 2, 4), B, S, H * hd).to(x.dtype)
     return qlinear(out, p.wo, recipe=cfg.quant)
 
 
@@ -388,8 +391,11 @@ def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> list:
     return [dict(rec if kind == "rec" else attn) for kind in layer_kinds(cfg)]
 
 
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None) -> list:
-    return [{n: torch.zeros(s, dtype=dt, device=device) for n, (s, dt) in layer.items()}
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None,
+               like=None) -> list:
+    """Zeroed states and rings on ``device``, or beside ``like``
+    (``transformer.new_zeros``)."""
+    return [{n: transformer.new_zeros(s, dt, device, like) for n, (s, dt) in layer.items()}
             for layer in cache_specs(cfg, batch, cache_len)]
 
 
@@ -402,7 +408,7 @@ def prefill(params: Hybrid, batch: dict, cfg: ModelConfig, cache_len: int):
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
     win = min(cache_len, cfg.window) if cfg.window else cache_len
-    cache = init_cache(cfg, B, cache_len, h.device)
+    cache = init_cache(cfg, B, cache_len, h.device, like=h)
     for i, lp in enumerate(params.layers()):
         h = constrain_residual(h, cfg)
         hn = norm(h, lp.pre_norm.weight(), cfg.norm)

@@ -28,9 +28,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.sharding import reduce_partial
 from repro_torch.quantize.layers import qlinear
 from . import transformer
-from .common import ModelConfig, constrain_residual, init_, norm
+from .common import (ModelConfig, constrain_residual, init_, is_dtensor, norm, on_shards, pad_seq,
+                     reshape)
 from .transformer import (Norm, _param, norm_layout, norm_param_shapes, params_layout,
                           put_norm_param, put_param)
 
@@ -150,6 +152,8 @@ def params_from_reference(tree: dict, cfg: ModelConfig, device=None) -> Rwkv6:
 def _token_shift(x, prev=None):
     """x_{t-1} along the sequence; the first step takes the carried
     ``prev`` (B, D), or zeros."""
+    if prev is None and is_dtensor(x):
+        return pad_seq(x, 1)[:, :-1]
     if prev is None:
         return F.pad(x, (0, 0, 1, 0))[:, :-1]
     return torch.cat([prev[:, None].to(x.dtype), x[:, :-1]], dim=1)
@@ -161,7 +165,33 @@ def _lerp(x, xs, mu):
 
 def wkv(r, k, v, w, u, s0):
     """The recurrence over time, float32: r, k, v, w (B, S, H, N), u (H, N),
-    s0 (B, H, N, N).  Returns (out (B, S, H, N), the last state)."""
+    s0 (B, H, N, N).  Returns (out (B, S, H, N), the last state).  On
+    DTensors each rank runs its own batch rows and heads
+    (``common.on_shards``)."""
+    seq = (0, 2)
+    return on_shards(_wkv, (r, k, v, w, u, s0), (seq, seq, seq, seq, (None, 0), (0, 1)),
+                       (seq, (0, 1)), r.shape[2])
+
+
+def _wkv(r, k, v, w, u, s0):
+    if r.is_meta:
+        return _wkv_meta(r, k, v, w, u, s0)
+    return _wkv_loop(r, k, v, w, u, s0)
+
+
+def _wkv_meta(r, k, v, w, u, s0):
+    """The recurrence on meta shards (a dry-run's: shapes, no values): the
+    S identical steps as one step over all S positions at once, the same
+    operations on tensors with a time axis, so each op counted per step
+    counts S times (the readout's S·B·H products of (1, N) by (N, N)) and
+    the time loop costs a trace a few ops, not a few per token."""
+    kv = k[..., :, None] * v[..., None, :]                          # (B, S, H, N, N)
+    state = w[..., :, None] * s0[:, None] + kv                      # each step's state
+    out = torch.einsum("bshn,bshnm->bshm", r, state + u[None, None, :, :, None] * kv)
+    return out, state[:, -1]
+
+
+def _wkv_loop(r, k, v, w, u, s0):
     state, outs = s0, []
     ub = u[None, :, :, None]
     for t in range(r.shape[1]):
@@ -183,17 +213,17 @@ def time_mix(x, p: RwkvLayer, cfg: ModelConfig, state=None):
     v = qlinear(_lerp(x, xs, p.mu_v), p.w_v, recipe=recipe)
     g = qlinear(_lerp(x, xs, p.mu_g), p.w_g, recipe=recipe)
     xw = _lerp(x, xs, p.mu_w).to(torch.float32)
-    omega = p.w0.to(torch.float32) + torch.matmul(
+    omega = p.w0.to(torch.float32) + reduce_partial(torch.matmul(
         torch.tanh(torch.matmul(xw, p.w_lora_a.to(torch.float32))),
-        p.w_lora_b.to(torch.float32))
+        p.w_lora_b.to(torch.float32)))
     w = torch.exp(-torch.exp(torch.clamp(omega, -20.0, 8.0)))       # (B, S, D) in (0, 1)
 
-    f32 = lambda t: t.reshape(B, S, H, N).to(torch.float32)
-    s0 = (torch.zeros((B, H, N, N), dtype=torch.float32, device=x.device)
+    f32 = lambda t: reshape(t, B, S, H, N).to(torch.float32)
+    s0 = (transformer.new_zeros((B, H, N, N), torch.float32, x.device, like=x)
           if state is None else state["wkv"])
-    out, s_last = wkv(f32(r), f32(k), f32(v), w.reshape(B, S, H, N),
+    out, s_last = wkv(f32(r), f32(k), f32(v), reshape(w, B, S, H, N),
                       p.u_bonus.to(torch.float32), s0)
-    out = out.reshape(B, S, D) * F.silu(g.to(torch.float32))
+    out = reshape(out, B, S, D) * F.silu(g.to(torch.float32))
     out = qlinear(out.to(x.dtype), p.w_o, recipe=recipe)
     if state is not None:
         state["tm_shift"].copy_(x[:, -1])
@@ -253,8 +283,10 @@ def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> list:
     return [dict(layer) for _ in range(cfg.n_layers)]
 
 
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None) -> list:
-    return [{n: torch.zeros(s, dtype=dt, device=device) for n, (s, dt) in layer.items()}
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None,
+               like=None) -> list:
+    """Zeroed states on ``device``, or beside ``like`` (``transformer.new_zeros``)."""
+    return [{n: transformer.new_zeros(s, dt, device, like) for n, (s, dt) in layer.items()}
             for layer in cache_specs(cfg, batch, cache_len)]
 
 
@@ -263,7 +295,7 @@ def prefill(params: Rwkv6, batch: dict, cfg: ModelConfig, cache_len: int):
     """Run the prompt, carrying the recurrent state per layer.  Returns
     (last-token logits (B, V), cache)."""
     h = transformer.token_embedding(params, batch["tokens"], cfg)
-    cache = init_cache(cfg, h.shape[0], cache_len, h.device)
+    cache = init_cache(cfg, h.shape[0], cache_len, h.device, like=h)
     for lp, st in zip(params.layers, cache):
         h = block(h, lp, cfg, st)
     return transformer.final_logits(params, h[:, -1:], cfg)[:, -1], cache

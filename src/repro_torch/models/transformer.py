@@ -51,18 +51,24 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.sharding import reduce_partial
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.quantize.layers import qlinear, qlinear_experts, quant_kv
 from .common import (
     ModelConfig,
     apply_rope,
     chunked_attention,
+    cache_zeros,
     constrain_logits,
     constrain_residual,
     ffn_apply,
+    on_shards,
+    pin_batch,
     ffn_param_shapes,
     init_,
+    is_dtensor,
     norm,
+    reshape,
     sinusoidal_embedding,
     softcap,
 )
@@ -331,15 +337,22 @@ def attend(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset: int = 0,
     """Attention of q (B, Sq, H, hd) over k, v (B, Sk, KV, hd), keys valid
     below ``kv_len`` (all by default), each query seeing the last
     ``window`` positions (0: all), routed by ``takes_flash``: B7 on the
-    first Sq keys, or the plain ``chunked_attention``.  Every model's
-    attention call site comes through here (``models/encdec.py`` and
-    ``models/rglru.py`` too)."""
+    first Sq keys, or the plain ``chunked_attention``.  On DTensors B7
+    runs on each rank's batch rows and KV groups (``on_shards``), which
+    need no communication; a meta ``q`` (a dry-run's trace, which
+    computes nothing) takes ``chunked_attention`` with its sharding hook,
+    as the reference's models do.  Every model's attention call site
+    comes through here (``models/encdec.py`` and ``models/rglru.py``
+    too)."""
     Sq = q.shape[1]
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
     differentiated = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
-    if takes_flash(Sq, q_offset, kv_len, differentiated, causal=causal, window=window):
-        return _flash(q, k[:, :Sq], v[:, :Sq])
+    if not q.is_meta and takes_flash(Sq, q_offset, kv_len, differentiated,
+                                     causal=causal, window=window):
+        bh = (0, 2)
+        return on_shards(_flash, (q, k[:, :Sq], v[:, :Sq]), (bh, bh, bh), (bh,),
+                         k.shape[2])
     return chunked_attention(q, k, v, causal=causal, q_offset=q_offset, window=window,
                              chunk=cfg.attn_chunk, kv_len=kv_len,
                              shard=cfg.shard_activations)
@@ -371,7 +384,7 @@ def attention(x, p, cfg: ModelConfig, *, positions, kv_cache=None,
     else:
         kv_len, new_cache = S, None
     out = attend(q, k, v, cfg, causal=True, q_offset=idx, kv_len=kv_len, window=window)
-    return qlinear(out.reshape(B, S, -1), p.wo, recipe=recipe), new_cache
+    return qlinear(reshape(out, B, S, -1), p.wo, recipe=recipe), new_cache
 
 
 def project_qkv(x, p, cfg: ModelConfig, positions):
@@ -380,9 +393,9 @@ def project_qkv(x, p, cfg: ModelConfig, positions):
     recipe = cfg.quant
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = qlinear(x, p.wq, getattr(p, "bq", None), recipe=recipe).reshape(B, S, H, hd)
-    k = qlinear(x, p.wk, getattr(p, "bk", None), recipe=recipe).reshape(B, S, KV, hd)
-    v = qlinear(x, p.wv, getattr(p, "bv", None), recipe=recipe).reshape(B, S, KV, hd)
+    q = reshape(qlinear(x, p.wq, getattr(p, "bq", None), recipe=recipe), B, S, H, hd)
+    k = reshape(qlinear(x, p.wk, getattr(p, "bk", None), recipe=recipe), B, S, KV, hd)
+    v = reshape(qlinear(x, p.wv, getattr(p, "bv", None), recipe=recipe), B, S, KV, hd)
     if cfg.pos == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -413,7 +426,8 @@ def moe_route(xg: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
     """Router over token groups xg (G, Tl, D): (top_w (G, Tl, k)
     normalised, top_i (G, Tl, k), load-balance aux float32)."""
     E, k = cfg.n_experts, cfg.top_k
-    logits = torch.einsum("gtd,de->gte", xg.to(torch.float32), router.to(torch.float32))
+    logits = torch.einsum("gtd,de->gte", xg.to(torch.float32),
+                          router.to(torch.float32))
     probs = torch.softmax(logits, dim=-1)
     top_w, top_i = top_k_lower_index(probs, k)
     top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
@@ -439,7 +453,18 @@ def moe_dispatch(xg: torch.Tensor, top_i: torch.Tensor, cfg: ModelConfig, C: int
     non-accumulating write into zeros gives the reference's
     ``.at[].add(mode="drop")`` values (there a dropped choice adds a
     zero); dropped choices write to one spare row past the buffer's end.
-    Row e·G·C + g·C + pos of ``buf`` is the reference's buf[g, e, pos]."""
+    Row e·G·C + g·C + pos of ``buf`` is the reference's buf[g, e, pos].
+
+    On DTensors each rank dispatches its own groups (``common.on_shards``): buf
+    is then sharded over the data axes on its G·C dim, which keeps row
+    e·G·C + g·C + pos of the global buffer, and ``slot`` holds rows of
+    the rank's shard, which ``moe_combine`` reads on the same rank."""
+    g = ((0, None),) * 2
+    return on_shards(lambda a, b: _dispatch(a, b, cfg, C), (xg, top_i), g,
+                     ((1, None), (0, None), (0, None)))
+
+
+def _dispatch(xg, top_i, cfg: ModelConfig, C: int):
     G, Tl, D = xg.shape
     E, k = cfg.n_experts, cfg.top_k
     flat_e = top_i.reshape(G, Tl * k).long()
@@ -457,6 +482,28 @@ def moe_dispatch(xg: torch.Tensor, top_i: torch.Tensor, cfg: ModelConfig, C: int
     return buf[:rows].view(E, G * C, D), slot, keep
 
 
+def moe_combine(ybuf, slot, keep, top_w, k: int):
+    """Each token's k expert outputs from ybuf (E, G·C, D) at ``slot``,
+    zero where dropped, weighted by top_w (G, Tl, k) and summed in the
+    order j = 0..k-1 from zeros in ybuf's dtype: y (G, Tl, D)."""
+    # the group dim of the first argument decides the split (G, not G·C)
+    return on_shards(lambda sl, ke, tw, yb: _combine(yb, sl, ke, tw, k),
+                     (slot, keep, top_w, ybuf),
+                     ((0, None), (0, None), (0, None), (1, None)), ((0, None),))
+
+
+def _combine(ybuf, slot, keep, top_w, k: int):
+    D = ybuf.shape[-1]
+    G, Tlk = slot.shape
+    yt = ybuf.reshape(-1, D)[slot.reshape(-1)].view(G, Tlk, D)
+    yt = torch.where(keep[..., None], yt, yt.new_zeros(()))
+    yt = (yt * top_w.reshape(G, Tlk, 1).to(ybuf.dtype)).view(G, Tlk // k, k, D)
+    y = torch.zeros((G, Tlk // k, D), dtype=yt.dtype, device=ybuf.device)
+    for j in range(k):
+        y = y + yt[:, :, j]
+    return y
+
+
 def moe_ffn(x, p, cfg: ModelConfig):
     """Fine-grained MoE (DeepSeekMoE-style): shared experts (dense) + top-k
     routed experts with the reference's grouped capacity dispatch.
@@ -470,7 +517,7 @@ def moe_ffn(x, p, cfg: ModelConfig):
     B, S, D = x.shape
     k = cfg.top_k
     G, Tl, C = moe_groups(B, S, cfg)
-    xg = x.reshape(G, Tl, D)
+    xg = reshape(x, G, Tl, D)
     top_w, top_i, aux = moe_route(xg, p.router, cfg)
     buf, slot, keep = moe_dispatch(xg, top_i, cfg, C)
 
@@ -479,17 +526,12 @@ def moe_ffn(x, p, cfg: ModelConfig):
     h = F.silu(g.to(torch.float32)).to(buf.dtype) * u
     ybuf = qlinear_experts(h, p.we_down, recipe)                    # (E, G*C, D)
 
-    yt = ybuf.reshape(-1, D)[slot.reshape(-1)].view(G, Tl * k, D)
-    yt = torch.where(keep[..., None], yt, yt.new_zeros(()))
-    yt = (yt * top_w.reshape(G, Tl * k, 1).to(x.dtype)).view(G, Tl, k, D)
-    y = torch.zeros((G, Tl, D), dtype=yt.dtype, device=x.device)
-    for j in range(k):
-        y = y + yt[:, :, j]
+    y = moe_combine(ybuf, slot, keep, top_w, k)
 
     if cfg.n_shared_experts:
         shared = SimpleNamespace(w_gate=p.ws_gate, w_up=p.ws_up, w_down=p.ws_down)
-        y = y + ffn_apply(x, shared, cfg.replace(ffn="swiglu"), recipe).reshape(G, Tl, D)
-    return y.reshape(B, S, D), aux
+        y = y + reshape(ffn_apply(x, shared, cfg.replace(ffn="swiglu"), recipe), G, Tl, D)
+    return reshape(y, B, S, D), aux
 
 
 # ------------------------------------------------------------------ blocks
@@ -517,7 +559,7 @@ def embed_inputs(params: Transformer, batch: dict, cfg: ModelConfig):
     h = token_embedding(params, batch["tokens"], cfg)
     n_prefix = 0
     if cfg.family == "vlm" and "img_embeds" in batch:
-        img = torch.as_tensor(batch["img_embeds"], device=h.device).to(cfg.act_dtype)
+        img = as_input(batch["img_embeds"], h.device).to(cfg.act_dtype)
         img = qlinear(img, params.img_proj, recipe=cfg.quant)
         h = torch.cat([img, h], dim=1)
         n_prefix = img.shape[1]
@@ -530,14 +572,20 @@ def embed_inputs(params: Transformer, batch: dict, cfg: ModelConfig):
 def token_embedding(params, tokens, cfg: ModelConfig) -> torch.Tensor:
     """The rows of ``params.embed`` for ``tokens`` (B, S), in the
     activation dtype: every LM family's input embedding."""
-    tokens = torch.as_tensor(tokens, device=params.embed.device)
-    return params.embed[tokens.long()].to(cfg.act_dtype)
+    embed = params.embed
+    if is_dtensor(embed):
+        # DTensor's embedding rule gathers a vocab-sharded table's rows
+        # on each rank and sums them over the model axis at once
+        return reduce_partial(F.embedding(as_input(tokens, embed.device).long(),
+                                          embed)).to(cfg.act_dtype)
+    tokens = torch.as_tensor(tokens, device=embed.device)
+    return embed[tokens.long()].to(cfg.act_dtype)
 
 
 def final_logits(params, h, cfg: ModelConfig) -> torch.Tensor:
     """The final norm, the output head (``params.head()``) and the
     softcap over h (B, S, D): every LM family's float32 logits."""
-    h = norm(h, params.final_norm.weight(), cfg.norm)
+    h = norm(pin_batch(h), params.final_norm.weight(), cfg.norm)
     logits = constrain_logits(torch.matmul(h, params.head().to(h.dtype)))
     return softcap(logits, cfg.logits_softcap).to(torch.float32)
 
@@ -578,11 +626,32 @@ def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
             "dtype": cfg.act_dtype}
 
 
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None) -> list:
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None,
+               like=None) -> list:
+    """A zeroed cache on ``device``; with ``like``, where ``like`` is
+    (its DTensors placed by ``cache_pspecs``: ``common.cache_zeros``)."""
     spec = cache_specs(cfg, batch, cache_len)
-    return [{"k": torch.zeros(spec["k"], dtype=spec["dtype"], device=device),
-             "v": torch.zeros(spec["v"], dtype=spec["dtype"], device=device)}
+    return [{n: new_zeros(spec[n], spec["dtype"], device, like) for n in ("k", "v")}
             for _ in range(spec["n_layers"])]
+
+
+def new_zeros(shape, dtype, device=None, like=None) -> torch.Tensor:
+    """``torch.zeros`` on ``device``, or beside ``like`` (``cache_zeros``)."""
+    if like is not None:
+        return cache_zeros(shape, dtype, like)
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def as_input(x, device) -> torch.Tensor:
+    """A batch input as a tensor on ``device``; a DTensor as it is."""
+    return x if is_dtensor(x) else torch.as_tensor(x, device=device)
+
+
+def param_device(params: nn.Module) -> torch.device:
+    """The device of ``params``' tensors (their shards' on DTensors), read
+    off the registered parameters: reading an FSDP-sharded parameter as
+    an attribute all-gathers it (``dist.sharding.distribute_model``)."""
+    return next(params.parameters()).device
 
 
 @torch.no_grad()
@@ -595,7 +664,7 @@ def prefill(params: Transformer, batch: dict, cfg: ModelConfig, cache_len: int):
     h, _ = embed_inputs(params, batch, cfg)
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
-    cache = init_cache(cfg, B, cache_len, h.device)
+    cache = init_cache(cfg, B, cache_len, h.device, like=h)
     for lp, kc in zip(params.layers, cache):
         h, _, _ = block(h, lp, cfg, positions=positions, kv_cache=kc,
                         cache_index=0)

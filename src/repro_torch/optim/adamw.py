@@ -16,6 +16,9 @@ C11).  Every quantity that changes from step to step
 (the step count, lr, the clip factor, the bias corrections) is a device
 tensor, and the update runs as ``torch._foreach_*`` ops over all leaves,
 so a step neither syncs with the host nor branches on a device value.
+On DTensor leaves (tensor-parallel or FSDP shards) the foreach ops run on
+each rank's shards, and each leaf's norm is reduced over the mesh before
+the global norm stacks them.
 """
 from __future__ import annotations
 

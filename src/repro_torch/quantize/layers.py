@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core.quant_ops import max_int
 from repro_torch.core.ste import quant_ste
+from repro_torch.dist.sharding import reduce_partial
 
 from .config import QuantRecipe, TensorQuant
 
@@ -44,7 +45,10 @@ def _dynamic_scale(x: torch.Tensor, tq: TensorQuant, bit_width: torch.Tensor, *,
         axes = tuple(i for i in range(x.ndim) if i not in keep)
         amax = torch.amax(torch.abs(x), dim=axes, keepdim=True)
     else:
-        amax = torch.amax(torch.abs(x))
+        # every dim named: DTensor's backward of a reduction over no named
+        # dim counts the tied maxima on the local shard only (0 / 0 where
+        # the shard holds none)
+        amax = torch.amax(torch.abs(x), dim=tuple(range(x.ndim)))
     bound = max_int(tq.signed, tq.narrow, bit_width)
     eps = torch.full((), 1e-8, dtype=torch.float32, device=x.device)
     return torch.maximum(amax.to(torch.float32), eps) * torch.reciprocal(bound)
@@ -95,7 +99,7 @@ def qlinear_experts(x: torch.Tensor, w: torch.Tensor,
     if recipe is not None and recipe.enabled:
         w = quant_weight_experts(w, recipe.weights)
         x = quant_act_experts(x, recipe.acts)
-    return torch.matmul(x, w.to(x.dtype))
+    return reduce_partial(torch.matmul(x, w.to(x.dtype)))
 
 
 def qlinear(x: torch.Tensor, w: torch.Tensor, b=None,
@@ -103,12 +107,14 @@ def qlinear(x: torch.Tensor, w: torch.Tensor, b=None,
     """Linear layer with QONNX fake-quant at both operands.
 
     x: (..., K); w: (K, N); b: (N,).  The bias is not quantized on its
-    own: per paper §II it inherits s_bias = s_w * s_in.
+    own: per paper §II it inherits s_bias = s_w * s_in.  A row-parallel
+    product's partial sums over DTensors are reduced at once
+    (``reduce_partial``).
     """
     if recipe is not None and recipe.enabled:
         w = quant_weight(w, recipe.weights)
         x = quant_act(x, recipe.acts)
-    y = torch.matmul(x, w.to(x.dtype))
+    y = reduce_partial(torch.matmul(x, w.to(x.dtype)))
     if b is not None:
         y = y + b.to(y.dtype)
     return y
@@ -119,7 +125,7 @@ def qeinsum(spec: str, x, w, recipe: QuantRecipe | None = None):
     if recipe is not None and recipe.enabled:
         w = quant_weight(w, recipe.weights)
         x = quant_act(x, recipe.acts)
-    return torch.einsum(spec, x, w.to(x.dtype))
+    return reduce_partial(torch.einsum(spec, x, w.to(x.dtype)))
 
 
 def quant_kv(k: torch.Tensor, v: torch.Tensor, bits):

@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.core.executor import resolve_device
 from repro_torch.models import api
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, dtensor_scope, is_dtensor
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
 from repro_torch.optim.compress import CompressState, compress_init, compressed_grads
 from repro_torch.optim.schedule import cosine_schedule
@@ -59,13 +59,47 @@ def loss_fn(params, batch, cfg: ModelConfig, hyper: TrainHyper):
     n_prefix = api.n_prefix(cfg)
     if n_prefix:
         logits = logits[:, n_prefix:]
-    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    if is_dtensor(logits):
+        lse, gold = _sharded_lse_gold(logits, batch["labels"])
+    else:
+        labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     nll = (lse - gold).mean()
     zl = hyper.z_loss * torch.square(lse).mean()
     moe = hyper.moe_aux_weight * aux["moe_aux"]
     return nll + zl + moe, {"nll": nll, "z_loss": zl, "moe_aux": aux["moe_aux"]}
+
+
+def _sharded_lse_gold(logits, labels):
+    """logsumexp and the gold logit of vocab-sharded DTensor logits, as
+    the reference computes them for its sharded logits: the max, the sum
+    of exponentials and a masked sum over the vocabulary, each reduced
+    over the model axis (a gather or ``logsumexp`` across the shards would
+    all-gather the logits)."""
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    hit = vocab == labels[..., None].long()
+    gold = torch.sum(torch.where(hit, logits, torch.zeros((), device=logits.device)), dim=-1)
+    return lse, gold
+
+
+def microbatch(v, n: int, i: int):
+    """Microbatch i of n of a batch leaf: rows i·B/n .. (i+1)·B/n of a
+    plain tensor, as the reference's split.  A DTensor sharded on its
+    batch dim keeps each rank's rows on that rank: microbatch i takes the
+    i-th n-th of every rank's rows (rows r·n + i), with no communication.
+    The microbatches then group other rows than the reference's, which
+    changes what depends on a microbatch's rows together: a dynamic
+    per-tensor activation scale, MoE capacity drops and load-balance
+    loss, the last microbatch's reported loss (ROADMAP C23).  Where the
+    loss is a mean of per-row terms, the accumulated gradient is the same
+    sum."""
+    rest = tuple(v.shape[1:])
+    if is_dtensor(v):
+        return v.reshape((v.shape[0] // n, n) + rest)[:, i]
+    return v.reshape((n, v.shape[0] // n) + rest)[i]
 
 
 def init_train_state(rng, cfg: ModelConfig, hyper: TrainHyper, device=None) -> dict:
@@ -146,14 +180,18 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper):
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def train_step(state: dict, batch: dict):
+        # on DTensors, the backward and the update run in the models' scope
+        with dtensor_scope(state["params"], batch):
+            return _step(state, batch)
+
+    def _step(state: dict, batch: dict):
         model = state["params"]
         named = dict(model.named_parameters())
         n = hyper.microbatches
         if n > 1:
             acc = [torch.zeros_like(p, dtype=torch.float32) for p in named.values()]
             for i in range(n):
-                mb = {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))[i]
-                      for k, v in batch.items()}
+                mb = {k: microbatch(v, n, i) for k, v in batch.items()}
                 # the reference's scan reports the last microbatch's loss
                 loss, metrics, g = grads_of(model, named, mb)
                 torch._foreach_add_(acc, list(g.values()))

@@ -52,6 +52,8 @@ def test_importing_every_port_module_leaves_jax_out():
     assert set(TRAINING) <= set(mods)
     # the launch-geometry autotuner
     assert set(TUNING) <= set(mods)
+    # the multi-pod dry-run
+    assert "repro_torch.launch.dryrun" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
