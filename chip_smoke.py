@@ -9,6 +9,7 @@
     python3 chip_smoke.py --families        # only the build and phase 11 (the families)
     python3 chip_smoke.py --mesh            # only the build and phase 12 (multi-device)
     python3 chip_smoke.py --dryrun          # only the build and phase 13, both meshes
+    python3 chip_smoke.py --torchrun        # only the build and phase 14 (the launchers)
 
 Phases, in order; any failure raises and the script exits non-zero without
 printing a result:
@@ -236,8 +237,8 @@ printing a result:
    not whisper's, not the hybrid's ring): whisper-base whole (B=4, 1,500
    frames, prompts of 4 tokens, 64 new), deepseek-moe-16b whole (B=4,
    512, 16), llava-next-34b cut to 24 layers (2,880 patches, B=2, 128,
-   16), rwkv6-7b whole (B=4, 512, 16) and recurrentgemma-2b whole (B=4,
-   3,072-token prompts over its 2,048-slot ring, 16): one
+   16), rwkv6-7b cut to 16 layers (B=4, 512, 16) and recurrentgemma-2b
+   whole (B=4, 3,072-token prompts over its 2,048-slot ring, 16): one
    greedy_generate with B7 launched once per decoder layer and nothing
    else (never in rwkv6 or the hybrid), the prefill's wall, busy share
    and device launches (torch.profiler), the decode step's wall, launches
@@ -289,7 +290,7 @@ printing a result:
    them, (b)-(d) and (g) over a mesh whose entries cycle over the cards
    (4 distinct cards on four: the walls then show the split across
    cards), (e) on cuda:0's one-entry mesh, and (f) checking first that
-   the LM launcher refuses several cards (A16b), then with ``--device
+   the LM launcher refuses several cards without torchrun, then with ``--device
    cuda:0``;
 13. the multi-pod dry-run (``python -m repro_torch.launch.dryrun``), one
    child process per arch, as many at once as the host has cores (capped
@@ -303,6 +304,25 @@ printing a result:
    runs after phase 12, so no timed phase shares the host's cores with it.
    Both meshes took longer than 300 s in one process, so the default run
    takes the single-pod mesh and ``--dryrun`` both.
+14. both LM launchers under torchrun (``python -m torch.distributed.run
+   --standalone --nproc-per-node 1``: NCCL on ``cuda:0``, world size 1,
+   where nothing is distributed, so this drives the process layer on
+   plain tensors), each child's summary line carrying its launch counts:
+   (a) ``launch.train`` at qwen2-1.5B's full width with its defaults
+   (16 x 128, W8A8, remat) for 2 steps with a checkpoint at step 2, then
+   ``--steps 3`` resumed from it; each step's loss and the state after
+   step 3 (the child's checkpoint, leaf by leaf by CRC-32 and size)
+   bit-equal to ``launch.train.main(['--device', 'cuda', '--steps',
+   '3'])`` in this process (the same kernels in the same order at world
+   size 1; its state is kept in memory, not written), no kernel
+   launched; (b) ``launch.serve`` at full width (W8A8, 8-bit KV), 8
+   requests x 16 new tokens: tokens equal to the one-process launcher's,
+   B7 28 times a prefill in the child; (c) the
+   walls of each child and of the one-process runs, with the card's name
+   and power limit: the serve child runs beside the first train child,
+   the one-process serve launcher beside the resumed one (never two QAT
+   runs at once: each peaks at ~53 GiB).  A child that fails, outlives
+   its 300 s or prints no counts fails the phase, and kills the others.
 
 Launch counts are read in windows of their own: phase 3's plans, phase
 4's engines, phases 3' and 4' likewise, each fused plan's own call in
@@ -310,7 +330,8 @@ Launch counts are read in windows of their own: phase 3's plans, phase
 6 (a) and (b), phase 9 (b)'s steps (where no kernel may launch), phase
 11 (b)'s generation, prefill and decode steps and (c)'s steps, and
 phase 10's tuned plans (the search's own timing launches the wrappers
-too, before those windows);
+too, before those windows), and phase 14's children (each its own
+process's counts) and the one-process serve launcher;
 every kernel of each window's path must have launched in it.  Phases 3
 to 5 call their plans eagerly (``jit=False``), as the
 counts and profiles there need; the engines of phases 4 and 4' serve
@@ -3864,12 +3885,14 @@ FAMILY_ARCHS = ("llava-next-34b", "deepseek-moe-16b", "moonshot-v1-16b-a3b", "wh
 FAM_TIGHT = 1e-5               # the CPU tests' float32 bound (tests/torch_lm_parity.py)
 # (b): the served models at published width and their cuts (PERF.md section 4):
 # arch -> (layers kept or None for all, B, prompt tokens, new tokens).
+# rwkv6 keeps 16 of its 32 layers: its prefill's ~4,100 launches a layer
+# make it the phase's longest model, and the default run's limit is tight
 # recurrentgemma's 3,072-token prompts overrun its 2,048-slot ring: the
 # prefill rolls it and every decode step wraps it
 FAM_SERVE = {"whisper-base": (None, 4, 4, 64),
              "deepseek-moe-16b": (None, 4, 512, 16),
              "llava-next-34b": (24, 2, 128, 16),
-             "rwkv6-7b": (None, 4, 512, 16),
+             "rwkv6-7b": (16, 4, 512, 16),
              "recurrentgemma-2b": (None, 4, 3072, 16)}
 # (c): depth kept for one QAT step.  The train state is 16 bytes a
 # parameter, but AdamW's _foreach temporaries and the gradients take the
@@ -4088,19 +4111,26 @@ def _busy_ms(torch, run, label, top=6):
     device kernel launches), the largest kernels printed.  Device activity only: rwkv6-7b's prefill issues ~132,000
     launches, whose host-side events took the profiler 89 s to gather
     against 25 s without them, at the same device time (H100 80GB HBM3,
-    700 W)."""
+    700 W).  A profile that recorded no device time is taken again, up to
+    three in all (one default run on the card lost a profile of phase 12
+    (g) so), and the call fails if none recorded any."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA"):
-            t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-            by_name[e.key] = (t / 1e3, e.count)
-    busy = sum(t for t, _ in by_name.values())
-    if not busy > 0.0:
-        raise AssertionError(f"profile[{label}]: the profiler recorded no device time")
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.key_averages():
+            if str(e.device_type).endswith("CUDA"):
+                t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+                by_name[e.key] = (t / 1e3, e.count)
+        busy = sum(t for t, _ in by_name.values())
+        if busy > 0.0:
+            break
+        print(f"profile[{label}]: no device time recorded; profiling again", flush=True)
+    else:
+        raise AssertionError(f"profile[{label}]: the profiler recorded no device time "
+                             f"in 3 profiles")
     for key, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"profile[{label}]:   {t:.3f} ms in {n} launches  {key[:90]}", flush=True)
     return busy, sum(n for _, n in by_name.values())
@@ -4644,14 +4674,14 @@ def mesh_lm(torch, np, dev, ops):
     flags = ["--arch", LM_ARCH, "--smoke", "--requests", str(n_req), "--max-new-tokens",
              str(new)]
     if torch.cuda.device_count() > 1:
-        # an LM mesh of several cards needs one process per card (A16b)
+        # an LM mesh of several cards needs one process per card: torchrun
         try:
             launcher.main(flags)
-        except NotImplementedError as e:
-            if "A16b" not in str(e):
+        except RuntimeError as e:
+            if "torchrun" not in str(e):
                 raise
-            print(f"mesh (f) LM launcher on {torch.cuda.device_count()} cards raises "
-                  f"NotImplementedError naming A16b", flush=True)
+            print(f"mesh (f) LM launcher on {torch.cuda.device_count()} cards without "
+                  f"torchrun raises, naming torchrun", flush=True)
         else:
             raise AssertionError("the LM launcher served over several cards in one process")
         flags += ["--device", "cuda:0"]
@@ -4837,6 +4867,253 @@ def run_dryrun(meshes: str, timeout: float = 900.0):
             raise AssertionError(f"phase 13: {r['arch']} {r['shape']} lacks a measure")
 
 
+# ------------------------------------ phase 14: the launchers under torchrun
+
+TORCHRUN_TIMEOUT = 300.0        # seconds, per child
+
+
+class _Child:
+    """``python -m torch.distributed.run --standalone --nproc-per-node 1 -m
+    module flags`` (NCCL on cuda:0), started in a session of its own, its
+    standard error in ``tmp`` and its exit timed by a thread of its own.
+    ``result()`` waits for it, killing it whole past ``TORCHRUN_TIMEOUT``
+    from its start, and returns (the summary of its last stdout line, the
+    child's wall); it fails on a non-zero exit or a summary without launch
+    counts."""
+
+    def __init__(self, module: str, flags: list, tmp: Path):
+        import os
+        import threading
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+        self.what = f"torchrun {module} {flags}"
+        self.log = tmp / f"{module.rsplit('.', 1)[-1]}.err"
+        self.out, self.end = "", None
+        self.t0 = time.perf_counter()
+        with open(self.log, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc-per-node", "1", "-m", module, *flags],
+                env=env, stdout=subprocess.PIPE, stderr=err, text=True, start_new_session=True)
+        self.waiter = threading.Thread(target=self._wait, daemon=True)
+        self.waiter.start()
+
+    def _wait(self):
+        self.out, _ = self.proc.communicate()
+        self.end = time.perf_counter()
+
+    def kill(self):
+        """Kill the child's session if it still runs."""
+        import os
+        import signal
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        self.waiter.join()
+
+    def result(self) -> tuple:
+        self.waiter.join(max(self.t0 + TORCHRUN_TIMEOUT - time.perf_counter(), 0.0))
+        if self.waiter.is_alive():
+            self.kill()
+            raise AssertionError(f"{self.what}: not done after {TORCHRUN_TIMEOUT} s")
+        wall = self.end - self.t0
+        if self.proc.returncode != 0:
+            raise AssertionError(f"{self.what} exited {self.proc.returncode}: "
+                                 f"{self.log.read_text()[-3000:]}")
+        lines = self.out.strip().splitlines()
+        summary = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else {}
+        if "launches" not in summary:
+            raise AssertionError(f"{self.what}: no counts in its last line: "
+                                 f"{self.out[-1000:]}")
+        return summary, wall
+
+
+class _KeepLastSave:
+    """The one-process run's checkpoint manager: a fresh start that writes
+    nothing and keeps the state of its last save, so that state is held
+    against the child's checkpoint in memory (one 18.5 GB write fewer)."""
+    last = None
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def wait(self):
+        pass
+
+    def latest_step(self):
+        return None
+
+    def save(self, step, state, extra=None):
+        type(self).last = (step, state)
+
+
+class _Crc32:
+    """A write-only file that keeps the CRC-32 and size of what it is given."""
+
+    def __init__(self):
+        self.crc, self.size = 0, 0
+
+    def write(self, data):
+        import zlib
+        self.crc = zlib.crc32(data, self.crc)
+        self.size += len(data)
+
+
+def _bit_equal_to(state, path: Path) -> int:
+    """Hold every leaf of ``state``, serialized as the checkpoint writes it
+    (``np.savez``'s .npy member), against the checkpoint ``path``'s members
+    by CRC-32 and size, from its zip directory (reading the 18.5 GB back
+    would cost more than writing it); returns the leaf count."""
+    import zipfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from repro_torch.ckpt.manager import _flatten, _host
+    with zipfile.ZipFile(path) as z:
+        saved = {i.filename[:-len(".npy")]: (i.CRC, i.file_size) for i in z.infolist()}
+    leaves = _flatten(state)
+    if set(leaves) != set(saved):
+        raise AssertionError(f"checkpoint holds other leaves: "
+                             f"{sorted(set(leaves) ^ set(saved))[:5]}")
+
+    def crc_of(k):
+        crc = _Crc32()
+        np.lib.format.write_array(crc, _host(leaves[k]))
+        return k, (crc.crc, crc.size)
+
+    # four leaves at a time: the copies and zlib's CRC release the GIL
+    with ThreadPoolExecutor(4) as pool:
+        differ = [k for k, got in pool.map(crc_of, leaves) if got != saved[k]]
+    if differ:
+        raise AssertionError(f"{len(differ)} of {len(leaves)} leaves differ from one "
+                             f"process's: {differ[:5]}")
+    return len(leaves)
+
+
+def torchrun_runs(torch, ops, tmp: Path) -> tuple:
+    """Phase 14's runs: the serve child beside the first train child, then
+    the resumed train child beside the one-process serve launcher, then
+    the one-process train launcher alone (the card holds a QAT run's ~53
+    GiB and a serving run's few together, never two QAT runs).  Returns
+    (the train children's summaries, the one-process train summary and its
+    kept state, the serve child's summary, the one-process serve summary
+    and its B7 count, the walls {what: (wall, the launcher's own
+    seconds)})."""
+    import shutil
+
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
+    tflags = ["--arch", LM_ARCH, "--ckpt-every", "2", "--ckpt-dir", str(tmp / "torchrun")]
+    sflags = ["--arch", LM_ARCH, "--requests", "8", "--max-new-tokens", str(LM_NEW)]
+    torch.cuda.empty_cache()
+    children = []
+    try:
+        children.append(_Child("repro_torch.launch.train", tflags + ["--steps", "2"], tmp))
+        children.append(_Child("repro_torch.launch.serve", sflags, tmp))
+        first, w1 = children[0].result()
+        children.append(_Child("repro_torch.launch.train", tflags + ["--steps", "3"], tmp))
+        child, w_child = children[1].result()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        one_serve = serve_launcher.main(sflags + ["--device", "cuda"])
+        w_one_serve = time.perf_counter() - t0
+        b7 = ops.launch_counts()["flash_attention"]
+        torch.cuda.empty_cache()
+        second, w2 = children[2].result()
+    finally:
+        for c in children:
+            c.kill()
+    shutil.rmtree(tmp / "torchrun" / f"step_{2:010d}")     # 18.5 GB: keep the disk
+    ops.reset_launch_counts()          # the summary reports this process's counts
+    t0 = time.perf_counter()
+    with mock.patch.object(train_launcher, "CheckpointManager", _KeepLastSave):
+        one = train_launcher.main(tflags + ["--device", "cuda", "--steps", "3"])
+    w_one = time.perf_counter() - t0
+    last_step, state = _KeepLastSave.last
+    _KeepLastSave.last = None
+    walls = {"train torchrun --steps 2 (beside the serve child)": (w1, first["seconds"]),
+             "serve torchrun (beside the first train child)": (w_child, child["seconds"]),
+             "train torchrun --steps 3, resumed (beside the one-process serve launcher)":
+                 (w2, second["seconds"]),
+             "serve one process (beside the resumed train child)":
+                 (w_one_serve, one_serve["seconds"]),
+             "train one process --steps 3 (alone)": (w_one, one["seconds"])}
+    return (first, second), (one, last_step, state), child, (one_serve, b7), walls
+
+
+def torchrun_train(runs: Path, first, second, one, last_step, state) -> None:
+    """Phase 14 (a): the train launcher's defaults (16 x 128, W8A8, remat)
+    at qwen2-1.5B's full width under torchrun (world size 1, NCCL): 2 steps
+    with a checkpoint at step 2, then ``--steps 3`` resumed from it; each
+    step's loss and the state after step 3 against
+    ``launch.train.main(['--device', 'cuda', '--steps', '3'])`` in this
+    process (the cosine schedule's learning rate at steps 1 and 2 is the
+    peak for a total of 2 or 3 steps, so one uninterrupted run of 3 is the
+    same computation)."""
+    if (first["start"], second["start"], first["world_size"], last_step) != (0, 2, 1, 3):
+        raise AssertionError(f"phase 14 (a): starts {first['start']}, {second['start']}, "
+                             f"world size {first['world_size']}, last save {last_step}")
+    got = {int(k): v for r in (first, second) for k, v in r["losses"].items()}
+    want = one["losses"]
+    if got != want:
+        raise AssertionError(f"phase 14 (a): losses {got} against one process {want}")
+    counts = [first["launches"], second["launches"], one["launches"]]
+    if any(sum(c.values()) for c in counts):
+        raise AssertionError(f"phase 14 (a): a kernel launched on the QAT step: {counts}")
+    t1 = time.perf_counter()
+    n_leaves = _bit_equal_to(state, runs / f"step_{3:010d}" / "arrays.npz")
+    w_cmp = time.perf_counter() - t1
+    print(f"torchrun (a) train {LM_ARCH} full width, 16 x 128, W8A8, remat, world size 1 "
+          f"(NCCL), mesh {first['mesh']}: steps 1-2 then resumed from step 2 for step 3, "
+          f"losses {got} bit-equal to one process's; the state after step 3 bit-equal "
+          f"({n_leaves} leaves of the child's checkpoint by CRC-32 and size against one "
+          f"process's state in memory, {w_cmp:.3f} s); launches 0 in every run", flush=True)
+
+
+def torchrun_serve(child, one, b7: int) -> None:
+    """Phase 14 (b): the serve launcher at full width (W8A8, 8-bit KV) under
+    torchrun, 8 requests x 16 new tokens, against the one-process launcher;
+    B7 once per layer in each prefill, counted in the child."""
+    from repro_torch.configs import get_config
+    layers = get_config(LM_ARCH).n_layers
+    prefills = -(-8 // 4)
+    want_b7 = layers * prefills
+    if child["launches"]["flash_attention"] != want_b7 or b7 != want_b7:
+        raise AssertionError(f"phase 14 (b): B7 launched {child['launches']['flash_attention']} "
+                             f"times in the child, {b7} in one process; "
+                             f"want {layers} layers x {prefills} prefills")
+    ref = [r.tolist() for r in one["results"]]
+    moved = [j for j, (a, b) in enumerate(zip(child["results"], ref)) if a != b]
+    if moved or len(child["results"]) != 8:
+        raise AssertionError(f"phase 14 (b): requests {moved} differ from the one-process "
+                             f"launcher's tokens")
+    print(f"torchrun (b) serve {LM_ARCH} full width, W8A8 + 8-bit KV, world size 1 (NCCL), "
+          f"mesh {child['mesh']}: {child['tokens']} tokens of 8 requests equal to the "
+          f"one-process launcher's; B7 {child['launches']['flash_attention']} launches in the "
+          f"child = {layers} layers x {prefills} prefills (one process: {b7})", flush=True)
+
+
+def run_torchrun(torch, ops):
+    """Phase 14: both LM launchers under torchrun against one process."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    card = card_line()
+    tmp = Path(tempfile.mkdtemp(prefix="torchrun_"))
+    try:
+        (first, second), (one, last_step, state), child, (one_serve, b7), walls = \
+            torchrun_runs(torch, ops, tmp)
+        torchrun_train(tmp / "torchrun", first, second, one, last_step, state)
+        del state
+        torch.cuda.empty_cache()
+        torchrun_serve(child, one_serve, b7)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for what, (wall, inner) in walls.items():
+        print(f"torchrun (c) {what}: wall {wall:.3f} s (the launcher's own steps / serving "
+              f"{inner:.3f} s); {card}", flush=True)
+    print(f"torchrun: phase 14 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4884,6 +5161,10 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--dryrun"]:
         run_dryrun("both", timeout=1000)
+        print(f"card: {card}")
+        return 0
+    if sys.argv[1:] == ["--torchrun"]:
+        run_torchrun(torch, ops)
         print(f"card: {card}")
         return 0
 
@@ -5004,6 +5285,9 @@ def main() -> int:
     # phase 13: the dry-run, after every timed phase (the default run
     # sweeps the single-pod mesh, --dryrun both)
     run_dryrun("single")
+    # phase 14: both LM launchers under torchrun (NCCL, world size 1)
+    torch.cuda.empty_cache()
+    run_torchrun(torch, ops)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,17 @@ with "/" between levels: a module's parameters by their dotted names
 (``params/layers.0.attn.wq``), a NamedTuple's fields by name
 (``opt/mu/...``, ``opt/step``).  A bfloat16 leaf is saved widened to
 float32 (numpy has no bfloat16) and narrowed back, exactly, on restore.
-One process writes: the port trains in one process on one device
-(multi-process training is ROADMAP A16b).
+
+Under a process group (the launchers under torchrun) a leaf may be a
+DTensor.  ``save`` gathers each such leaf whole (``full_tensor()``, a
+collective every rank issues) in the calling thread, before any writer
+thread starts, so no collective of the writer interleaves with the train
+step's; rank 0 alone writes, and ``wait`` ends in a barrier of every
+rank, so no rank reads ``latest_step`` before the write is done.
+``restore`` reads the global arrays and copies into each DTensor its own
+shard.  A checkpoint is therefore the same file at any world size, as
+the reference's host arrays are: one written by two ranks restores in
+one process, and the other way round.
 """
 from __future__ import annotations
 
@@ -25,6 +34,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.models.common import is_dtensor
 
 
 def _flatten(tree, prefix: str = "") -> dict:
@@ -46,11 +57,35 @@ def _flatten(tree, prefix: str = "") -> dict:
     return out
 
 
+def _group():
+    """(rank, world size) of the initialised process group, else (0, 1)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole (a collective of every rank), else ``t``."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def _host(t: torch.Tensor) -> np.ndarray:
     t = t.detach()
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.to("cpu", copy=True).numpy()    # a copy: the state changes in place
+
+
+def _shard_of(saved: np.ndarray, t: torch.Tensor) -> np.ndarray:
+    """This rank's part of the global array ``saved`` for the DTensor
+    ``t``, by its placement (the whole array for a plain tensor)."""
+    if not is_dtensor(t) or t.ndim == 0:
+        return saved
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    shape, offset = compute_local_shape_and_global_offset(
+        tuple(t.shape), t.device_mesh, list(t.placements))
+    return saved[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
 
 
 class CheckpointManager:
@@ -68,10 +103,19 @@ class CheckpointManager:
         device-to-host copy happens here, before return (the train step
         updates the state in place); the write blocks unless async_save,
         and a second save waits for the previous one (back-pressure
-        instead of unbounded memory growth)."""
-        host = {k: _host(v) for k, v in _flatten(state).items()}
+        instead of unbounded memory growth).  Under a process group every
+        rank calls it at the same step: each DTensor leaf is gathered
+        here, and rank 0 writes (``extra`` is rank 0's)."""
+        rank, _ = _group()
+        host = {}
+        for k, v in _flatten(state).items():
+            whole = _whole(v)               # one leaf gathered at a time
+            if rank == 0:
+                host[k] = _host(whole)
+        self.wait()
+        if rank != 0:
+            return
         if self.async_save:
-            self.wait()
             self._pending = threading.Thread(
                 target=self._write, args=(step, host, extra or {}), daemon=True)
             self._pending.start()
@@ -79,9 +123,16 @@ class CheckpointManager:
             self._write(step, host, extra or {})
 
     def wait(self):
+        """Wait for the write in flight; under a process group of several
+        ranks, every rank then passes a barrier (so every rank calls it
+        at the same point)."""
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        _, world = _group()
+        if world > 1:
+            import torch.distributed as dist
+            dist.barrier()
 
     def _write(self, step: int, flat: dict, extra: dict):
         final = self.dir / f"step_{step:010d}"
@@ -132,21 +183,26 @@ class CheckpointManager:
     @torch.no_grad()
     def restore(self, step: int, target: Any):
         """Restore into ``target``'s tensors in place (each keeps its
-        device and dtype) and return it.  Raises if the checkpoint lacks a
-        leaf of ``target`` or holds one of another shape."""
+        device and dtype; a DTensor takes its own shard of the saved
+        array) and return it.  Raises if the checkpoint lacks a leaf of
+        ``target`` or holds one of another (global) shape."""
         d = self.dir / f"step_{step:010d}"
-        with np.load(d / "arrays.npz") as z:
-            saved = {k: z[k] for k in z.files}
         flat = _flatten(target)
-        missing = set(flat) - set(saved)
-        if missing:
-            raise ValueError(f"checkpoint step {step} missing leaves: "
-                             f"{sorted(missing)[:5]}...")
-        for k, t in flat.items():
-            if tuple(saved[k].shape) != tuple(t.shape):
-                raise ValueError(f"checkpoint step {step}: leaf {k} has shape "
-                                 f"{saved[k].shape}, the target {tuple(t.shape)}")
-            t.copy_(torch.from_numpy(saved[k]))
+        with np.load(d / "arrays.npz") as z:
+            missing = set(flat) - set(z.files)
+            if missing:
+                raise ValueError(f"checkpoint step {step} missing leaves: "
+                                 f"{sorted(missing)[:5]}...")
+            for k, t in flat.items():
+                saved = z[k]              # one leaf at a time on the host
+                if tuple(saved.shape) != tuple(t.shape):
+                    raise ValueError(f"checkpoint step {step}: leaf {k} has shape "
+                                     f"{saved.shape}, the target {tuple(t.shape)}")
+                local = t.to_local() if is_dtensor(t) else t
+                part = _shard_of(saved, t)
+                if not part.flags.c_contiguous:
+                    part = np.ascontiguousarray(part)
+                local.copy_(torch.from_numpy(part))
         return target
 
     def manifest(self, step: int) -> dict:

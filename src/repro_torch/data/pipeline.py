@@ -1,6 +1,8 @@
 """Deterministic synthetic token pipeline (counterpart of
 ``repro.data.pipeline``; a copy of its numpy stream, the same batches bit
-for bit, plus ``to_device``, which hands a batch to the device).
+for bit, plus ``to_device``, which hands a batch to the device, and
+``place_host_batch``, which lays a data rank's rows into the global batch
+of a mesh).
 
 Requirements it satisfies for the fault-tolerance story:
   * fully deterministic given (seed, step)     -> restart reproduces the
@@ -116,6 +118,32 @@ class SyntheticLMStream:
     def load_state_dict(self, d: dict):
         assert d["seed"] == self.seed, "resuming with a different data seed"
         self.state.step = int(d["step"])
+
+
+def global_batch_at(step: int, n_hosts: int, **stream_kw) -> dict:
+    """The global batch that ``n_hosts`` host streams (``stream_kw``: the
+    ``SyntheticLMStream`` arguments but ``n_hosts`` / ``host_index``) draw
+    at ``step``: each host's rows, concatenated in host (data) order.  A
+    run over a mesh with that many data ranks trains on exactly these
+    rows, so one process fed them computes the same step."""
+    parts = [SyntheticLMStream(n_hosts=n_hosts, host_index=i, **stream_kw).batch_at(step)
+             for i in range(n_hosts)]
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def place_host_batch(batch: dict, mesh) -> dict:
+    """A data rank's rows (tensors on its device) as its part of the
+    global batch over ``mesh``: DTensors of ``data_axis_size(mesh)`` times
+    the rows, laid out by ``batch_pspecs`` (the rows of data coordinate i
+    are block i; the "model" axis replicates them), built without
+    communication.  On a one-entry mesh the batch as it is."""
+    if mesh.size == 1:
+        return batch
+    from repro_torch.dist.sharding import batch_pspecs, data_axis_size, placed, to_shardings
+    n = data_axis_size(mesh)
+    shapes = {k: (v.shape[0] * n,) + tuple(v.shape[1:]) for k, v in batch.items()}
+    shardings = to_shardings(batch_pspecs(shapes, mesh), mesh)
+    return {k: placed(v, shardings[k], shapes[k]) for k, v in batch.items()}
 
 
 def to_device(batch: dict, device) -> dict:

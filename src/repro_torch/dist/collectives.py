@@ -12,7 +12,10 @@ multiplies by the float32 reciprocal instead (ROADMAP C7), and fuses
 ``e - q * scale`` into one rounding; the port computes both the same way.
 
 ``quantized_psum`` compresses locally and all-reduces the compressed
-leaves over a process group (a mesh axis's, or one given).
+leaves over a process group (a mesh axis's, or one given).  The train
+step does not call it: as in the reference, the gradient reduction is
+the DTensors' own and the compression acts on the reduced gradient
+(``optim/compress.py``).
 """
 from __future__ import annotations
 
@@ -23,9 +26,17 @@ _LEVELS = 127.0          # symmetric int8
 
 def _compress_leaf(e: torch.Tensor):
     """e -> (quantized e, residual): quantize-dequantize with a per-leaf
-    symmetric scale; the residual is the exact rounding error."""
+    symmetric scale; the residual is the exact rounding error.  On a
+    DTensor (a sharded gradient) the scale is the whole leaf's: its amax
+    is reduced over the mesh, and the constant is a replicated DTensor;
+    every other step acts on each rank's shard alone."""
+    from repro_torch.models.common import is_dtensor
     e = e.to(torch.float32)
     inv = torch.full((), 1.0 / _LEVELS, dtype=torch.float32, device=e.device)
+    if is_dtensor(e):
+        from torch.distributed.tensor import DTensor, Replicate
+        inv = DTensor.from_local(inv, e.device_mesh, [Replicate()] * e.device_mesh.ndim,
+                                 run_check=False)
     scale = torch.clamp_min(torch.amax(torch.abs(e)), 1e-12) * inv
     q = torch.clamp(torch.round(e / scale), -_LEVELS, _LEVELS)
     # the residual of the exact product, rounded once, as the reference's
@@ -41,9 +52,15 @@ def ef_compress(grads: dict, residual: dict):
     Returns ``(compressed, new_residual)`` with, per leaf,
     ``compressed + new_residual == grad + residual`` within one float32
     rounding of the sum."""
+    from repro_torch.models.common import is_dtensor
     out_g, out_r = {}, {}
     for k, g in grads.items():
-        out_g[k], out_r[k] = _compress_leaf(g.to(torch.float32) + residual[k])
+        r = residual[k]
+        if is_dtensor(g) and is_dtensor(r) and tuple(g.placements) != tuple(r.placements):
+            # a gradient that arrives in another layout (a pending sum):
+            # the residual's, so the new residual keeps its parameter's
+            g = g.redistribute(r.device_mesh, list(r.placements))
+        out_g[k], out_r[k] = _compress_leaf(g.to(torch.float32) + r)
     return out_g, out_r
 
 

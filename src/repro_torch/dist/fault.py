@@ -3,7 +3,8 @@ elastic mesh derivation (counterpart of ``repro.dist.fault``).
 
 All host-side logic, so the same code runs on a laptop and under a
 cluster process launcher.  ``elastic_mesh`` derives a ``Mesh``
-(``dist.sharding``) from the devices present.
+(``dist.sharding``) from the devices present, or from the process
+group's ranks under torchrun.
 """
 from __future__ import annotations
 
@@ -141,16 +142,24 @@ def elastic_mesh(prefer_model: int = 16, device=None):
     """Build a ("data", "model") ``Mesh`` from the devices actually present.
 
     The model axis is the largest divisor of the device count that is
-    <= ``prefer_model``; everything else becomes data parallelism.  The
-    devices are the CUDA devices present (``device=None`` or ``"cuda"``;
-    raising without CUDA, as ``core.executor.resolve_device`` does), or
-    the one named device (``"cpu"``, ``"cuda:1"``): a (1, 1) mesh.  On a
-    one-device host this degenerates to (1, 1), so the same launcher runs
-    everywhere."""
+    <= ``prefer_model``; everything else becomes data parallelism.
+    Without a process group the devices are the CUDA devices present
+    (``device=None`` or ``"cuda"``; raising without CUDA, as
+    ``core.executor.resolve_device`` does), or the one named device
+    (``"cpu"``, ``"cuda:1"``): a (1, 1) mesh.  On a one-device host this
+    degenerates to (1, 1), so the same launcher runs everywhere.
+
+    Under an initialised process group (``launch.mesh.torchrun_group``)
+    the mesh comes from the group instead: one entry per rank, entry i
+    rank i's device (``group_devices``), by the same ``prefer_model``
+    rule."""
     import torch
+    import torch.distributed as dist
 
     from .sharding import Mesh
-    if device is None or str(device) == "cuda":
+    if dist.is_available() and dist.is_initialized():
+        devices = group_devices(device)
+    elif device is None or str(device) == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available; pass device='cpu' for a mesh on the CPU")
@@ -165,3 +174,23 @@ def elastic_mesh(prefer_model: int = 16, device=None):
             break
     return Mesh(np.array(devices, dtype=object).reshape(n // model, model),
                 ("data", "model"))
+
+
+def group_devices(device=None) -> list:
+    """Each rank's device in the initialised process group, in rank order:
+    ``cpu`` for every rank where ``device`` names the CPU, else rank r's
+    ``cuda:(r mod LOCAL_WORLD_SIZE)`` (torchrun numbers a host's ranks
+    together, so that is ``cuda:LOCAL_RANK`` on each host; the local
+    world defaults to the CUDA devices present)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    world = dist.get_world_size()
+    if device is not None and torch.device(device).type == "cpu":
+        return [torch.device("cpu")] * world
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' for a mesh of "
+                           "CPU ranks")
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", torch.cuda.device_count()))
+    return [torch.device("cuda", r % local) for r in range(world)]

@@ -268,6 +268,19 @@ def data_axis_size(mesh) -> int:
     return size
 
 
+def data_index(mesh, rank: int) -> int:
+    """Mesh entry ``rank``'s coordinate over the data axes (every axis not
+    named "model", major to minor): which of the ``data_axis_size(mesh)``
+    row blocks of a batch laid out by ``batch_pspecs`` that rank holds.
+    Entries that differ only in their "model" coordinate share it."""
+    coord = np.unravel_index(rank, mesh.devices.shape)
+    index = 0
+    for axis, c in zip(mesh.axis_names, coord):
+        if axis != "model":
+            index = index * _axis_size(mesh, axis) + int(c)
+    return index
+
+
 def _data_entry(mesh):
     axes = _data_axes(mesh)
     return axes if len(axes) > 1 else axes[0]
@@ -571,7 +584,8 @@ def contiguous_shards(t):
 def distribute(tensors, shardings):
     """Tensors (a tree matching ``shardings``) -> DTensors with those
     placements; on a one-entry mesh, the tensors as placed.  Every rank
-    passes the same full tensors.  A ``meta`` tensor becomes a DTensor of
+    passes the same full tensors and keeps its shard of them, with no
+    communication.  A ``meta`` tensor becomes a DTensor of
     meta shards, built without communication (a dry-run's)."""
     from torch.distributed.tensor import distribute_tensor
 
@@ -581,7 +595,8 @@ def distribute(tensors, shardings):
         if t.is_meta:
             return placed(torch.empty(local_shape(t.shape, sh), dtype=t.dtype,
                                       device="meta"), sh, t.shape, t.stride())
-        return distribute_tensor(t, sh.device_mesh, list(sh.placements))
+        # every rank holds the same tensor: each takes its shard, no scatter
+        return distribute_tensor(t, sh.device_mesh, list(sh.placements), src_data_rank=None)
 
     if isinstance(tensors, torch.nn.Module):
         tensors = dict(tensors.named_parameters())
@@ -641,7 +656,7 @@ def _gather_at_use(mod: torch.nn.Module, leaf: str) -> None:
 
 
 __all__ = ["Mesh", "P", "Sharding", "batch_pspecs", "cache_pspecs",
-           "current_mesh", "data_axis_size", "distribute", "distribute_model",
+           "current_mesh", "data_axis_size", "data_index", "distribute", "distribute_model",
            "contiguous_shards", "gather_fsdp", "reduce_partial",
            "local_shape", "mesh_argument", "param_pspecs", "placed", "placed_zeros",
            "placements", "to_shardings"]

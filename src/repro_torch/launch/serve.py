@@ -63,16 +63,25 @@ Distributed serving (compiled-graph path):
                         count; implies ``--mesh`` (with ``--splitmerge``:
                         one worker per entry)
 
-The LM path runs one process on one device: a mesh of more than one
-entry (``--devices N`` with N > 1, or several GPUs) raises
-``NotImplementedError`` naming ROADMAP A16b (tensor parallelism and FSDP
-need one process per device).
+The LM path runs one process per device.  Under torchrun each rank
+starts the process group (NCCL on ``cuda:LOCAL_RANK``, gloo with
+``--device cpu``) and serves its shards of a mesh of one entry per rank
+(tensor parallelism; with 2-4 ranks a (1, N) mesh); rank 0 prints a JSON
+summary (counts, rate, launch counts, every request's tokens) as its last
+line:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --arch qwen2-1.5b \\
+        --smoke --device cpu --requests 4
+
+Without torchrun a mesh of more than one entry (``--devices N`` with
+N > 1, or several GPUs) raises, naming torchrun.
 
 Everything runs on CUDA unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import time
 
@@ -82,7 +91,9 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.executor import resolve_device
 from repro_torch.dist.fault import elastic_mesh
-from repro_torch.launch.mesh import make_virtual_mesh
+from repro_torch.dist.sharding import distribute_model, param_pspecs, to_shardings
+from repro_torch.kernels.ops import launch_counts
+from repro_torch.launch.mesh import make_virtual_mesh, mesh_rank, torchrun_group
 from repro_torch.models import api
 from repro_torch.quantize.config import FP32, QuantRecipe
 from repro_torch.serve.generation import GenerationEngine, greedy_generate, left_pad
@@ -103,8 +114,12 @@ def graph_mesh(args):
 
 def lm_mesh(args):
     """The LM path's mesh: ``--devices N`` entries, else ``elastic_mesh()``
-    over the devices present (or the one named)."""
+    over the devices present (or the one named), or over the process
+    group's ranks under torchrun."""
     if args.devices:
+        if torch.distributed.is_initialized():
+            raise ValueError("--devices is a mesh of one process; under torchrun the "
+                             "mesh is the process group's")
         return make_virtual_mesh(args.devices, args.device)
     return elastic_mesh(device=args.device)
 
@@ -221,25 +236,33 @@ def serve_graph(args) -> dict:
 
 def serve_lm(args) -> dict:
     """Serve the launcher's traffic under the launcher's mesh; returns the
-    run's counts, rate and results (one int32 token tensor per request, in
-    submission order)."""
+    run's counts, rate, this process's rank, the kernels' launch counts
+    and the results (one int32 token tensor per request, in submission
+    order, on the host).
+
+    Over a mesh of several entries (under torchrun: one rank per entry)
+    each rank holds its shards of the parameters, placed as the dry-run's
+    prefill and decode cells place them (``param_pspecs`` without FSDP),
+    the caches by ``cache_pspecs``; every rank submits the same seeded
+    prompts, so every rank runs the same slots, and each slot's tokens
+    come back whole on every rank (``serve.generation``)."""
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     recipe = (QuantRecipe.w_a(args.wbits, args.abits, kv_cache_bits=args.kv_bits)
               if args.wbits else FP32)
     cfg = cfg.replace(quant=recipe, shard_activations=True)
     mesh = lm_mesh(args)
-    log.info("mesh %s, %s, recipe %s", mesh.shape, cfg.name, recipe.tag())
-    if mesh.size > 1:
-        raise NotImplementedError(
-            f"LM serving over a mesh of {mesh.size} entries {mesh.shape} needs one "
-            f"process per device (ROADMAP A16b: tensor parallelism and FSDP "
-            f"under torchrun); this launcher runs one process on one device")
+    rank = mesh_rank(mesh)
+    log.info("mesh %s, %s, recipe %s (rank %d on %s)", mesh.shape, cfg.name, recipe.tag(),
+             rank, mesh.devices.flat[rank])
     with mesh:
-        return _serve_lm_on(args, cfg, mesh.devices.flat[0])
+        res = _serve_lm_on(args, cfg, mesh, mesh.devices.flat[rank])
+    return dict(res, rank=rank, mesh=mesh.shape, launches=launch_counts())
 
 
-def _serve_lm_on(args, cfg, device) -> dict:
+def _serve_lm_on(args, cfg, mesh, device) -> dict:
     params = api.init_params(0, cfg, device)
+    if mesh.size > 1:
+        distribute_model(params, to_shardings(param_pspecs(params, mesh, fsdp=False), mesh))
     rng = np.random.default_rng(0)
     t0 = time.monotonic()
     prompts = [rng.integers(1, cfg.vocab, size=rng.integers(4, 12))
@@ -316,11 +339,21 @@ def main(argv=None):
                     help="with --metrics-port: keep the endpoint up after "
                          "the run until Ctrl-C")
     args = ap.parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
     if args.graph:
+        logging.basicConfig(level=logging.INFO)
         return serve_graph(args)
-    return serve_lm(args)
+    with torchrun_group(args.device) as rank:
+        logging.basicConfig(level=logging.INFO,
+                            format=f"[rank {rank}] %(levelname)s %(name)s: %(message)s")
+        return serve_lm(args)
+
+
+def _summary(res: dict) -> str:
+    """The LM run's JSON summary line (results as lists of token ids)."""
+    return json.dumps(dict(res, results=[r.tolist() for r in res["results"]]))
 
 
 if __name__ == "__main__":
-    main()
+    out = main()
+    if "rank" in out and out["rank"] == 0:    # the LM path: rank 0 reports
+        print(_summary(out))

@@ -336,10 +336,13 @@ def on_shards(fn, args: tuple, dims: tuple, out_dims: tuple, heads: int = 1):
     None, head dim or None)), output j likewise (``out_dims``).  A dim
     the axes do not divide (the batch of the first argument that has one,
     or ``heads``, the coarsest head grouping) is replicated over them.
+    An argument replicated over a mesh dim that splits an output (the wkv
+    recurrence's bonus ``u``, shared by every batch row) gets a gradient
+    that is a pending sum over that dim: each rank's is its rows' part.
     On plain tensors, the call."""
     if not any(is_dtensor(a) for a in args):
         return fn(*args)
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     dm = next(a for a in args if is_dtensor(a)).device_mesh
     names = dm.mesh_dim_names or ()
@@ -364,9 +367,13 @@ def on_shards(fn, args: tuple, dims: tuple, out_dims: tuple, heads: int = 1):
         out = fn(*(_ContiguousGrad.apply(t) if t.requires_grad else t for t in shards))
         return tuple(o.contiguous() for o in out) if isinstance(out, tuple) else out.contiguous()
 
-    run = local_map(local, out_placements=tuple(pl(*d) for d in out_dims),
-                    in_placements=tuple(pl(*d) for d in dims), device_mesh=dm,
-                    redistribute_inputs=True)
+    out_pl = tuple(pl(*d) for d in out_dims)
+    in_pl = tuple(pl(*d) for d in dims)
+    split = [any(isinstance(o[i], Shard) for o in out_pl) for i in range(len(names))]
+    grad_pl = tuple(tuple(Partial() if split[i] and isinstance(p, Replicate) else p
+                          for i, p in enumerate(ps)) for ps in in_pl)
+    run = local_map(local, out_placements=out_pl, in_placements=in_pl,
+                    in_grad_placements=grad_pl, device_mesh=dm, redistribute_inputs=True)
     out = run(*args)
     return out[0] if len(out_dims) == 1 and isinstance(out, (tuple, list)) else out
 

@@ -1,10 +1,13 @@
 """Error-feedback int8 gradient compression, the paper's Quant op on
 gradients (counterpart of ``repro.optim.compress``).
 
-On a cluster this wraps the data-parallel all-reduce
-(``dist.collectives.quantized_psum``).  On one device it is
-applied to the gradient before the optimizer: the same error-feedback
-math (``dist.collectives.ef_compress``).
+As in the reference, the compression acts on the *reduced* gradient,
+before the optimizer: on one device the gradient itself, over a process
+group the DTensor gradient whose reduction over the data axes the
+DTensors did (FSDP's reduce-scatter), with each leaf's scale its whole
+amax (``dist.collectives.ef_compress``).  No compressed collective runs
+on the train step; ``dist.collectives.quantized_psum`` is the separate
+int8 all-reduce.
 """
 from __future__ import annotations
 

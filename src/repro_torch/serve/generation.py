@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models import api
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, is_dtensor
 
 
 @torch.no_grad()
@@ -33,22 +33,33 @@ def greedy_generate(params, cfg: ModelConfig, batch: dict, n_steps: int,
                     cache_len: Optional[int] = None) -> torch.Tensor:
     """batch: {"tokens": (B, S_prompt) [, "img_embeds" | "frames"]}.
     Returns the generated tokens (B, n_steps), int32, on the parameters'
-    device.  With a vlm image the cache also holds its n_patches prefix
+    device (a plain tensor, whole on every rank, where the parameters are
+    DTensors).  With a vlm image the cache also holds its n_patches prefix
     positions, and decoding starts after them."""
-    dev = params.embed.device
+    dev = next(params.parameters()).device      # a shard's, on DTensors
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
              if k in ("tokens", "img_embeds", "frames")}
     B, S = batch["tokens"].shape
     n_prefix = api.n_prefix(cfg) if "img_embeds" in batch else 0
     cache_len = max(cache_len or 0, S + n_prefix + n_steps)
     logits, cache = api.prefill(params, batch, cfg, cache_len)
-    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    tok = _next_token(logits)
     out = [tok]
     for i in range(n_steps - 1):
         logits, cache = api.decode_step(params, cache, tok, S + n_prefix + i, cfg)
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        tok = _next_token(logits)
         out.append(tok)
     return torch.cat(out, dim=1)
+
+
+def _next_token(logits) -> torch.Tensor:
+    """The argmax token of each row, (B, 1) int32, a plain tensor.  Logits
+    that are a DTensor (batch over the data axes, vocabulary over the
+    model axis) are gathered whole first, so every rank takes the same
+    tokens and ties go to the lower index, as on one process."""
+    if is_dtensor(logits):
+        logits = logits.full_tensor()
+    return torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
 
 
 def left_pad(prompts) -> torch.Tensor:

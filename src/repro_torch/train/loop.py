@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.executor import resolve_device
+from repro_torch.dist.sharding import distribute, distribute_model, param_pspecs, to_shardings
 from repro_torch.models import api
 from repro_torch.models.common import ModelConfig, dtensor_scope, is_dtensor
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
@@ -114,6 +115,26 @@ def init_train_state(rng, cfg: ModelConfig, hyper: TrainHyper, device=None) -> d
     return state
 
 
+def place_train_state(state: dict, mesh) -> dict:
+    """The whole train state placed over ``mesh`` by the reference's
+    launcher rules (``param_pspecs`` with FSDP): the parameters swapped
+    in place for DTensors (``distribute_model``), AdamW's ``mu`` / ``nu``
+    and the compression residual each with its parameter's placement, the
+    step counters replicated.  Every rank passes the same state.  A leaf
+    whose stacking axis the reference's FSDP shards (rwkv6's ``w0``,
+    ROADMAP C21) keeps only its model-axis placement: it is replicated
+    over the data axes.  On a one-entry mesh the state as it is."""
+    if mesh.size == 1:
+        return state
+    shardings = to_shardings(param_pspecs(state, mesh), mesh)
+    distribute_model(state["params"], shardings["params"])
+    out = dict(state)
+    for k in state:
+        if k != "params":
+            out[k] = distribute(state[k], shardings[k])
+    return out
+
+
 def train_state_specs(cfg: ModelConfig, hyper: TrainHyper) -> dict:
     """The train state's leaves as meta-device tensors (shapes and dtypes,
     no storage), keyed as a checkpoint keys them."""
@@ -182,7 +203,11 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper):
     def train_step(state: dict, batch: dict):
         # on DTensors, the backward and the update run in the models' scope
         with dtensor_scope(state["params"], batch):
-            return _step(state, batch)
+            new_state, metrics = _step(state, batch)
+        # the metrics as plain tensors, whole on every rank (a DTensor
+        # metric may hold a pending sum, whose local value is a part)
+        return new_state, {k: v.full_tensor() if is_dtensor(v) else v
+                           for k, v in metrics.items()}
 
     def _step(state: dict, batch: dict):
         model = state["params"]

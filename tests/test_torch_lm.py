@@ -278,13 +278,13 @@ def test_serve_launcher_smoke_on_cpu():
     # (tests/test_torch_serve_tier.py, tests/test_torch_tune.py,
     # tests/test_torch_mesh_serve.py; the LM path takes no tuning and runs
     # under its own elastic mesh, as the reference's); an LM mesh of more
-    # than one entry needs one process per device: ROADMAP A16b
+    # than one entry needs one process per device, under torchrun
     for flag in (["--mesh"], ["--mesh", "--tune", "cached"]):
         out = serve.main(["--smoke", "--device", "cpu", "--requests", "1",
                           "--max-new-tokens", "2"] + flag)
         assert out["requests"] == 1
     for flag in (["--devices", "2"], ["--devices", "2", "--tune-cache-dir", "x"]):
-        with pytest.raises(NotImplementedError, match="A16b"):
+        with pytest.raises(RuntimeError, match="torchrun"):
             serve.main(["--smoke", "--device", "cpu"] + flag)
     out = serve.main(["--arch", "qwen2-1.5b", "--smoke", "--device", "cpu",
                       "--requests", "1", "--max-new-tokens", "2",
