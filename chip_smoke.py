@@ -10,6 +10,7 @@
     python3 chip_smoke.py --mesh            # only the build and phase 12 (multi-device)
     python3 chip_smoke.py --dryrun          # only the build and phase 13, both meshes
     python3 chip_smoke.py --torchrun        # only the build and phase 14 (the launchers)
+    python3 chip_smoke.py --examples        # only the build and phase 15 (the examples)
 
 Phases, in order; any failure raises and the script exits non-zero without
 printing a result:
@@ -323,6 +324,27 @@ printing a result:
    the one-process serve launcher beside the resumed one (never two QAT
    runs at once: each peaks at ~53 GiB).  A child that fails, outlives
    its 300 s or prints no counts fails the phase, and kills the others.
+15. the four examples of ``examples_torch/``, in this process through their
+   ``main`` and section functions, each call in a launch-count window of
+   its own, against the same calls on the CPU: (a) quickstart and
+   export_zoo (operator outputs, node lists, counts, match flags, the
+   round trip's exactness and CNV-w2a2's output equal; quickstart's
+   float32 MatMul within the order bound; no launch); (b) serve_quantized's ``main`` (B7 once per
+   layer per prefill, B1, B2, B4), then its sections on parameters drawn
+   on the CPU and copied to the card: calibration, one engine slot (B7
+   n_layers times), greedy float and W8A8 + 8-bit KV (B7 2 x n_layers;
+   prefill logits within LM_SMALL_REL_L2, tokens equal), the weight-only
+   matmuls (B1 and B2 once each; relative errors within EX_WEIGHT_ONLY),
+   TFC-w2a2 behind the scheduler (B2 and B4 at warm-up and capture; rows
+   equal to the CPU oracle, census equal); (c) train_qat_lm's ``run``
+   for 3 W4A8 steps from one train state on the CPU and its copy on the
+   card (losses within rel 1e-5, parameters within 1e-5, as phase 9 (a)),
+   then the example at its defaults but ``--steps`` (EX_STEPS W4A8 steps of 16 x 32; the mean loss
+   of the last 20 steps below that of the first 20), EX_STEPS + 20 steps
+   resumed from step EX_STEPS, ``--full --steps 2`` (qwen2-1.5B at published width: finite
+   losses, step wall, peak memory), no launch in any of them, the
+   checkpoints in a temporary directory removed after; each example's
+   wall with the card's name and power limit.
 
 Launch counts are read in windows of their own: phase 3's plans, phase
 4's engines, phases 3' and 4' likewise, each fused plan's own call in
@@ -331,7 +353,8 @@ Launch counts are read in windows of their own: phase 3's plans, phase
 11 (b)'s generation, prefill and decode steps and (c)'s steps, and
 phase 10's tuned plans (the search's own timing launches the wrappers
 too, before those windows), and phase 14's children (each its own
-process's counts) and the one-process serve launcher;
+process's counts) and the one-process serve launcher, and each call of
+phase 15;
 every kernel of each window's path must have launched in it.  Phases 3
 to 5 call their plans eagerly (``jit=False``), as the
 counts and profiles there need; the engines of phases 4 and 4' serve
@@ -3324,35 +3347,45 @@ def _state_to(torch, state, dev):
             "step": state["step"].to(dev, copy=True)}
 
 
+def steps_card_vs_cpu(torch, dev, cfg, hyper, seed, stream, n):
+    """``n`` train steps from one seeded state on the CPU and its copy on
+    ``dev``, over the same batches of ``stream``: for each step the
+    relative differences of loss and grad_norm, and its lr; then each
+    parameter's max abs difference."""
+    from repro_torch.data import to_device
+    from repro_torch.train import loop
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the card would not compute float32 products")
+    cpu = loop.init_train_state(seed, cfg, hyper, "cpu")
+    card = _state_to(torch, cpu, dev)
+    step = loop.make_train_step(cfg, hyper)
+    rels, lrs = [], []
+    for _ in range(n):
+        b = stream.next()
+        cpu, mc = step(cpu, to_device(b, "cpu"))
+        card, md = step(card, to_device(b, dev))
+        rels.append([abs(float(md[k]) / float(mc[k]) - 1) for k in ("loss", "grad_norm")])
+        lrs.append(float(mc["lr"]))
+    diffs = {k: float((a.detach().cpu() - b.detach()).abs().max()) for (k, a), b in
+             zip(card["params"].named_parameters(), cpu["params"].parameters())}
+    return rels, lrs, diffs
+
+
 def train_card_vs_cpu(torch, dev):
     """Phase 9 (a): qwen2's SMOKE config (float32 activations) with the
     FP32 recipe and with W8A8, one seeded state on the CPU and its copy
     on the card, 3 steps each over the same stream: loss and grad_norm
     per step within TRAIN_REL, parameters within TRAIN_ABS."""
     from repro_torch.configs import get_smoke_config
-    from repro_torch.data import SyntheticLMStream, to_device
+    from repro_torch.data import SyntheticLMStream
     from repro_torch.launch import train as launcher
     from repro_torch.quantize.config import FP32, QuantRecipe
-    from repro_torch.train import loop
     _, hyper = launcher.build(launcher.parse(TRAIN_SMALL_ARGS))
-    if torch.backends.cuda.matmul.allow_tf32:
-        raise AssertionError("TF32 matmuls are on: the card would not compute float32 products")
     for recipe in (FP32, QuantRecipe.w_a(8.0, 8.0)):
         cfg = get_smoke_config(LM_ARCH).replace(quant=recipe)
-        cpu = loop.init_train_state(5, cfg, hyper, "cpu")
-        card = _state_to(torch, cpu, dev)
-        step = loop.make_train_step(cfg, hyper)
         stream = SyntheticLMStream(vocab=cfg.vocab, global_batch=4, seq_len=16, seed=1)
-        worst = [0.0, 0.0]
-        for _ in range(3):
-            b = stream.next()
-            cpu, mc = step(cpu, to_device(b, "cpu"))
-            card, md = step(card, to_device(b, dev))
-            for i, key in enumerate(("loss", "grad_norm")):
-                rel = abs(float(md[key]) / float(mc[key]) - 1)
-                worst[i] = max(worst[i], rel)
-        diffs = {k: float((a.detach().cpu() - b.detach()).abs().max()) for (k, a), b in
-                 zip(card["params"].named_parameters(), cpu["params"].parameters())}
+        rels, _, diffs = steps_card_vs_cpu(torch, dev, cfg, hyper, 5, stream, 3)
+        worst = [max(r[i] for r in rels) for i in range(2)]
         dp = max(diffs.values())
         top = sorted(diffs.items(), key=lambda kv: -kv[1])[:4]
         print(f"train (a) [{cfg.name}, {recipe.tag()}, lr {hyper.peak_lr} from step 1] card vs "
@@ -5114,6 +5147,282 @@ def run_torchrun(torch, ops):
     print(f"torchrun: phase 14 in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ------------------------------------------------------ phase 15: the examples
+
+ROOT = Path(__file__).resolve().parent
+EX_WEIGHT_ONLY = 1e-6          # (b): weight-only relative errors, card vs CPU, absolute
+EX_MEAN_STEPS = 20             # (c): steps in each mean of the falling-loss gate
+# (c): the QAT run's steps, cut from the example's 200 so that the default
+# run keeps a margin under its 1200 s on a slow host (1,142 s there with
+# 200); a multiple of the example's --ckpt-every 50, so the rerun resumes
+EX_STEPS = 100
+
+
+def load_file(path: str):
+    """The module in ``path`` (relative to the repo root; the example
+    directories are no packages), loaded once and then taken from
+    ``sys.modules``."""
+    import importlib.util
+    name = "_ex_" + path.replace("/", "_").removesuffix(".py")
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, ROOT / path)
+        sys.modules[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[name])
+    return sys.modules[name]
+
+
+def load_example(name: str):
+    """``examples_torch/<name>.py`` as a module."""
+    return load_file(f"examples_torch/{name}.py")
+
+
+def _windowed(ops, fn, *args):
+    """(``fn(*args)``, the launches of its window, its wall in s): the
+    counts are set to 0 just before the call and read just after it; the
+    wall ends in a sync."""
+    import torch
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, {k: v for k, v in ops.launch_counts().items() if v}, wall
+
+
+def stdout_of(fn, *args):
+    """``fn(*args)`` with its stdout captured: (its lines, its return)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return buf.getvalue().splitlines(), out
+
+
+def _window_is(window, want: dict, what: str) -> None:
+    """Print one window's launches; fail unless they are ``want`` (kernel ->
+    count, or None for at least one launch), and no other kernel."""
+    print(f"launches in {what}: {window}", flush=True)
+    ok = set(window) == set(want) and all(n is None or window[k] == n for k, n in want.items())
+    if not ok:
+        raise AssertionError(f"{what}: launches {window}, want {want} (None: at least one)")
+
+
+def examples_host_tier(torch, np, ops) -> dict:
+    """Phase 15 (a): quickstart and export_zoo run on the card through
+    their ``main``, against the same ``main`` on the CPU in this process:
+    codes, node lists, counts, match flags and the round-trip's exactness
+    equal; quickstart's float32 MatMul within the order bound.  Neither
+    reaches a kernel."""
+    walls = {}
+    qs = load_example("quickstart")
+    got, window, walls["quickstart"] = _windowed(ops, qs.main, ["--device", "cuda"])
+    _window_is(window, {}, "phase 15 (a), quickstart")
+    _, want = stdout_of(qs.main, ["--device", "cpu"])
+    differ = [k for k, v in want["operators"].items()
+              if not np.array_equal(got["operators"][k], v)]
+    differ += [k for k in ("nodes", "cleanup", "qcdq", "qcdq_match", "reingested")
+               if got[k] != want[k]]
+    x, w = (torch.from_numpy(a) for a in want["operands"])
+    ref = torch.from_numpy(want["out"])
+    d, bound = (torch.from_numpy(got["out"]) - ref).abs(), order_bound(x, w, ref)
+    print(f"examples (a) quickstart: card vs CPU, {len(want['operators'])} operator outputs "
+          f"and 5 node lists / flags compared, {differ or 'all equal'}; executor output "
+          f"max |diff| {float(d.max()):.3e} (order bound {float(bound.max()):.3e})", flush=True)
+    if differ or not bool(d.le(bound).all()):
+        raise AssertionError(f"phase 15 (a) quickstart: card differs from CPU ({differ})")
+
+    ez = load_example("export_zoo")
+    got, window, walls["export_zoo"] = _windowed(ops, ez.main, ["--device", "cuda"])
+    _window_is(window, {}, "phase 15 (a), export_zoo")
+    _, want = stdout_of(ez.main, ["--device", "cpu"])
+    keys = ("raw_nodes", "macs", "weights", "weight_bits", "bops", "clean_nodes",
+            "channels_last", "qcdq_match", "bytes", "exact")
+    differ = [k for k in keys if got[k] != want[k]]
+    if not np.array_equal(got["out"], want["out"]):
+        differ.append("out")
+    print(f"examples (a) export_zoo: card vs CPU, {len(keys)} facts and the CNV-w2a2 output "
+          f"compared, {differ or 'all equal'}; matches {got['channels_last']['match']} / "
+          f"{got['qcdq_match']}, exact={got['exact']}; output max |card - CPU| "
+          f"{float(np.abs(got['out'] - want['out']).max()):.3e} (bound 0: the oracle's "
+          f"dyadic sums are exact)", flush=True)
+    if differ or not (got["exact"] and got["qcdq_match"] and got["channels_last"]["match"]):
+        raise AssertionError(f"phase 15 (a) export_zoo: card differs from CPU ({differ})")
+    return walls
+
+
+def examples_serving(torch, np, ops, dev) -> dict:
+    """Phase 15 (b): serve_quantized's ``main`` on the card (its wall and
+    window), then its five sections, each in a window of its own, on
+    parameters drawn on the CPU and copied to the card, against the same
+    sections on the CPU: calibration, the float engine, greedy float /
+    W8A8 + 8-bit KV (prefill logits within LM_SMALL_REL_L2, tokens
+    equal), the weight-only matmuls (B1, B2), TFC-w2a2 behind the
+    scheduler (B2, B4; rows equal to the CPU oracle, phase 4's rule)."""
+    from repro_torch.models import api, zoo
+    sq = load_example("serve_quantized")
+    cfg = sq.lm_config()
+    b7 = "flash_attention"
+    walls = {}
+    _, window, walls["serve_quantized"] = _windowed(ops, sq.main, ["--device", "cuda"])
+    _window_is(window, {b7: 3 * cfg.n_layers, "quant_matmul": None, "quant_matmul_int4": None,
+                        "quant_dequant": None}, "phase 15 (b), serve_quantized main")
+
+    p_cpu = api.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    p_dev = copy.deepcopy(p_cpu).to(dev)
+    samples = [sq.seeded(i, (64,), "cpu", 1.5) for i in range(8)]
+    got, window, _ = _windowed(ops, sq.calibration, [s.to(dev) for s in samples])
+    _window_is(window, {}, "phase 15 (b) step 1")
+    want = sq.calibration(samples)
+    print(f"examples (b) step 1 calibration: card {got}, CPU {want} (mse not gated: its "
+          f"search sums in the device's order)", flush=True)
+    if (got["minmax"], got["pct99.9"]) != (want["minmax"], want["pct99.9"]):
+        raise AssertionError("phase 15 (b) step 1: calibration differs from the CPU's")
+
+    prompts = [np.arange(1, 6 + i) for i in range(4)]
+    got, window, _ = _windowed(ops, sq.float_serving, p_dev, cfg, prompts)
+    _window_is(window, {b7: cfg.n_layers}, "phase 15 (b) step 2 (one prefill)")
+    want = sq.float_serving(p_cpu, cfg, prompts)
+    same = all(np.array_equal(g, w) for g, w in zip(got["results"], want["results"]))
+
+    toks = torch.tensor([[1, 2, 3, 4, 5]], dtype=torch.int32)
+    got_q, window, _ = _windowed(ops, sq.quantized_serving, p_dev, cfg, toks.to(dev))
+    _window_is(window, {b7: 2 * cfg.n_layers}, "phase 15 (b) step 3 (two prefills)")
+    want_q = sq.quantized_serving(p_cpu, cfg, toks)
+    same = same and all(np.array_equal(got_q[k], want_q[k]) for k in ("float", "w8a8"))
+    rels = {}
+    for tag, c in (("float", cfg), ("w8a8kv8", cfg.replace(quant=_lm_recipe()))):
+        lg, _ = api.prefill(p_dev, {"tokens": toks.to(dev)}, c, 13)
+        lc, _ = api.prefill(p_cpu, {"tokens": toks}, c, 13)
+        _spread(torch, lc, f"phase 15 (b) {tag} logits (CPU)")
+        rels[tag] = float((lg.cpu() - lc).norm() / lc.norm())
+    print(f"examples (b) steps 2-3: tokens equal on the card and the CPU: {same}; prefill "
+          f"logits rel-L2 {rels} (bound {LM_SMALL_REL_L2}); agreement "
+          f"{got_q['agreement']:.2f}", flush=True)
+    if not same or max(rels.values()) > LM_SMALL_REL_L2:
+        raise AssertionError("phase 15 (b) steps 2-3: serving on the card differs from the CPU")
+
+    w = sq.up_projection(p_cpu)
+    x = sq.seeded(9, (4, w.shape[0]), "cpu")
+    got, window, _ = _windowed(ops, sq.weight_only, w.to(dev), x.to(dev))
+    _window_is(window, {"quant_matmul": 1, "quant_matmul_int4": 1},
+               "phase 15 (b) step 4 (B1, B2)")
+    want = sq.weight_only(w, x)
+    diff = max(abs(got[k] - want[k]) for k in want)
+    print(f"examples (b) step 4 weight-only rel-err: card {got}, CPU {want}, max |diff| "
+          f"{diff:.3e} (bound {EX_WEIGHT_ONLY})", flush=True)
+    if diff > EX_WEIGHT_ONLY:
+        raise AssertionError("phase 15 (b) step 4: weight-only errors differ from the CPU's")
+
+    rng = np.random.default_rng(0)
+    rows = [rng.standard_normal(784).astype(np.float32) for _ in range(6)]
+    got, window, _ = _windowed(ops, sq.graph_serving, zoo.build_tfc(2, 2), rows, dev)
+    _window_is(window, {"quant_matmul_int4": None, "quant_dequant": None},
+               "phase 15 (b) step 5 (TFC-w2a2's plan: warm-up and capture)")
+    want = sq.graph_serving(zoo.build_tfc(2, 2), rows, "cpu")
+    equal = all(np.array_equal(r, o) for r, o in zip(got["results"], want["oracle"]))
+    print(f"examples (b) step 5: census {got['fused_counts']} (CPU {want['fused_counts']}); "
+          f"rows equal to the CPU oracle: {equal}; maxdiff vs the card's oracle "
+          f"{got['maxdiff']:.2e}; p50 {got['latency_p50_ms']:.3f} ms, p99 "
+          f"{got['latency_p99_ms']:.3f} ms", flush=True)
+    if got["fused_counts"] != want["fused_counts"] or not equal:
+        raise AssertionError("phase 15 (b) step 5: graph serving differs from the CPU")
+    return walls
+
+
+def examples_train_card_vs_cpu(torch, ops, tq) -> None:
+    """Phase 15 (c), first: 3 steps of train_qat_lm's own config and
+    hyperparameters (W4A8, smoke-widened, lr 3e-3 warming up over 20
+    steps) over its stream's 16 x 32 batches, from one state on the CPU
+    and its copy on the card: the 4-bit fake quant and its STE step.
+    Each step's loss and the first step's grad_norm (the same parameters
+    on both) within TRAIN_REL; the parameters within 2·Σ lr, AdamW's
+    reach when a near-zero gradient's sign differs (ROADMAP C12: the
+    card's and the CPU's activation codes part at ties)."""
+    from repro_torch.data import SyntheticLMStream
+    cfg, hyper = tq.build(tq.parse(["--device", "cpu", "--steps", "3"]))
+    stream = SyntheticLMStream(vocab=cfg.vocab, global_batch=16, seq_len=32, seed=0)
+    (rels, lrs, diffs), window, _ = _windowed(ops, steps_card_vs_cpu, torch, "cuda", cfg,
+                                              hyper, 0, stream, 3)
+    _window_is(window, {}, "phase 15 (c), train_qat_lm's 3 steps, card vs CPU")
+    loss_rel, gn_rel, dp = max(r[0] for r in rels), rels[0][1], max(diffs.values())
+    reach = 2 * sum(lrs)
+    print(f"examples (c) train_qat_lm [{cfg.name}, {cfg.quant.tag()}, 16 x 32, lr {lrs}] card "
+          f"vs CPU over 3 steps: loss rel {[f'{r[0]:.3e}' for r in rels]} (bound {TRAIN_REL}), "
+          f"step-1 grad_norm rel {gn_rel:.3e} (bound {TRAIN_REL}; later steps "
+          f"{[f'{r[1]:.3e}' for r in rels[1:]]}), parameters max abs {dp:.3e} (bound "
+          f"{reach:.3e})", flush=True)
+    if cfg.quant.tag() != "w4a8" or loss_rel > TRAIN_REL or gn_rel > TRAIN_REL or dp > reach:
+        raise AssertionError("phase 15 (c): the W4A8 QAT steps on the card differ from the CPU")
+
+
+def examples_training(torch, ops) -> dict:
+    """Phase 15 (c): train_qat_lm's first 3 steps on the card against the
+    CPU; then the example at its defaults (16 x 32, W4A8,
+    smoke-widened) but EX_STEPS steps, then EX_STEPS + 20 resumed from
+    step EX_STEPS, then
+    ``--full --steps 2`` (qwen2-1.5B at published width); no kernel in any
+    window; the checkpoints in a temporary directory removed after."""
+    import tempfile
+    tq = load_example("train_qat_lm")
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        examples_train_card_vs_cpu(torch, ops, tq)
+        smoke = ["--device", "cuda", "--ckpt-dir", str(Path(tmp) / "smoke")]
+        out, window, walls[f"train_qat_lm --steps {EX_STEPS}"] = _windowed(
+            ops, tq.main, smoke + ["--steps", str(EX_STEPS)])
+        _window_is(window, {}, f"phase 15 (c), train_qat_lm --steps {EX_STEPS}")
+        losses = [out["losses"][k] for k in sorted(out["losses"])]
+        first = statistics.mean(losses[:EX_MEAN_STEPS])
+        last = statistics.mean(losses[-EX_MEAN_STEPS:])
+        print(f"examples (c) --steps {EX_STEPS}: {out['recipe']}, {len(losses)} steps, mean "
+              f"loss of the first {EX_MEAN_STEPS} {first:.4f}, of the last {last:.4f}; "
+              f"{out['tok_per_s']:.0f} tok/s", flush=True)
+        if out["recipe"] != "w4a8" or len(losses) != EX_STEPS or not math.isfinite(sum(losses)) \
+                or not last < first:
+            raise AssertionError("phase 15 (c): the QAT run's loss is not finite and falling")
+
+        more = EX_STEPS + 20
+        lines, (out, window, walls[f"train_qat_lm --steps {more}"]) = stdout_of(
+            _windowed, ops, tq.main, smoke + ["--steps", str(more)])
+        print("\n".join(lines), flush=True)
+        _window_is(window, {}, f"phase 15 (c), train_qat_lm --steps {more}")
+        if lines[0] != f"resuming from checkpoint step {EX_STEPS}" or out["start"] != EX_STEPS \
+                or sorted(out["losses"]) != list(range(EX_STEPS + 1, more + 1)):
+            raise AssertionError(f"phase 15 (c): --steps {more} did not resume from step "
+                                 f"{EX_STEPS}")
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        full, window, walls["train_qat_lm --full --steps 2"] = _windowed(
+            ops, tq.main, ["--device", "cuda", "--full", "--steps", "2",
+                           "--ckpt-dir", str(Path(tmp) / "full")])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        _window_is(window, {}, "phase 15 (c), train_qat_lm --full --steps 2")
+        print(f"examples (c) --full: {full['arch']} {full['recipe']} {full['params']:,} "
+              f"parameters, losses {full['losses']}, 2 steps in {full['seconds']:.3f} s "
+              f"({full['seconds'] / 2:.3f} s a step, the first's warm-up included), peak "
+              f"{peak:.3f} GiB", flush=True)
+        if full["recipe"] != "w4a8" or full["params"] < 1.5e9 \
+                or not all(math.isfinite(v) for v in full["losses"].values()):
+            raise AssertionError("phase 15 (c): the full-width run failed")
+    if Path(tmp).exists():
+        raise AssertionError(f"phase 15 (c): {tmp} was not removed")
+    return walls
+
+
+def run_examples(torch, np, dev, ops):
+    """Phase 15: the four examples of ``examples_torch/`` on the card."""
+    t0 = time.perf_counter()
+    card = card_line()
+    walls = examples_host_tier(torch, np, ops)
+    walls.update(examples_serving(torch, np, ops, dev))
+    torch.cuda.empty_cache()
+    walls.update(examples_training(torch, ops))
+    for what, wall in walls.items():
+        print(f"examples: {what} wall {wall:.3f} s; {card}", flush=True)
+    print(f"examples: phase 15 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5165,6 +5474,10 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--torchrun"]:
         run_torchrun(torch, ops)
+        print(f"card: {card}")
+        return 0
+    if sys.argv[1:] == ["--examples"]:
+        run_examples(torch, np, dev, ops)
         print(f"card: {card}")
         return 0
 
@@ -5288,6 +5601,9 @@ def main() -> int:
     # phase 14: both LM launchers under torchrun (NCCL, world size 1)
     torch.cuda.empty_cache()
     run_torchrun(torch, ops)
+    # phase 15: the four examples (examples_torch/)
+    torch.cuda.empty_cache()
+    run_examples(torch, np, dev, ops)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """The port stands alone: importing it (every module) never imports JAX,
 and no source file under ``src/repro_torch`` imports JAX or the reference
-package."""
+package.  The same holds for the port's examples (``examples_torch/``)."""
 import os
 import pkgutil
 import re
@@ -14,6 +14,10 @@ pytest.importorskip("torch")
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 PKG = SRC / "repro_torch"
+EXAMPLES = SRC.parent / "examples_torch"
+EXAMPLE_NAMES = ("quickstart", "export_zoo", "serve_quantized", "train_qat_lm")
+JAX_OR_REFERENCE = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_torch)|"
+                              r"from\s+(jax|repro)(\.|\s)(?!_torch))", re.M)
 
 
 def _modules():
@@ -108,12 +112,34 @@ def test_serving_tier_imports_leave_jax_and_the_reference_out(module):
 
 
 def test_no_source_imports_jax_or_the_reference():
-    pat = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_torch)|"
-                     r"from\s+(jax|repro)(\.|\s)(?!_torch))", re.M)
     offenders = [str(p.relative_to(SRC)) for p in PKG.rglob("*.py")
-                 if pat.search(p.read_text())]
+                 if JAX_OR_REFERENCE.search(p.read_text())]
     assert offenders == []
     assert not list(PKG.rglob("*.so"))        # nothing built is committed
+
+
+def test_no_example_imports_jax_or_the_reference():
+    files = sorted(p.stem for p in EXAMPLES.glob("*.py"))
+    assert files == sorted(EXAMPLE_NAMES)
+    assert JAX_OR_REFERENCE.search("import jax.numpy as jnp\n")        # the scan bites
+    assert [f for f in files
+            if JAX_OR_REFERENCE.search((EXAMPLES / f"{f}.py").read_text())] == []
+
+
+@pytest.mark.parametrize("name", EXAMPLE_NAMES)
+def test_importing_an_example_leaves_jax_and_the_reference_out(name):
+    """Each example loaded from its file in a fresh interpreter."""
+    code = ("import importlib.util, sys\n"
+            f"spec = importlib.util.spec_from_file_location({name!r}, "
+            f"{str(EXAMPLES / (name + '.py'))!r})\n"
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or "
+            "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
 
 
 def test_kernel_sources_are_cuda_cpp_for_sm90a():

@@ -166,6 +166,22 @@ def test_mean_on_card_equals_cpu(cuda):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_executor_conv_on_card_equals_cpu(cuda, channels_last):
+    """The oracle's convolutions sum CNV-w2a2's dyadic products exactly on
+    the card too, in either layout (cuDNN's algorithms round some of
+    those sums, which moves codes off their ties)."""
+    from repro_torch.core import execute, transforms
+    from repro_torch.models import zoo
+    g = zoo.ZOO["CNV-w2a2"]()
+    x = np.random.RandomState(0).randn(1, 3, 32, 32).astype(np.float32)
+    want = execute(g, {"x": x}, device="cpu")[g.output_names[0]]
+    if channels_last:
+        g, x = transforms.to_channels_last(transforms.cleanup(g)), x.transpose(0, 2, 3, 1)
+    got = execute(g, {g.input_names[0]: x})[g.output_names[0]]
+    assert torch.equal(got.cpu(), want)
+
+
 def test_conv_wrappers_reject_bad_inputs(cuda):
     x = torch.zeros(1, 4, 5, 5, device=cuda)
     taps = torch.zeros(9, 4, dtype=torch.int8, device=cuda)
