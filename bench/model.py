@@ -1,0 +1,51 @@
+"""The graph the program serves, built through its public ``GraphBuilder``
+from a configuration's layer table and the drawn arrays, as a user hands
+the port an exported model: explicit ``Quant`` / ``BipolarQuant`` nodes on
+the weights and activations, in the QONNX zoo's node order."""
+from __future__ import annotations
+
+
+def build_graph(cfg: dict, params: list):
+    from repro_torch.core.graph import GraphBuilder
+
+    b = GraphBuilder(cfg["name"])
+    h = b.add_input("x", (1, *cfg["image_shape"]))
+    weights = iter(params)
+    for layer in cfg["layers"]:
+        op = layer["op"]
+        if op == "quant":
+            h = b.quant(h, layer["scale"], 0.0, layer["bits"],
+                        signed=layer["signed"])
+        elif op == "bipolar":
+            h = b.bipolar_quant(h, layer["scale"])
+        elif op in ("conv", "matmul"):
+            p = next(weights)
+            name = b.add_initializer("w", p["w"])
+            if layer["w_bits"] == 1:
+                qw = b.bipolar_quant(name, p["scale"])
+            else:
+                qw = b.quant(name, p["scale"], 0.0, layer["w_bits"],
+                             narrow=True)
+            if op == "matmul":
+                (h,) = b.add_node("MatMul", [h, qw], 1)
+            else:
+                k, pad = layer["k"], layer["pad"]
+                attrs = {"strides": [layer["stride"]] * 2,
+                         "pads": [pad] * 4, "kernel_shape": [k, k]}
+                if layer["group"] != 1:
+                    attrs["group"] = layer["group"]
+                (h,) = b.add_node("Conv", [h, qw], 1, attrs)
+        elif op == "relu":
+            (h,) = b.add_node("Relu", [h], 1)
+        elif op == "maxpool":
+            (h,) = b.add_node("MaxPool", [h], 1,
+                              {"kernel_shape": [layer["k"]] * 2,
+                               "strides": [layer["stride"]] * 2})
+        elif op == "gap":
+            (h,) = b.add_node("GlobalAveragePool", [h], 1)
+        elif op == "flatten":
+            (h,) = b.add_node("Flatten", [h], 1, {"axis": 1})
+        else:
+            raise ValueError(f"unknown layer op {op!r}")
+    b.mark_output(h)
+    return b.build()
