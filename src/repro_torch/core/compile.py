@@ -44,6 +44,12 @@ oracle; this module is the performance tier above it:
      and returns without synchronizing.  ``jit=False`` runs the segments
      eagerly, in topological order, as the CPU always does.
 
+     ``segment_timing=True`` also captures, at each signature, a timed
+     variant of the graph: the same segments with a timing event before
+     the first and after each one.  A call with ``timed=True`` replays it,
+     and ``record_segment_times`` reads the device time of each segment
+     inside that replay (on the CPU, the host clock around each segment).
+
 Kernel selection is **analysis-driven** by default, as in the reference
 (``repro_torch.analysis``): the range analysis proves the actual weight
 values and activation ranges, so a weight tensor whose values fit int4
@@ -103,6 +109,17 @@ _CAPTURE_LOCK = threading.Lock()
 
 
 @dataclass
+class _Timed:
+    """The timed variant of a signature's graph: the same segments, with
+    ``marks[0]`` recorded before the first and ``marks[i + 1]`` after
+    segment ``i``; it reads the plain graph's static inputs and writes
+    ``outputs`` of its own."""
+    graph: object                        # torch.cuda.CUDAGraph
+    outputs: dict
+    marks: list                          # torch.cuda.Event, external
+
+
+@dataclass
 class _Captured:
     """One input signature's CUDA graph and its static buffers: a replay
     reads ``inputs`` and overwrites ``outputs``."""
@@ -110,6 +127,18 @@ class _Captured:
     inputs: dict
     outputs: dict
     replays: int = 0
+    timed: Optional[_Timed] = None
+
+
+def _intervals_ms(marks: list) -> tuple:
+    """(ms between consecutive marks, ms from the first mark to the last)
+    of host-clock stamps or CUDA timing events (waited for)."""
+    if isinstance(marks[0], float):
+        return ([(b - a) * 1e3 for a, b in zip(marks, marks[1:])],
+                (marks[-1] - marks[0]) * 1e3)
+    marks[-1].synchronize()
+    return ([a.elapsed_time(b) for a, b in zip(marks, marks[1:])],
+            marks[0].elapsed_time(marks[-1]))
 
 
 def _release_capture_pool(pool) -> None:
@@ -150,7 +179,9 @@ class CompiledPlan:
     On CUDA a call at a new input signature captures the plan in a CUDA
     graph (its own memory pool, one per plan and device), and later calls
     replay it; see ``__call__``.  ``trace_count`` counts the captures and
-    the eager ``jit=False`` calls, as the reference counts its traces."""
+    the eager ``jit=False`` calls, as the reference counts its traces.
+    ``segment_timing`` adds a timed variant to each capture (the pool is
+    shared: every replay's outputs are cloned before the next replay)."""
     graph: QonnxGraph
     segments: list[Segment]
     consts: dict
@@ -161,11 +192,13 @@ class CompiledPlan:
     tune_stats: dict = field(default_factory=dict)   # Autotuner.stats copy
     tune_log: list = field(default_factory=list)     # Autotuner.searches
     mesh: Optional[object] = None          # dist.sharding.Mesh
+    segment_timing: bool = False           # capture a timed variant too
     _captured: dict = field(default_factory=dict, repr=False)
     _signatures: set = field(default_factory=set, repr=False)
     _traces: int = field(default=0, repr=False)
     _pools: dict = field(default_factory=dict, repr=False)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+    _last_marks: Optional[list] = field(default=None, repr=False)
 
     def __post_init__(self):
         self._m_retrace = default_registry().counter(
@@ -211,10 +244,17 @@ class CompiledPlan:
         self._traces += 1
         self._m_retrace.inc()
 
-    def _run(self, env: dict, consts: Optional[dict] = None) -> dict:
+    def _run(self, env: dict, consts: Optional[dict] = None,
+             stamps: Optional[list] = None) -> dict:
+        """Run every segment on ``env``; ``stamps`` takes the host clock
+        before the first segment and after each one."""
         consts = self.consts if consts is None else consts
+        if stamps is not None:
+            stamps.append(time.perf_counter())
         for seg in self.segments:
             seg.run(consts, env)
+            if stamps is not None:
+                stamps.append(time.perf_counter())
         # graph outputs may be compile-time constants (folded subgraphs)
         return {name: env.get(name, consts.get(name))
                 for name in self.graph.output_names}
@@ -229,8 +269,15 @@ class CompiledPlan:
 
     @property
     def replay_count(self) -> int:
-        """CUDA graph replays so far, over every captured signature."""
+        """CUDA graph replays so far, over every captured signature (timed
+        replays included)."""
         return sum(c.replays for c in self._captured.values())
+
+    @property
+    def graph_count(self) -> int:
+        """CUDA graphs held: one a captured signature, two with
+        ``segment_timing``."""
+        return sum(1 + (c.timed is not None) for c in self._captured.values())
 
     @property
     def n_devices(self) -> int:
@@ -250,7 +297,7 @@ class CompiledPlan:
         return list(dict.fromkeys([self.device] + self.shard_devices))
 
     def __call__(self, inputs: dict, *, jit: bool = True,
-                 donate: bool = False) -> dict:
+                 donate: bool = False, timed: bool = False) -> dict:
         """Run the plan on ``inputs`` (numpy arrays or tensors, on any
         device).  Results are device tensors returned **without a
         synchronize**, which is what lets the serving tier enqueue every
@@ -274,13 +321,21 @@ class CompiledPlan:
         copied; the caller must not rely on its contents afterwards.
         Ignored on the CPU, as in the reference, and on a mesh-sharded
         plan, whose shards run through the same path one per data entry
-        (``_call_sharded``)."""
+        (``_call_sharded``).
+
+        ``timed=True`` times each segment of this call, for
+        ``record_segment_times`` to read after the caller's sync: on CUDA
+        it replays the signature's timed variant (captured only with
+        ``segment_timing``; without it the plain graph replays and nothing
+        is timed), and on the CPU it reads the host clock between the
+        segments.  Ignored on a mesh-sharded plan and by ``jit=False`` on
+        CUDA."""
         for t in self.graph.inputs:
             if t.name not in inputs:
                 raise ValueError(f"missing graph input {t.name!r}")
         if self.shard_devices:
             return self._call_sharded(inputs, jit)
-        return self._call_on(self.device, inputs, jit, donate)
+        return self._call_on(self.device, inputs, jit, donate, timed)
 
     def _call_sharded(self, inputs: dict, jit: bool) -> dict:
         """The mesh path: pad the batch to a multiple of the data degree
@@ -314,23 +369,26 @@ class CompiledPlan:
             merged[name] = y[:batch] if pad else y
         return merged
 
-    def _call_on(self, dev, inputs: dict, jit: bool, donate: bool) -> dict:
+    def _call_on(self, dev, inputs: dict, jit: bool, donate: bool,
+                 timed: bool = False) -> dict:
         """The one-device path on ``dev`` (the plan's device, or a shard's)."""
         consts = self._dev_consts[dev]
         lock = self._locks[dev]
-        if not jit:
-            with lock:
-                self._trace()
-            return self._run({k: to_tensor(v, dev) for k, v in inputs.items()},
-                             consts)
-        if dev.type != "cuda":
+        if not jit or dev.type != "cuda":
             env = {k: to_tensor(v, dev) for k, v in inputs.items()}
-            key = (dev, _signature(env))
             with lock:
-                if key not in self._signatures:
+                if not jit:
+                    self._trace()
+                elif (key := (dev, _signature(env))) not in self._signatures:
                     self._signatures.add(key)
                     self._trace()
-            return self._run(env, consts)
+            if not timed or dev.type == "cuda":
+                return self._run(env, consts)
+            stamps: list = []
+            out = self._run(env, consts, stamps)
+            with lock:
+                self._last_marks = stamps
+            return out
         host = {k: to_tensor(v) for k, v in inputs.items()}
         sig = _signature(host)
         with lock, torch.cuda.device(dev):
@@ -342,13 +400,54 @@ class CompiledPlan:
                     slot = cap.inputs[k]
                     if v.device != slot.device or v.data_ptr() != slot.data_ptr():
                         slot.copy_(v, non_blocking=True)
-            cap.graph.replay()
             cap.replays += 1
+            if timed and cap.timed is not None:
+                cap.timed.graph.replay()
+                self._last_marks = cap.timed.marks
+                return {k: v.clone() for k, v in cap.timed.outputs.items()}
+            cap.graph.replay()
             return {k: v.clone() for k, v in cap.outputs.items()}
 
+    def record_segment_times(self) -> list:
+        """Per-segment times of the last ``timed=True`` call, once: a list
+        in ``segments`` order of ``{"index", "kind", "ms"}``, or ``[]``
+        where no timed call is left to read.  Call it after the caller's
+        sync (a CUDA timing event is waited for otherwise).
+
+        Each reading lands in the process-wide default registry under
+        ``model=graph.name``: histogram ``plan_segment_device_ms{kind}``
+        takes one observation a kind, summed over that kind's segments,
+        and ``plan_replay_device_ms`` the first mark to the last.  On CUDA
+        the times are device times inside the replay (event to event, so
+        a segment's share includes the gaps between its kernels); on the
+        CPU, the host clock around each segment."""
+        with self._lock:
+            marks, self._last_marks = self._last_marks, None
+        if not marks:
+            return []
+        seg_ms, total_ms = _intervals_ms(marks)
+        per_kind: dict = {}
+        rows = []
+        for i, (seg, ms) in enumerate(zip(self.segments, seg_ms)):
+            per_kind[seg.kind] = per_kind.get(seg.kind, 0.0) + ms
+            rows.append({"index": i, "kind": seg.kind, "ms": ms})
+        reg, model = default_registry(), self.graph.name
+        for kind, ms in per_kind.items():
+            reg.histogram(
+                "plan_segment_device_ms", unit="ms", window=1024,
+                help="device ms a timed replay spends in one segment kind",
+                labels={"model": model, "kind": kind}).observe(ms)
+        reg.histogram(
+            "plan_replay_device_ms", unit="ms", window=1024,
+            help="device ms of a timed replay, first segment to last",
+            labels={"model": model}).observe(total_ms)
+        return rows
+
     def _capture(self, dev, sig: tuple, host: dict, donate: bool) -> _Captured:
-        """Warm up, then capture the plan at ``sig`` on ``dev`` (caller
-        holds that device's lock and has made it current)."""
+        """Warm up, then capture the plan at ``sig`` on ``dev`` and, with
+        ``segment_timing``, its timed variant on the same static inputs
+        without a second warm-up (caller holds that device's lock and has
+        made it current)."""
         consts = self._dev_consts[dev]
         slots = {}
         for k, v in host.items():
@@ -363,6 +462,23 @@ class CompiledPlan:
         with torch.cuda.stream(side):
             self._run(dict(slots), consts)
         stream.wait_stream(side)
+        graph, outs = self._capture_graph(dev, sig, slots, consts)
+        cap = _Captured(graph, slots, outs)
+        if self.segment_timing and not self.shard_devices:
+            marks = [torch.cuda.Event(enable_timing=True, external=True)
+                     for _ in range(len(self.segments) + 1)]
+            graph, outs = self._capture_graph(dev, sig, slots, consts, marks)
+            cap.timed = _Timed(graph, outs, marks)
+        self._captured[(dev, sig)] = cap
+        self._trace()
+        return cap
+
+    def _capture_graph(self, dev, sig: tuple, slots: dict, consts: dict,
+                       marks: Optional[list] = None) -> tuple:
+        """Capture every segment on ``slots`` in one graph of the plan's
+        pool on ``dev``; returns (graph, static outputs).  ``marks`` (timing
+        events) are recorded as graph nodes before the first segment and
+        after each one."""
         pool = self._pools.get(dev)
         if pool is None:
             pool = self._pools[dev] = torch.cuda.graph_pool_handle()
@@ -371,13 +487,19 @@ class CompiledPlan:
         # capture_begin / capture_end by hand inside a stream context, so
         # the caller's stream comes back even when capture_end raises
         with _CAPTURE_LOCK, torch.cuda.stream(torch.cuda.Stream(dev)):
+            for ev in marks or ():
+                ev.record()          # create each event outside the capture
             torch.cuda.synchronize(dev)
             graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             env = dict(slots)
             try:
+                if marks:
+                    marks[0].record()
                 for i, seg in enumerate(self.segments):
                     try:
                         seg.run(consts, env)
+                        if marks:
+                            marks[i + 1].record()
                     except Exception as e:       # named below
                         failed = (i, seg, e)
                         break
@@ -401,12 +523,8 @@ class CompiledPlan:
             raise RuntimeError(
                 f"CUDA graph capture of plan {self.graph.name!r} failed at "
                 f"signature {sig}: {ended}") from ended
-        outs = {name: env.get(name, consts.get(name))
-                for name in self.graph.output_names}
-        cap = _Captured(graph, slots, outs)
-        self._captured[(dev, sig)] = cap
-        self._trace()
-        return cap
+        return graph, {name: env.get(name, consts.get(name))
+                       for name in self.graph.output_names}
 
     def profile(self, x=None, **kw):
         """Per-segment measured profile (see ``repro_torch.obs.profile``):
@@ -582,7 +700,8 @@ def compile_graph(graph: QonnxGraph, *, run_cleanup: bool = True,
                   tune_cache_dir: Optional[str] = None,
                   tune_repeats: int = 3,
                   use_fusion: bool = True,
-                  mesh=None, device=None) -> CompiledPlan:
+                  mesh=None, device=None,
+                  segment_timing: bool = False) -> CompiledPlan:
     """Partition ``graph`` into fused segments and emit a plan on ``device``.
 
     run_cleanup  — run the declarative "compile_prep" pipeline first
@@ -631,6 +750,11 @@ def compile_graph(graph: QonnxGraph, *, run_cleanup: bool = True,
                    (every CUDA device data-parallel; the plain one-device
                    path on a one-GPU host).  Exclusive with ``device``
                    (ValueError); anything else raises TypeError
+    segment_timing — on CUDA, capture beside each signature's graph a
+                   timed variant that ``plan(..., timed=True)`` replays
+                   and ``plan.record_segment_times()`` reads (one more
+                   capture a signature; the serving engine asks for it
+                   when it holds a tracer)
     interpret    — must stay None (see ``_unported``)
 
     Every compile records its wall time and plan-shape gauges (segments
@@ -772,7 +896,7 @@ def compile_graph(graph: QonnxGraph, *, run_cleanup: bool = True,
                         tune_mode=tune if tuner is not None else "off",
                         tune_stats=dict(tuner.stats) if tuner is not None else {},
                         tune_log=list(tuner.searches) if tuner is not None else [],
-                        mesh=mesh)
+                        mesh=mesh, segment_timing=segment_timing)
     _record_compile_metrics(plan, time.perf_counter() - t_compile0)
     return plan
 

@@ -9,12 +9,19 @@ Counterpart of ``repro.obs``, stdlib only but for ``profile``:
   * ``trace``    — ``Span``/``Tracer`` (context-manager or retroactive
                    ``emit``), parent/child links, JSONL sink; wired through
                    the serving request lifecycle (submit -> queue -> flush
-                   -> dispatch -> sync -> complete).  Disabled tracing adds
-                   zero allocations to the submit hot path.
+                   -> dispatch -> sync -> scatter -> complete) and the
+                   offline call (call -> dispatch -> sync -> gather; a
+                   stage and an enqueue span a slot).  Disabled tracing
+                   adds zero allocations to the submit and call paths.
   * ``profile``  — opt-in per-segment timing of a ``CompiledPlan``
                    (``plan.profile()``): CUDA events around each segment's
                    eager run on the card, ``time.perf_counter`` on the CPU,
-                   joined with the analysis cost report.
+                   joined with the analysis cost report.  The segments'
+                   device time inside a graph replay comes instead from
+                   ``CompiledPlan.record_segment_times`` (histograms
+                   ``plan_segment_device_ms`` / ``plan_replay_device_ms``
+                   in the default registry), which the serving engine
+                   reads for the last slot of each traced call or flush.
 
 ``http.start_metrics_server`` serves the Prometheus text format from a
 stdlib HTTP server (``python -m repro_torch.launch.serve --metrics-port``).

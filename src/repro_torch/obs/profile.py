@@ -1,8 +1,11 @@
 """Per-segment kernel profiling of a ``CompiledPlan``.
 
 Counterpart of ``repro.obs.profile``.  On the card a plan call is one
-replay of a captured CUDA graph, so nothing attributes its time to the
-segments it fuses.  ``profile_plan`` re-runs the plan **segment by
+replay of a captured CUDA graph.  The device time of each segment
+*inside* that replay comes from ``CompiledPlan.record_segment_times``
+(a plan compiled with ``segment_timing``, called with ``timed=True``);
+this module stays the eager per-segment view joined with the cost
+report.  ``profile_plan`` re-runs the plan **segment by
 segment**, each segment eagerly on its own (the counterpart of the
 reference's per-segment ``jax.jit``), timed with CUDA events on the card
 and ``time.perf_counter`` on the CPU (best of N after a warm call), and

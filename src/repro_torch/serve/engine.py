@@ -16,6 +16,11 @@ CUDA each slot is staged in pinned host memory and copied by the plan
 straight into its captured graph's static input buffer; each replay's
 outputs are copied out before the next replay overwrites them.
 
+With a tracer enabled, the last slot of each call or flush replays the
+plan's timed variant (``core/compile.py``, ``segment_timing``), and that
+slot's device ms per segment go on the call's or flush's root span and
+into the default registry's ``plan_segment_device_ms``.
+
 Thread safety: ``submit`` / ``run_pending`` / ``reload`` / ``__call__``
 coordinate through one engine lock, so a background flush loop
 (``serve.scheduler.ServeScheduler``) and hot model swaps
@@ -163,9 +168,12 @@ class CompiledGraphEngine:
         self.pipeline = pipeline
         self._donate = self.mesh is None and self.device.type == "cuda" and (
             donate == "auto" or bool(donate))
+        # an engine that holds a tracer, enabled or not, has its plans
+        # capture the timed variant its traced calls replay
         self._compile_kw = dict(use_kernels=use_kernels, use_int4=use_int4,
                                 interpret=interpret, use_analysis=use_analysis,
-                                tune=tune, tune_cache_dir=tune_cache_dir)
+                                tune=tune, tune_cache_dir=tune_cache_dir,
+                                segment_timing=tracer is not None)
         if self.mesh is None:
             self._compile_kw["device"] = self.device
         else:
@@ -183,7 +191,8 @@ class CompiledGraphEngine:
         # whole fleet from one endpoint.  ``observability=False`` keeps only
         # the plain-int lifetime counters.  ``tracer`` (obs.Tracer) turns
         # the request lifecycle into submit -> queue -> flush -> dispatch ->
-        # sync -> complete spans; None / disabled adds no work.
+        # sync -> complete spans, and ``__call__`` into call -> dispatch
+        # -> sync -> gather; None / disabled adds no work.
         self.metrics = metrics_registry or MetricsRegistry()
         self._metric_labels = dict(metrics_labels or
                                    {"model": getattr(graph, "name", "graph")})
@@ -385,14 +394,16 @@ class CompiledGraphEngine:
                            default=None)
             return len(q), oldest, deadline
 
-    def _pad_to_slot(self, rows: torch.Tensor, sample_shape=None
-                     ) -> torch.Tensor:
-        """Zero-pad a (<= max_batch, ...) host chunk to the one slot shape
-        every plan call uses, shared by run_pending and __call__ so both
-        reach the same captured graph.  On CUDA the slot is pinned, so the
-        plan's copy into its captured slot is asynchronous."""
+    def _pad_to_slot(self, rows, sample_shape=None) -> torch.Tensor:
+        """Zero-pad a (<= max_batch, ...) host chunk (or a list of rows,
+        stacked first) to the one slot shape every plan call uses, shared
+        by run_pending and __call__ so both reach the same captured graph.
+        On CUDA the slot is pinned, so the plan's copy into its captured
+        slot is asynchronous."""
         if sample_shape is None:
             sample_shape = self.sample_shape
+        if isinstance(rows, list):
+            rows = torch.stack(rows)
         pad = self.max_batch - rows.shape[0]
         if pad:
             rows = torch.cat(
@@ -408,13 +419,17 @@ class CompiledGraphEngine:
             if d.type == "cuda":
                 torch.cuda.current_stream(d).synchronize()
 
-    def run_pending(self, *, only_full_slots: bool = False) -> int:
+    def run_pending(self, *, only_full_slots: bool = False,
+                    reason: Optional[str] = None) -> int:
         """Flush the queue in max_batch-sized slots; returns #requests run.
 
         Every slot is enqueued before the single trailing sync.
         ``only_full_slots=True`` leaves the partial tail slot queued (the
         scheduler's full-slot trigger uses it, so a request submitted a
-        millisecond ago keeps batching through its flush window)."""
+        millisecond ago keeps batching through its flush window).
+        ``reason`` (the scheduler's trigger: full / window / deadline /
+        stop) goes on the flush span and, for a flush that runs requests,
+        into ``serve_scheduler_flushes_total{reason}``."""
         with self._lock:
             n = len(self.queue)
             if only_full_slots:
@@ -426,13 +441,49 @@ class CompiledGraphEngine:
             state = self._serving_state()
         if self._obs_on:
             self._m_qdepth.set(depth)
-        return self._run_requests(reqs, state)
+            if reason is not None:
+                self.metrics.counter(
+                    "serve_scheduler_flushes_total",
+                    help="scheduler flushes that ran requests, by the "
+                         "trigger that fired (full / window / deadline / "
+                         "stop)",
+                    labels={**self._metric_labels, "reason": reason}).inc()
+        return self._run_requests(reqs, state, reason)
 
-    def _run_requests(self, reqs: list, state: tuple) -> int:
+    def _dispatch_slot(self, plan, in_name: str, rows, sample_shape,
+                       tr=None, parent=None, timed: bool = False):
+        """Stage one slot (``_pad_to_slot``) and enqueue its plan call; with
+        a tracer, as ``stage`` and ``enqueue`` spans under ``parent``."""
+        if tr is None:
+            x = self._pad_to_slot(rows, sample_shape)
+            return plan({in_name: x}, donate=self._donate)
+        with tr.span("stage", parent=parent, rows=len(rows),
+                     padded_rows=self.max_batch):
+            x = self._pad_to_slot(rows, sample_shape)
+        with tr.span("enqueue", parent=parent, timed=timed):
+            return plan({in_name: x}, donate=self._donate, timed=timed)
+
+    @staticmethod
+    def _segment_attrs(plan) -> dict:
+        """The timed slot's per-segment device ms, as span attributes."""
+        rows = plan.record_segment_times()
+        return {"segments": rows} if rows else {}
+
+    def _run_requests(self, reqs: list, state: tuple,
+                      reason: Optional[str] = None) -> int:
         plan, in_name, out_name, sample_shape = state
         tr = self._tracer
-        tracing = tr is not None and tr.enabled
-        t_flush0 = time.monotonic()
+        if tr is not None and not tr.enabled:
+            tr = None
+        n_slots = -(-len(reqs) // self.max_batch)
+        flush = disp = None
+        if tr is not None:
+            flush = tr.span(
+                "flush", n_requests=len(reqs), n_slots=n_slots,
+                slot_occupancy=round(len(reqs) / (n_slots * self.max_batch),
+                                     4),
+                pipeline=self.pipeline, reason=reason)
+            disp = tr.span("dispatch", parent=flush, n_slots=n_slots)
         dispatched = []
         try:
             for i in range(0, len(reqs), self.max_batch):
@@ -440,20 +491,21 @@ class CompiledGraphEngine:
                 t_dispatch = time.monotonic()
                 for r in batch:
                     r.started = t_dispatch
-                x = self._pad_to_slot(torch.stack([r.x for r in batch]),
-                                      sample_shape)
-                out = plan({in_name: x}, donate=self._donate)[out_name]
+                out = self._dispatch_slot(
+                    plan, in_name, [r.x for r in batch], sample_shape, tr,
+                    disp, timed=len(dispatched) == n_slots - 1)[out_name]
                 dispatched.append((batch, out))
                 if self._obs_on:
                     self._m_occupancy.observe(len(batch) / self.max_batch)
                 if not self.pipeline:          # per-slot host sync: baseline
                     self._sync()
-            t_sync0 = time.monotonic()
+            if tr is not None:
+                disp.end()
+                sync = tr.span("sync", parent=flush)
             if self.pipeline:                  # single trailing sync
                 self._sync()
-            if tracing:
-                self._emit_flush_spans(tr, reqs, len(dispatched),
-                                       t_flush0, t_sync0, time.monotonic())
+            if tr is not None:
+                sync.end()
         except Exception as e:
             # scope the failure: every dispatched slot whose compute
             # succeeded still completes and counts; only requests in
@@ -471,8 +523,14 @@ class CompiledGraphEngine:
             if completed:
                 self._record(completed)
             raise
+        if tr is not None:
+            flush.set(**self._segment_attrs(plan))
+            scatter = tr.span("scatter", parent=flush)
         for batch, out in dispatched:
             self._scatter(batch, out)
+        if tr is not None:
+            scatter.end()
+            flush.end()
         self._record(reqs)
         return len(reqs)
 
@@ -482,22 +540,6 @@ class CompiledGraphEngine:
         for j, r in enumerate(batch):
             # copy the row so a held future pins one row, not the slot
             r._finish(rows[j].copy())
-
-    def _emit_flush_spans(self, tr, reqs: list, n_slots: int,
-                          t_flush0: float, t_sync0: float,
-                          t_end: float) -> None:
-        """One flush trace: flush -> dispatch + sync children (monotonic
-        timestamps, shared with the per-request spans of ``_record``)."""
-        trace_id = tr.new_trace_id()
-        occupancy = len(reqs) / max(1, n_slots * self.max_batch)
-        flush_id = tr.emit(
-            "flush", t_flush0, t_end, trace_id=trace_id,
-            n_requests=len(reqs), n_slots=n_slots,
-            slot_occupancy=round(occupancy, 4), pipeline=self.pipeline)
-        tr.emit("dispatch", t_flush0, t_sync0, trace_id=trace_id,
-                parent_id=flush_id, n_slots=n_slots)
-        tr.emit("sync", t_sync0, t_end, trace_id=trace_id,
-                parent_id=flush_id)
 
     def _record(self, reqs: list) -> None:
         n_miss = sum(1 for r in reqs if r.deadline is not None and
@@ -577,7 +619,12 @@ class CompiledGraphEngine:
         as ``run_pending``: the batch is split into max_batch chunks, the
         tail chunk zero-padded, so ad-hoc batch sizes reuse the one
         captured graph; with ``pipeline=True`` every chunk is enqueued
-        before one trailing sync."""
+        before one trailing sync.
+
+        With the tracer enabled the call is one trace: ``call`` (rows,
+        slots) over ``dispatch`` (a ``stage`` and an ``enqueue`` a slot),
+        ``sync`` and ``gather``; the last slot replays the plan's timed
+        variant, and its per-segment device ms land on ``call``."""
         x = torch.as_tensor(np.asarray(x, np.float32)) \
             if not isinstance(x, torch.Tensor) else x.to(torch.float32).cpu()
         with self._lock:
@@ -592,15 +639,35 @@ class CompiledGraphEngine:
             # empty batch: the output shape / dtype from shape inference
             info = plan.graph.value_info[out_name]
             return np.zeros((0,) + tuple(info.shape[1:]), info.dtype)
+        tr = self._tracer
+        if tr is not None and not tr.enabled:
+            tr = None
+        rows = x.shape[0]
+        root = disp = None
+        if tr is not None:
+            n_slots = -(-rows // self.max_batch)
+            root = tr.span("call", rows=rows, slots=n_slots)
+            disp = tr.span("dispatch", parent=root, n_slots=n_slots)
         outs = []
-        for i in range(0, x.shape[0], self.max_batch):
+        for i in range(0, rows, self.max_batch):
             chunk = x[i:i + self.max_batch]
-            out = plan({in_name: self._pad_to_slot(chunk, sample_shape)},
-                       donate=self._donate)[out_name]
+            out = self._dispatch_slot(
+                plan, in_name, chunk, sample_shape, tr, disp,
+                timed=i + self.max_batch >= rows)[out_name]
             outs.append(out[:chunk.shape[0]])
             if not self.pipeline:
                 self._sync()                    # per-chunk stall: baseline
+        if tr is not None:
+            disp.end()
+            sync = tr.span("sync", parent=root)
         if self.pipeline:
             self._sync()                        # one sync for all chunks
+        if tr is not None:
+            sync.end()
+            root.set(**self._segment_attrs(plan))
+            gather = tr.span("gather", parent=root)
         result = np.concatenate([o.cpu().numpy() for o in outs], axis=0)
+        if tr is not None:
+            gather.end()
+            root.end()
         return result[0] if unbatched else result

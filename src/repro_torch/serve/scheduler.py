@@ -10,6 +10,10 @@ background thread flushes the engine whenever
   * or a request's deadline is within ``flush_margin_ms`` of now
     (deadline-aware early flush).
 
+Each flush names the trigger that fired (``full`` / ``window`` /
+``deadline``, or ``stop`` for the final drain) on its flush span and in
+the engine's ``serve_scheduler_flushes_total{reason}``.
+
 Backpressure is a bounded queue: ``submit`` blocks (or raises
 ``QueueFull`` with ``block=False``) while ``max_queue`` requests are
 already waiting, so a slow model sheds load at the front door instead of
@@ -128,7 +132,7 @@ class ServeScheduler:
                 return
             self._thread = None
         if flush:
-            self._flush()
+            self._flush(reason="stop")
 
     def __enter__(self) -> "ServeScheduler":
         return self.start()
@@ -190,33 +194,41 @@ class ServeScheduler:
 
     # --------------------------------------------------------- flush loop
 
-    def _poll(self) -> tuple[bool, Optional[float], bool]:
-        """(flush now?, seconds until the next trigger, full slots only?).
+    def _poll(self) -> tuple[Optional[str], Optional[float], bool]:
+        """(the trigger that fired, or None; seconds until the next
+        trigger; full slots only?).
 
-        Reads the engine's ``flush_signals()`` snapshot rather than its
-        queue internals.  When only the full-slot trigger fired, the
-        partial tail slot is left queued — a request submitted a
-        millisecond ago keeps batching until its own window/deadline is
-        due instead of riding out in a mostly-padded slot.
+        The trigger is ``"full"`` (a whole slot is queued), ``"window"``
+        (the oldest request has waited ``window_ms``) or ``"deadline"`` (a
+        deadline is within ``flush_margin_ms``); where a time trigger is
+        due it names the flush, whichever came due first.  Reads the
+        engine's ``flush_signals()`` snapshot rather than its queue
+        internals.  When only the full-slot trigger fired, the partial tail
+        slot is left queued — a request submitted a millisecond ago keeps
+        batching until its own window/deadline is due instead of riding
+        out in a mostly-padded slot.
         """
         eng = self.engine
         pending, oldest, deadline = eng.flush_signals()
         if not pending:
-            return False, None, False
+            return None, None, False
         # same monotonic clock the engine stamps submitted/deadline with
         now = time.monotonic()
-        t_next = oldest + self.window_ms / 1e3
+        t_next, why = oldest + self.window_ms / 1e3, "window"
         if deadline is not None:
-            t_next = min(t_next, deadline - self.flush_margin_ms / 1e3)
-        due = now >= t_next
+            t_due = deadline - self.flush_margin_ms / 1e3
+            if t_due < t_next:
+                t_next, why = t_due, "deadline"
+        if now >= t_next:
+            return why, 0.0, False
         if pending >= eng.max_batch:           # a full slot never waits
-            return True, 0.0, not due
-        if due:
-            return True, 0.0, False
-        return False, t_next - now, False
+            return "full", 0.0, True
+        return None, t_next - now, False
 
-    def _flush(self, *, only_full_slots: bool = False) -> int:
-        n = self.engine.run_pending(only_full_slots=only_full_slots)
+    def _flush(self, *, only_full_slots: bool = False,
+               reason: Optional[str] = None) -> int:
+        n = self.engine.run_pending(only_full_slots=only_full_slots,
+                                    reason=reason)
         if n:
             with self._cv:
                 self._cv.notify_all()      # queue space freed: wake waiters
@@ -233,10 +245,10 @@ class ServeScheduler:
             with self._cv:
                 if not self._running:
                     return
-            should, delay, full_only = self._poll()
-            if should:
+            reason, delay, full_only = self._poll()
+            if reason is not None:
                 try:
-                    self._flush(only_full_slots=full_only)
+                    self._flush(only_full_slots=full_only, reason=reason)
                 except Exception:          # requests carry their own error
                     log.exception("serve flush failed")
                 continue

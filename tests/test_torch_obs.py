@@ -379,6 +379,109 @@ def test_disabled_tracer_adds_zero_allocations_to_submit():
     assert sum(s.size for s in trace_allocs) == 0
 
 
+def _tree(sink):
+    """(records by name, children's names by parent span id)."""
+    by_name, kids = {}, {}
+    for r in sink:
+        by_name.setdefault(r["name"], []).append(r)
+        kids.setdefault(r["parent"], []).append(r["name"])
+    return by_name, kids
+
+
+def test_call_emits_a_span_tree_with_a_stage_and_enqueue_per_slot():
+    sink = ListSink()
+    eng = _engine(tracer=Tracer(sink))
+    x = np.random.RandomState(6).randn(10, 16).astype(np.float32)
+    np.testing.assert_array_equal(eng(x), _engine()(x))
+    by_name, kids = _tree(sink)
+    (call,) = by_name["call"]
+    (disp,) = by_name["dispatch"]
+    assert call["parent"] is None and call["rows"] == 10 and call["slots"] == 3
+    assert sorted(kids[call["span"]]) == ["dispatch", "gather", "sync"]
+    assert kids[disp["span"]] == ["stage", "enqueue"] * 3
+    assert [r["rows"] for r in by_name["stage"]] == [4, 4, 2]
+    assert all(r["padded_rows"] == 4 for r in by_name["stage"])
+    assert [r["timed"] for r in by_name["enqueue"]] == [False, False, True]
+    # the last slot's per-segment times, in the plan's segment order
+    kinds = [s.kind for s in eng.plan.segments]
+    assert [s["kind"] for s in call["segments"]] == kinds
+    assert [s["index"] for s in call["segments"]] == list(range(len(kinds)))
+    assert all(s["ms"] >= 0 for s in call["segments"])
+    for r in sink:
+        if r["parent"] is not None:
+            assert r["trace"] == call["trace"]
+
+
+def test_flush_emits_stage_enqueue_per_slot_scatter_and_its_reason():
+    sink = ListSink()
+    eng = _engine(tracer=Tracer(sink))
+    for _ in range(6):
+        eng.submit(np.zeros(16, np.float32))
+    assert eng.run_pending(reason="deadline") == 6
+    by_name, kids = _tree(sink)
+    (flush,) = by_name["flush"]
+    (disp,) = by_name["dispatch"]
+    assert flush["reason"] == "deadline" and flush["n_slots"] == 2
+    assert sorted(kids[flush["span"]]) == ["dispatch", "scatter", "sync"]
+    assert kids[disp["span"]] == ["stage", "enqueue"] * 2
+    assert [r["rows"] for r in by_name["stage"]] == [4, 2]
+    assert [r["timed"] for r in by_name["enqueue"]] == [False, True]
+    assert len(flush["segments"]) == len(eng.plan.segments)
+    scatter = by_name["scatter"][0]
+    assert by_name["sync"][0]["t1"] <= scatter["t0"] <= scatter["t1"] <= \
+        flush["t1"]
+    counter = eng.metrics.get("serve_scheduler_flushes_total",
+                              {**eng._metric_labels, "reason": "deadline"})
+    assert counter.value == 1
+    assert eng.run_pending(reason="window") == 0        # nothing queued
+    assert eng.metrics.get("serve_scheduler_flushes_total",
+                           {**eng._metric_labels, "reason": "window"}) is None
+    assert eng.metrics.get("serve_flushes_total",
+                           eng._metric_labels).value == 1
+
+
+def test_scheduler_names_the_trigger_of_each_flush():
+    eng = _engine()
+    labels = eng._metric_labels
+    sched = ServeScheduler(eng, window_ms=60_000)
+    for _ in range(5):                   # a full slot and one row more
+        eng.submit(np.zeros(16, np.float32))
+    assert sched._poll()[::2] == ("full", True)
+    eng.submit(np.zeros(16, np.float32), deadline_ms=1.0)
+    assert sched._poll()[0] == "deadline"
+    eng.run_pending()
+    window = ServeScheduler(eng, window_ms=0.0)
+    eng.submit(np.zeros(16, np.float32))
+    assert window._poll() == ("window", 0.0, False)
+    with sched:
+        r = sched.submit(np.zeros(16, np.float32))
+    assert r.done()                      # drained by the final flush
+    assert eng.metrics.get("serve_scheduler_flushes_total",
+                           {**labels, "reason": "stop"}).value == 1
+
+
+@pytest.mark.parametrize("tracer", ["disabled", "absent"])
+def test_disabled_tracer_adds_zero_allocations_to_call(tracer):
+    import repro_torch.obs.trace as trace_mod
+    eng = _engine(tracer=Tracer(ListSink(), enabled=False)
+                  if tracer == "disabled" else None)
+    assert eng.plan.segment_timing is (tracer == "disabled")
+    x = np.zeros((10, 16), np.float32)
+    eng(x)                                   # warm every lazy path
+    tracemalloc.start()
+    try:
+        for _ in range(20):
+            eng(x)
+        snap = tracemalloc.take_snapshot()
+    finally:
+        tracemalloc.stop()
+    trace_allocs = snap.filter_traces(
+        [tracemalloc.Filter(True, trace_mod.__file__)]).statistics("lineno")
+    assert sum(s.size for s in trace_allocs) == 0
+    assert eng.plan._last_marks is None      # no slot was timed
+    assert eng.plan.record_segment_times() == []
+
+
 def test_scheduler_stats_totals_and_rejection_counter():
     from repro_torch.serve import QueueFull
     eng = _engine()
@@ -433,6 +536,56 @@ def test_compile_records_wall_time_and_plan_gauges():
     assert plan.trace_count == t0 + 1 and retrace.value == r0 + 1
     plan({"x": np.zeros((1, 16), np.float32)}, jit=False)   # eager: one each
     assert plan.trace_count == t0 + 2 and retrace.value == r0 + 2
+
+
+def test_record_segment_times_observes_each_kind_once_a_timed_call():
+    """On the CPU a timed call reads the host clock between the segments:
+    one observation a kind a timed call, and the segments add up to the
+    call."""
+    import time
+
+    from repro_torch.core.compile import compile_graph
+    from repro_torch.models.zoo import build_mobilenet
+    from repro_torch.obs import default_registry
+    g = build_mobilenet(4, 4, img=32)
+    g.name = "obs_segment_times_mobilenet32"
+    plan = compile_graph(g, device="cpu")
+    x = {"x": np.random.RandomState(7).randn(2, 3, 32, 32)
+         .astype(np.float32)}
+    (y,) = plan.graph.output_names
+    np.testing.assert_array_equal(plan(x, timed=True)[y], plan(x)[y])
+    assert len(plan.record_segment_times()) == len(plan.segments)
+    assert plan.record_segment_times() == []            # read once
+    plan(x)                                             # not timed
+    assert plan.record_segment_times() == []
+    reg = default_registry()
+    kinds = plan.fused_counts
+    assert {"quant_conv_dw", "quant_dequant"} <= set(kinds)
+
+    def counts():
+        out = {}
+        for k in kinds:
+            h = reg.get("plan_segment_device_ms",
+                        {"model": g.name, "kind": k})
+            out[k] = (h.count, h.sum) if h is not None else (0, 0.0)
+        return out
+    before = counts()
+    replay = reg.get("plan_replay_device_ms", {"model": g.name})
+    r0 = (replay.count, replay.sum)
+    t0 = time.perf_counter()
+    plan(x, timed=True)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = plan.record_segment_times()
+    after = counts()
+    assert [r["kind"] for r in rows] == [s.kind for s in plan.segments]
+    total = sum(r["ms"] for r in rows)
+    for k in kinds:
+        assert after[k][0] == before[k][0] + 1
+        assert after[k][1] - before[k][1] == pytest.approx(
+            sum(r["ms"] for r in rows if r["kind"] == k))
+    assert replay.count == r0[0] + 1
+    assert replay.sum - r0[1] == pytest.approx(total)
+    assert 0.5 * wall_ms <= total <= wall_ms
 
 
 # ----------------------------------------------------- segment profiler
