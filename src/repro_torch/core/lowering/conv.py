@@ -1,4 +1,4 @@
-"""Lowering rule: quantized Conv -> im2col onto the integer matmul kernels.
+"""Lowering rule: quantized Conv -> the integer matmul kernels (im2col).
 
 Counterpart of ``repro.core.lowering.conv``.  Pattern (anchored at the
 Conv):
@@ -8,10 +8,14 @@ Conv):
   * the integer conv weights (O, I/g, kH, kW) are reshaped once, at compile
     time, into a (C·kH·kW, O) matmul operand (``kernels.im2col_weights``),
     block-diagonal for ``group > 1``;
-  * at run time ``kernels.quant_conv2d`` unfolds the activation into
-    im2col patches and runs them through B1 / B2; stride, padding,
+  * at run time ``kernels.quant_conv2d`` runs the conv through B1 / B2
+    as a matmul over the activation's im2col patches; stride, padding,
     dilation and the 1x1 pointwise case all reduce to how the patches are
-    taken;
+    taken.  On the card B1 / B2 read them straight from the activation by
+    address (implicit GEMM) for every conv with kH·kW > 1 or any padding;
+    the CPU's twins and the unpadded pointwise conv take a materialised
+    patch matrix.  The segment meta's ``conv_operand`` names the path
+    (``kernels.quant_conv.conv_operand``);
   * a trailing Relu fuses as max(0, ·), and a trailing per-tensor
     activation Quant as a B4 call on the conv output, staged by the QDQ
     rule's own ``stage_qdq_epilogue``: the zoo's Conv -> Relu -> Quant
@@ -278,6 +282,8 @@ class QuantConvRule(LoweringRule):
             y = conv_epilogue(y, relu, qdq, consts, act_keys)
             env[out_name] = fusion.carried_output(y, cout, code)
 
+        meta["conv_operand"] = kernel_ops.conv_operand(
+            m.kernel_shape, m.pads, ctx.device)
         if m.group > 1:
             meta["group"] = m.group
         if cin is not None or cout is not None:

@@ -43,12 +43,13 @@ SIGNATURES = {
     # z_stride, lo, hi, mode, codes
     "qdq_launch": [_P] * 5 + [_I, _I, _F, _F, _I, _I, _P],
     # B1 / B2 on the CUDA cores: x, w, s, bias, out, the plan's geometry (an
-    # int array), s_stride, packed, then the epilogue tail
-    "qmm_launch": [_P] * 6 + [_I, _I] + _STAGE + [_P],
+    # int array), s_stride, packed, then the epilogue tail, then a conv's
+    # geometry (an int array, or null) before the stream
+    "qmm_launch": [_P] * 6 + [_I, _I] + _STAGE + [_P, _P],
     # B2 on the int8 tensor cores: M, K, N, s_stride, epi; in_div, in_mul;
-    # rq; out_mul
+    # rq; out_mul; a conv's geometry (an int array, or null)
     "qmm_i8_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _F,
-                      _P],
+                      _P, _P],
     # B5 / B6: x, w, s, bias, [qs, qz,] out, the plan's geometry (an int
     # array), ..., then the epilogue tail
     "gqmm_launch": [_P] * 6 + [_LL] * 4 + [_I, _I] + _STAGE + [_P],

@@ -8,6 +8,23 @@
 // nibble and row 2r+1 in the high nibble, both sign-extended; s scalar
 // (stride 0) or per column; bias per column or absent.
 //
+// Both kernels also run a conv as an implicit GEMM (quant_conv.py ·
+// quant_conv2d, for every conv with kH·kW > 1 or any padding): x is then the
+// conv's NCHW float32 input and the (N·OH·OW, C·kH·kW) operand its patches,
+// which no one writes.  Each element is gathered by address
+// (conv_taps.cuh, one map for both kernels) with a 4-byte cp.async into the
+// raw ring, laid out [k][m] so that a warp copies consecutive ow of one k,
+// padding taps zero-filled by the copy; the ring's existing conversion then
+// stages it as it stages a row-loaded x (the same float32 values through
+// the same int_staging.cuh, so the integer bodies give the same bits, and
+// the float32 body sums in the same K order under the same host plan).  The
+// epilogue writes out[n, o, oh, ow] directly: B2's int8 body from its C
+// fragments (eight consecutive rows a column), the CUDA-core body through a
+// shared-memory tile stored along m.  Bound there: the bytes of x and of the
+// output (CNV's conv #2 at 256 images: 59 MB and 51 MB, 0.033 ms), where the
+// patch path moved a float32 matrix 9x its input, written by aten's im2col
+// and copied twice.
+//
 // cc::qmm_kernel (B1, and B2's float32 and IMAD bodies): three bodies,
 // chosen by the EPI template parameter as the reference chooses by
 // `acc_dtype` and `requant`:
@@ -46,7 +63,10 @@
 //     |s|; exact on dyadic x); int32 sums wrap alike in any order;
 //   - x comes by 16-byte cp.async (rows where K % 4 == 0 and x lies on 16
 //     bytes; where K < BK the block's rows are one contiguous span, copied
-//     flat and read with pitch K, as at K = 27), else element by element;
+//     flat and read with pitch K), else element by element; a conv's
+//     patches by the gather (X_GATHER: each thread keeps one row of the
+//     tile, the float32 body reads the [k][m] slot as it landed and the
+//     integer bodies stage it to [m][k]);
 //     the weight bytes by 16-byte cp.async where N % 16 == 0; into a ring
 //     of 3 raw stages, so the loads run 2 K steps ahead;
 //   - each raw stage is converted once per block into one of two buffers:
@@ -77,7 +97,8 @@
 //   - x is read as float32 by 16-byte cp.async and the packed weight bytes
 //     likewise, into a ring of 3 raw stages in shared memory, so the loads
 //     run 2 steps ahead (operands whose rows are not on 16 bytes, K % 4 or
-//     N % 16 not 0, are read element by element into the same ring);
+//     N % 16 not 0, are read element by element into the same ring; a
+//     conv's patches are gathered, thread t keeping row t % 64 of the tile);
 //   - each raw stage is converted once per block: x to int8 codes laid out
 //     [m][k], the nibbles unpacked (sign-extended) to [n][k] (the `col` B
 //     operand), into one of two code buffers; rows are 80 bytes, so
@@ -111,6 +132,7 @@
 
 #include <type_traits>
 
+#include "conv_taps.cuh"
 #include "int_epilogue.cuh"
 #include "int_staging.cuh"
 
@@ -213,7 +235,19 @@ using Req = b3::Req32;
 template <int EPI, int MODE>
 __device__ __forceinline__ void write_tile(const int (&acc)[2][4][4], float* __restrict__ out,
                                            int M, int N, int r0, int c0, const void* s,
-                                           int s_stride, const float* bias, const Req& e) {
+                                           int s_stride, const float* bias, const Req& e,
+                                           const taps::Conv& cv, int gather) {
+  // gather mode: out is (N_img, N, OH, OW), so a row's channels lie OH·OW
+  // apart and the eight rows g of a column are consecutive floats
+  long long ro[2][2];
+  const int ohw = cv.OH * cv.OW;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = r0 + 16 * i + 8 * hh;
+      ro[i][hh] = gather && r < M ? taps::out_row(cv, r, N) : 0;
+    }
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int c = c0 + 8 * j;               // this thread's columns c and c + 1
@@ -247,6 +281,12 @@ __device__ __forceinline__ void write_tile(const int (&acc)[2][4][4], float* __r
             o[cc] = b3::int_epilogue32<MODE < 0 ? 0 : MODE>(
                 (int)((uint32_t)a * (uint32_t)mult[cc]), e);
           if (bias != nullptr) o[cc] = __fadd_rn(o[cc], b[cc]);
+        }
+        if (gather) {
+          float* dst = out + ro[i][hh] + (long long)c * ohw;
+          dst[0] = o[0];
+          if (c + 1 < N) dst[ohw] = o[1];
+          continue;
         }
         float* dst = out + (long long)r * N + c;
         if (c + 1 >= N)
@@ -285,12 +325,15 @@ __device__ __forceinline__ bool fits32(const int (&acc)[2][4][4], int N, int c0,
 // x_vec: K % 4 == 0 and x on 16 bytes, so x rows go by 16-byte cp.async;
 // w_vec: N % 16 == 0 and w on 16 bytes, so packed rows do too.  Otherwise
 // that operand is loaded element by element (ragged test and TFC shapes).
+// gather: x is a conv's NCHW input and the operand its patches, read by
+// conv_taps.cuh's address map (cv) into the raw ring laid out [k][m], and
+// out is the conv's NCHW output.
 template <int EPI, int BK>
 __global__ void __launch_bounds__(THREADS)
 qmm_i8_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
               const void* __restrict__ s, const float* __restrict__ bias,
               float* __restrict__ out, int M, int K, int N, int s_stride, Stage xst,
-              int x_vec, int w_vec, Req rq) {
+              int x_vec, int w_vec, Req rq, taps::Conv cv, int gather) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<BK>& sm = *reinterpret_cast<Smem<BK>*>(smem_raw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -299,21 +342,31 @@ qmm_i8_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
   const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
   const int kp = K >> 1, steps = (K + BK - 1) / BK;
   const uint8_t* wb = reinterpret_cast<const uint8_t*>(w);
+  // gather mode: thread tid gathers row tid % BM of the tile, columns
+  // kq E .. kq E + E - 1 of each step
+  constexpr int KQ = THREADS / BM, GE = BK / KQ;
+  const taps::Row grow = gather ? taps::row(cv, row0 + tid % BM, M) : taps::Row{};
 
   // the raw x and weight bytes of the K step at k0 into ring slot `slot`
   auto load = [&](int slot, int k0) {
     constexpr int XPR = BK / 4;                            // 16-byte pieces per x row
+    if (gather) {
+      const int kq = tid / BM;
+      taps::gather<GE>(&sm.xraw[slot][0][0] + kq * GE * BM + tid % BM, BM, x, cv, grow,
+                       k0 + kq * GE, K);
+    } else {
 #pragma unroll
-    for (int i = 0; i < BM * XPR / THREADS; ++i) {
-      const int c = tid + THREADS * i, r = c / XPR, kc = k0 + (c % XPR) * 4;
-      float* dst = &sm.xraw[slot][r][(c % XPR) * 4];
-      const float* src = x + (long long)(row0 + r) * K + kc;
-      const bool in = row0 + r < M;
-      if (x_vec) {
-        cp_async16(dst, in && kc < K ? src : x, in && kc < K ? 16 : 0);
-      } else {
+      for (int i = 0; i < BM * XPR / THREADS; ++i) {
+        const int c = tid + THREADS * i, r = c / XPR, kc = k0 + (c % XPR) * 4;
+        float* dst = &sm.xraw[slot][r][(c % XPR) * 4];
+        const float* src = x + (long long)(row0 + r) * K + kc;
+        const bool in = row0 + r < M;
+        if (x_vec) {
+          cp_async16(dst, in && kc < K ? src : x, in && kc < K ? 16 : 0);
+        } else {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dst[e] = in && kc + e < K ? src[e] : 0.f;
+          for (int e = 0; e < 4; ++e) dst[e] = in && kc + e < K ? src[e] : 0.f;
+        }
       }
     }
     constexpr int WPR = BN / 16;                           // 16-byte pieces per w row
@@ -333,21 +386,42 @@ qmm_i8_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
     }
   };
 
+  // item c of a stage: row r and columns k .. k + 3, and their raw floats
+  // ([m][k] as loaded by rows; [k][m] as gathered, consecutive rows to
+  // consecutive threads so that the reads hit distinct banks)
+  auto item = [&](int c, int& r, int& k) {
+    constexpr int XPR = BK / 4;
+    if (gather) {
+      r = c % BM;
+      k = c / BM * 4;
+    } else {
+      r = c / XPR;
+      k = (c % XPR) * 4;
+    }
+  };
+  auto raw4 = [&](int slot, int r, int k) {
+    if (gather) {
+      const float* t = &sm.xraw[slot][0][0] + k * BM + r;
+      return make_float4(t[0], t[BM], t[2 * BM], t[3 * BM]);
+    }
+    return *reinterpret_cast<const float4*>(&sm.xraw[slot][r][k]);
+  };
+
   // raw slot -> codes and unpacked weights in buffer `buf`
   auto stage = [&](int slot, int buf) {
     constexpr int XPR = BK / 4;
     bool exact = true;
 #pragma unroll
     for (int i = 0; i < BM * XPR / THREADS; ++i) {
-      const int c = tid + THREADS * i, r = c / XPR, k = (c % XPR) * 4;
-      const float4 f = *reinterpret_cast<const float4*>(&sm.xraw[slot][r][k]);
-      *reinterpret_cast<uint32_t*>(&sm.xs[buf][r][k]) = codes4(f, xst, exact);
+      int r, k;
+      item(tid + THREADS * i, r, k);
+      *reinterpret_cast<uint32_t*>(&sm.xs[buf][r][k]) = codes4(raw4(slot, r, k), xst, exact);
     }
     if (!exact) {                 // a quotient that is no integer: divide this thread's x
       for (int i = 0; i < BM * XPR / THREADS; ++i) {
-        const int c = tid + THREADS * i, r = c / XPR, k = (c % XPR) * 4;
-        const float4 f = *reinterpret_cast<const float4*>(&sm.xraw[slot][r][k]);
-        *reinterpret_cast<uint32_t*>(&sm.xs[buf][r][k]) = codes4_div(f, xst.div);
+        int r, k;
+        item(tid + THREADS * i, r, k);
+        *reinterpret_cast<uint32_t*>(&sm.xs[buf][r][k]) = codes4_div(raw4(slot, r, k), xst.div);
       }
     }
 #pragma unroll
@@ -410,7 +484,7 @@ qmm_i8_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
   const int r0 = row0 + wm + g, c0 = col0 + wn + 2 * t;
   if (EPI == EPI_B3 && rq.fast && fits32(acc, N, c0, s, s_stride)) {
 #define QMM_I8_WRITE(MODE) \
-  write_tile<EPI, MODE>(acc, out, M, N, r0, c0, s, s_stride, bias, rq)
+  write_tile<EPI, MODE>(acc, out, M, N, r0, c0, s, s_stride, bias, rq, cv, gather)
     switch (rq.rq.mode) {
       case b3::CEIL: QMM_I8_WRITE(b3::CEIL); break;
       case b3::FLOOR: QMM_I8_WRITE(b3::FLOOR); break;
@@ -422,14 +496,14 @@ qmm_i8_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
     }
 #undef QMM_I8_WRITE
   } else {
-    write_tile<EPI, -1>(acc, out, M, N, r0, c0, s, s_stride, bias, rq);
+    write_tile<EPI, -1>(acc, out, M, N, r0, c0, s, s_stride, bias, rq, cv, gather);
   }
 }
 
 template <int EPI, int BK>
 int launch_i8(dim3 grid, cudaStream_t st, const float* x, const int8_t* w, const void* s,
               const float* bias, float* out, int M, int K, int N, int s_stride,
-              const Stage& xst, const Req& rq) {
+              const Stage& xst, const Req& rq, const taps::Conv& cv, int gather) {
   constexpr int bytes = (int)sizeof(Smem<BK>);
   static bool attr_set = false;  // one device per process: set the opt-in once
   if (!attr_set) {
@@ -441,17 +515,19 @@ int launch_i8(dim3 grid, cudaStream_t st, const float* x, const int8_t* w, const
   const int x_vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const int w_vec = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   qmm_i8_kernel<EPI, BK><<<grid, THREADS, bytes, st>>>(x, w, s, bias, out, M, K, N, s_stride,
-                                                       xst, x_vec, w_vec, rq);
+                                                       xst, x_vec, w_vec, rq, cv, gather);
   return (int)cudaGetLastError();
 }
 
 template <int EPI>
 int launch_i8_k(dim3 grid, cudaStream_t st, const float* x, const int8_t* w, const void* s,
                 const float* bias, float* out, int M, int K, int N, int s_stride,
-                const Stage& xst, const Req& rq) {
+                const Stage& xst, const Req& rq, const taps::Conv& cv, int gather) {
   if (K <= 32)
-    return launch_i8<EPI, 32>(grid, st, x, w, s, bias, out, M, K, N, s_stride, xst, rq);
-  return launch_i8<EPI, 64>(grid, st, x, w, s, bias, out, M, K, N, s_stride, xst, rq);
+    return launch_i8<EPI, 32>(grid, st, x, w, s, bias, out, M, K, N, s_stride, xst, rq, cv,
+                              gather);
+  return launch_i8<EPI, 64>(grid, st, x, w, s, bias, out, M, K, N, s_stride, xst, rq, cv,
+                            gather);
 }
 
 }  // namespace tc
@@ -465,7 +541,7 @@ namespace cg = cooperative_groups;
 constexpr int THREADS = 256, BK = 32, STAGES = 3;
 constexpr int XP = BK + 4;            // x row pitch in row mode: 16-byte rows, 4 banks apart
 enum Tile { SMALL = 0, WIDE = 1, TALL = 2 };
-enum XMode { X_SCALAR = 0, X_VEC = 1, X_FLAT = 2 };
+enum XMode { X_SCALAR = 0, X_VEC = 1, X_FLAT = 2, X_GATHER = 3 };
 
 // the host plan's geometry (quant_matmul.py · qmm_launch_plan, QMM_GEO_FIELDS)
 struct Geo {
@@ -560,12 +636,15 @@ __device__ __forceinline__ V vec4(int a, int b, int c, int d) {
 
 // Each block: one BM x BN output tile, or with a split (cluster) the K range
 // of its cluster rank; TX x TY threads, thread (tx, ty) owning rows
-// ty + TY i (i < TM) and columns TN tx .. TN tx + 3.
+// ty + TY i (i < TM) and columns TN tx .. TN tx + 3.  In X_GATHER mode x is
+// a conv's NCHW input, read through conv_taps.cuh's address map (cv) into
+// raw slots laid out [k][m], and out is the conv's NCHW output.
 template <int BM, int BN, int TM, int TN, bool PACKED, int EPI>
 __global__ void __launch_bounds__(THREADS)
 qmm_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
            const void* __restrict__ s, const float* __restrict__ bias,
-           float* __restrict__ out, Geo g, int s_stride, stg::Stage xst, b3::Req32 rq) {
+           float* __restrict__ out, Geo g, int s_stride, stg::Stage xst, b3::Req32 rq,
+           taps::Conv cv) {
   using T = typename Acc<EPI>::T;
   using V = typename Vec<EPI>::T;
   using L = Layout<BM, BN, PACKED, EPI>;
@@ -586,11 +665,19 @@ qmm_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
   const int xp = g.xmode == X_FLAT ? g.K : XP;
   const uint8_t* wb = reinterpret_cast<const uint8_t*>(w);
   const int wr_hi = PACKED ? k_hi / 2 : k_hi;           // weight byte rows end
+  // X_GATHER: thread tid gathers row tid % BM of the tile, columns
+  // kq GE .. kq GE + GE - 1 of each step (THREADS is a multiple of BM)
+  const bool gather = g.xmode == X_GATHER;
+  constexpr int KQ = THREADS / BM, GE = BK / KQ;
+  const taps::Row grow = gather ? taps::row(cv, row0 + tid % BM, g.M) : taps::Row{};
 
   // the raw x and weight bytes of the K step at k0 into ring slot `slot`
   auto load = [&](int slot, int k0) {
     float* xs = xraw(slot);
-    if (g.xmode == X_FLAT) {                // one step: the tile's rows are one span
+    if (gather) {
+      const int kq = tid / BM;
+      taps::gather<GE>(xs + kq * GE * BM + tid % BM, BM, x, cv, grow, k0 + kq * GE, k_hi);
+    } else if (g.xmode == X_FLAT) {                // one step: the tile's rows are one span
       const int span = min(BM, g.M - row0) * g.K;
       const float* src = x + (long long)row0 * g.K;
       for (int c = tid; c < (BM * g.K + 3) / 4; c += THREADS) {
@@ -653,6 +740,15 @@ qmm_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
     if constexpr (EPI != EPI_F32) {
       const float* xs = xraw(slot);
       int* xc = xconv(buf);
+      if (gather) {           // [k][m] as gathered -> [m][k] staged, pitch XP
+        for (int i = tid; i < BM * (BK / 4); i += THREADS) {
+          const int r = i % BM, k = i / BM * 4;
+          const float* t = xs + k * BM + r;
+          *reinterpret_cast<int4*>(xc + r * XP + k) =
+              stg::stage_int4(make_float4(t[0], t[BM], t[2 * BM], t[3 * BM]), xst);
+        }
+        return;
+      }
       const bool flat = g.xmode == X_FLAT;
       const int pieces = flat ? (BM * g.K + 3) / 4 : BM * (BK / 4);
       for (int i = tid; i < pieces; i += THREADS) {
@@ -670,20 +766,23 @@ qmm_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
     for (int j = 0; j < TN; ++j) acc[i][j] = T(0);
 
   // kn of the step's BK columns hold K (the flat span's pitch is K, so it
-  // is read only that far)
-  auto compute = [&](int slot, int buf, int kn) {
+  // is read only that far).  COLS: x lies [k][m] (the float32 body's
+  // gathered raw slot, read as it landed), else [m][k] with pitch xp
+  auto compute = [&](int slot, int buf, int kn, auto cols) {
+    constexpr bool COLS = decltype(cols)::value;
+    const int rs = COLS ? 1 : xp, ks = COLS ? BM : 1;
     const T* xr;
     if constexpr (EPI == EPI_F32)
-      xr = xraw(slot) + ty * xp;          // the float32 body reads x as it landed
+      xr = xraw(slot) + ty * rs;          // the float32 body reads x as it landed
     else
-      xr = xconv(buf) + ty * xp;
+      xr = xconv(buf) + ty * rs;
     const T* wc = wconv(buf) + tx * TN;
 #pragma unroll 4
     for (int kk = 0; kk < kn; ++kk) {
       const V b = *reinterpret_cast<const V*>(wc + kk * BN);
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
-        const T a = xr[i * TY * xp + kk];
+        const T a = xr[i * TY * rs + kk * ks];
         mac(acc[i][0], a, b.x);
         mac(acc[i][1], a, b.y);
         mac(acc[i][2], a, b.z);
@@ -705,7 +804,15 @@ qmm_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
       __syncthreads();                        // buffer st converted; step st - 1 done with
       if (st + 2 < steps) load((st + 2) % STAGES, k_lo + (st + 2) * BK);
       tc::cp_async_commit();
-      compute(st % STAGES, st & 1, min(BK, k_hi - k_lo - st * BK));
+      const int kn = min(BK, k_hi - k_lo - st * BK);
+      if constexpr (EPI == EPI_F32) {
+        if (gather)
+          compute(st % STAGES, st & 1, kn, std::true_type{});
+        else
+          compute(st % STAGES, st & 1, kn, std::false_type{});
+      } else {
+        compute(st % STAGES, st & 1, kn, std::false_type{});
+      }
       if (st + 1 < steps) convert((st + 1) % STAGES, (st + 1) & 1);
     }
   }
@@ -730,14 +837,25 @@ qmm_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
         T v = *cluster.map_shared_rank(red + e, 0);
         for (int q = 1; q < split; ++q) v = add(v, *cluster.map_shared_rank(red + e, q));
         const int r = row0 + e / BN, c = col0 + e % BN;
-        if (r < g.M && c < g.N)
-          out[(long long)r * g.N + c] = epi1<EPI, MODE>(v, c, s, s_stride, bias, rq);
+        if (r < g.M && c < g.N) {
+          const long long o = gather ? taps::out_row(cv, r, g.N) + (long long)c * cv.OH * cv.OW
+                                     : (long long)r * g.N + c;
+          out[o] = epi1<EPI, MODE>(v, c, s, s_stride, bias, rq);
+        }
       }
     });
     cluster.sync();                           // no CTA leaves while its partials are read
     return;
   }
 
+  // gathered: out is NCHW, so the tile goes through shared memory ([n][m],
+  // pitch BM + 1) and then out along m, consecutive rows (consecutive ow)
+  // to consecutive threads
+  float* const tile = reinterpret_cast<float*>(smem_raw);
+  if (gather) {
+    tc::cp_async_wait<0>();
+    __syncthreads();                          // the ring and the buffers are free
+  }
   with_mode<EPI>(rq, [&](auto mode) {
     constexpr int MODE = decltype(mode)::value;
 #pragma unroll
@@ -748,6 +866,11 @@ qmm_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
       for (int j = 0; j < TN; ++j)
         o[j] = c + j < g.N ? epi1<EPI, MODE>(acc[i][j], c + j, s, s_stride, bias, rq) : 0.f;
+      if (gather) {
+#pragma unroll
+        for (int j = 0; j < TN; ++j) tile[(tx * TN + j) * (BM + 1) + ty + TY * i] = o[j];
+        continue;
+      }
       float* dst = out + (long long)r * g.N + c;
       if (g.ovec && c + TN <= g.N) {
         *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
@@ -758,17 +881,28 @@ qmm_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
       }
     }
   });
+  if (gather) {
+    __syncthreads();
+    const int r = row0 + tid % BM;
+    if (r < g.M) {
+      const long long ro = taps::out_row(cv, r, g.N), ohw = (long long)cv.OH * cv.OW;
+      for (int c = tid / BM; c < BN && col0 + c < g.N; c += KQ)
+        out[ro + (col0 + c) * ohw] = tile[c * (BM + 1) + tid % BM];
+    }
+  }
 }
 
 template <int BM, int BN, int TM, int TN, bool PACKED, int EPI>
 int launch(const Geo& g, cudaStream_t st, const float* x, const int8_t* w, const void* s,
            const float* bias, float* out, int s_stride, const stg::Stage& xst,
-           const b3::Req32& rq) {
+           const b3::Req32& rq, const taps::Conv& cv) {
   using L = Layout<BM, BN, PACKED, EPI>;
   auto kernel = qmm_kernel<BM, BN, TM, TN, PACKED, EPI>;
-  // the plan's size is the kernel's, and a split's partials fit it
+  // the plan's size is the kernel's, a split's partials fit it, and so does
+  // the gathered path's NCHW tile
   if (g.smem != L::bytes(g.stages, g.bufs) ||
-      (g.split > 1 && BM * BN * 4 > g.stages * L::RAW))
+      (g.split > 1 && BM * BN * 4 > g.stages * L::RAW) ||
+      (g.xmode == X_GATHER && (BM + 1) * BN * 4 > g.smem))
     return (int)cudaErrorInvalidValue;
   static bool attr_set = false;  // one device per process: opt in to the largest once
   constexpr int most = L::bytes(STAGES, 2);
@@ -790,7 +924,8 @@ int launch(const Geo& g, cudaStream_t st, const float* x, const int8_t* w, const
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = g.split > 1 ? 1 : 0;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, x, w, s, bias, out, g, s_stride, xst, rq);
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, kernel, x, w, s, bias, out, g, s_stride, xst, rq, cv);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -798,14 +933,15 @@ int launch(const Geo& g, cudaStream_t st, const float* x, const int8_t* w, const
 template <bool PACKED, int EPI>
 int launch_tile(const Geo& g, cudaStream_t st, const float* x, const int8_t* w, const void* s,
                 const float* bias, float* out, int s_stride, const stg::Stage& xst,
-                const b3::Req32& rq) {
+                const b3::Req32& rq, const taps::Conv& cv) {
   switch (g.tile) {
     case SMALL:
-      return launch<16, 64, 1, 4, PACKED, EPI>(g, st, x, w, s, bias, out, s_stride, xst, rq);
+      return launch<16, 64, 1, 4, PACKED, EPI>(g, st, x, w, s, bias, out, s_stride, xst, rq, cv);
     case WIDE:
-      return launch<64, 64, 4, 4, PACKED, EPI>(g, st, x, w, s, bias, out, s_stride, xst, rq);
+      return launch<64, 64, 4, 4, PACKED, EPI>(g, st, x, w, s, bias, out, s_stride, xst, rq, cv);
     case TALL:
-      return launch<128, 32, 4, 4, PACKED, EPI>(g, st, x, w, s, bias, out, s_stride, xst, rq);
+      return launch<128, 32, 4, 4, PACKED, EPI>(g, st, x, w, s, bias, out, s_stride, xst, rq,
+                                                cv);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -814,12 +950,12 @@ int launch_tile(const Geo& g, cudaStream_t st, const float* x, const int8_t* w, 
 template <bool PACKED>
 int launch_epi(int epi, const Geo& g, cudaStream_t st, const float* x, const int8_t* w,
                const void* s, const float* bias, float* out, int s_stride,
-               const stg::Stage& xst, const b3::Req32& rq) {
+               const stg::Stage& xst, const b3::Req32& rq, const taps::Conv& cv) {
   if (epi == EPI_F32)
-    return launch_tile<PACKED, EPI_F32>(g, st, x, w, s, bias, out, s_stride, xst, rq);
+    return launch_tile<PACKED, EPI_F32>(g, st, x, w, s, bias, out, s_stride, xst, rq, cv);
   if (epi == EPI_I32)
-    return launch_tile<PACKED, EPI_I32>(g, st, x, w, s, bias, out, s_stride, xst, rq);
-  return launch_tile<PACKED, EPI_B3>(g, st, x, w, s, bias, out, s_stride, xst, rq);
+    return launch_tile<PACKED, EPI_I32>(g, st, x, w, s, bias, out, s_stride, xst, rq, cv);
+  return launch_tile<PACKED, EPI_B3>(g, st, x, w, s, bias, out, s_stride, xst, rq, cv);
 }
 
 }  // namespace cc
@@ -831,10 +967,25 @@ b3::IntReq int_req(int epi, const int* rq, float out_mul) {
   return b3::IntReq{rq[0], rq[1], rq[2], rq[3], rq[4], rq[5], rq[6], rq[7], rq[8], out_mul};
 }
 
+// the conv geometry's 14 ints (read on the host; quant_conv.py ·
+// CONV_GEO_FIELDS), or none; false where they do not describe an (M, K)
+// operand of a conv over an x of fewer than 2^31 elements
+bool conv_geo(const int* c, int M, int K, taps::Conv& cv) {
+  cv = taps::Conv{};
+  if (c == nullptr) return true;
+  cv = taps::Conv{c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8], c[9], c[10], c[11],
+                  c[12], c[13]};
+  for (int i = 0; i < 14; ++i)
+    if (c[i] < (i < 12 ? 1 : 0)) return false;
+  return (long long)cv.N * cv.OH * cv.OW == M && (long long)cv.C * cv.kh * cv.kw == K &&
+         (long long)cv.N * cv.C * cv.H * cv.W < (1LL << 31);
+}
+
 }  // namespace
 
 // K is the logical depth (the packed weight has K / 2 rows).  bias may be
-// null.  geo: the plan's QMM_GEO_FIELDS.  epi: 0 float32 body, 1 int32
+// null.  geo: the plan's QMM_GEO_FIELDS; conv: null, or with the plan's
+// X_GATHER mode the conv's geometry (x its NCHW input, out its NCHW output).  epi: 0 float32 body, 1 int32
 // body with the float32 epilogue, 2 int32 body with B3 (s then holds int32
 // multipliers and rq points at the 9 IntRequant ints, read on the host).
 // On the integer bodies x is staged as round(x / in_div) by
@@ -844,7 +995,7 @@ b3::IntReq int_req(int epi, const int* rq, float out_mul) {
 extern "C" int qmm_launch(const float* x, const int8_t* w, const void* s, const float* bias,
                           float* out, const int* geo, int s_stride, int packed, int epi,
                           float in_div, float in_mul, int stage_mode, const int* rq,
-                          float out_mul, void* stream) {
+                          float out_mul, const int* conv, void* stream) {
   if (epi < EPI_F32 || epi > EPI_B3) return (int)cudaErrorInvalidValue;
   const cc::Geo g{geo[0], geo[1], geo[2], geo[3], geo[4], geo[5], geo[6],
                   geo[7], geo[8], geo[9], geo[10], geo[11], geo[12], geo[13]};
@@ -855,13 +1006,16 @@ extern "C" int qmm_launch(const float* x, const int8_t* w, const void* s, const 
   if (g.split < 1 || g.split > 8 || g.kc < cc::BK || g.kc % cc::BK != 0 ||
       g.stages < 1 || g.stages > cc::STAGES || g.bufs != (g.stages < 2 ? 1 : 2) ||
       (g.stages < cc::STAGES && most_steps > g.stages) ||
-      (g.xmode == cc::X_FLAT && (g.split != 1 || g.K >= cc::BK)))
+      (g.xmode == cc::X_FLAT && (g.split != 1 || g.K >= cc::BK)) ||
+      (g.xmode == cc::X_GATHER) != (conv != nullptr))
     return (int)cudaErrorInvalidValue;
+  taps::Conv cv;
+  if (!conv_geo(conv, g.M, g.K, cv)) return (int)cudaErrorInvalidValue;
   const b3::Req32 r = b3::make_req32(int_req(epi, rq, out_mul));
   const stg::Stage xst = stg::make_stage(in_div, in_mul, stage_mode);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (packed) return cc::launch_epi<true>(epi, g, st, x, w, s, bias, out, s_stride, xst, r);
-  return cc::launch_epi<false>(epi, g, st, x, w, s, bias, out, s_stride, xst, r);
+  if (packed) return cc::launch_epi<true>(epi, g, st, x, w, s, bias, out, s_stride, xst, r, cv);
+  return cc::launch_epi<false>(epi, g, st, x, w, s, bias, out, s_stride, xst, r, cv);
 }
 
 // B2's integer body on the int8 tensor cores (qmm_i8_kernel): w is the
@@ -869,12 +1023,16 @@ extern "C" int qmm_launch(const float* x, const int8_t* w, const void* s, const 
 // qmm_launch).  Each x element is multiplied by in_mul when in_mul != 0 (the
 // exact reciprocal of a power-of-two in_div, checked on the host), else
 // divided by in_div.  Every staged code must lie in [-128, 127] (the
-// lowering's proof).  Returns cudaGetLastError() after the launch.
+// lowering's proof).  conv: null, or the conv's geometry, x then its NCHW
+// input and out its NCHW output.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int qmm_i8_launch(const float* x, const int8_t* w, const void* s, const float* bias,
                              float* out, int M, int K, int N, int s_stride, int epi,
                              float in_div, float in_mul, const int* rq, float out_mul,
-                             void* stream) {
-  if ((epi != EPI_I32 && epi != EPI_B3) || (K & 1)) return (int)cudaErrorInvalidValue;
+                             const int* conv, void* stream) {
+  taps::Conv cv;
+  if ((epi != EPI_I32 && epi != EPI_B3) || (K & 1) || !conv_geo(conv, M, K, cv))
+    return (int)cudaErrorInvalidValue;
   const tc::Req e =
       b3::make_req32(int_req(epi, rq, out_mul));
   const tc::Stage xst =
@@ -882,7 +1040,10 @@ extern "C" int qmm_i8_launch(const float* x, const int8_t* w, const void* s, con
   if (M <= 0 || N <= 0) return (int)cudaGetLastError();
   const dim3 grid((M + tc::BM - 1) / tc::BM, (N + tc::BN - 1) / tc::BN);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int gather = conv != nullptr;
   if (epi == EPI_I32)
-    return tc::launch_i8_k<EPI_I32>(grid, st, x, w, s, bias, out, M, K, N, s_stride, xst, e);
-  return tc::launch_i8_k<EPI_B3>(grid, st, x, w, s, bias, out, M, K, N, s_stride, xst, e);
+    return tc::launch_i8_k<EPI_I32>(grid, st, x, w, s, bias, out, M, K, N, s_stride, xst, e, cv,
+                                    gather);
+  return tc::launch_i8_k<EPI_B3>(grid, st, x, w, s, bias, out, M, K, N, s_stride, xst, e, cv,
+                                 gather);
 }

@@ -13,12 +13,13 @@ import importlib
 
 import torch
 
+from . import quant_conv as _conv
 from . import quant_dequant as _qdq
 from . import quant_grouped_conv as _gconv
 from . import quant_matmul as _qmm
 from .flash_attention import flash_attention, flash_attention_plain  # noqa: F401
 from .quant_conv import (  # noqa: F401
-    extract_patches, im2col_weights, quant_conv2d)
+    conv_operand, extract_patches, im2col_weights, quant_conv2d)
 from .quant_dequant import (  # noqa: F401
     qdq_launch_plan, quant_dequant, quant_dequant_plain)
 from .quant_grouped_conv import (  # noqa: F401
@@ -73,6 +74,13 @@ def b2_body_counts() -> dict:
     return dict(_qmm.body_launches)
 
 
+def conv_operand_counts() -> dict:
+    """``quant_conv2d``'s launches so far on the card per path of the A
+    operand: ``implicit`` (gathered inside B1 / B2) and ``materialised``
+    (a patch matrix first)."""
+    return dict(_conv.conv_operand_launches)
+
+
 def staging_counts() -> dict:
     """B5's and B6's integer-body launches so far per staging mode of x
     (``reciprocal``, ``quotient``, ``division``), per kernel."""
@@ -80,11 +88,11 @@ def staging_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    """Zero every launch count, B2's per-body counts and B5's / B6's
-    per-staging counts included."""
+    """Zero every launch count, B2's per-body counts, the conv operand's
+    per-path counts and B5's / B6's per-staging counts included."""
     _qdq.launches = 0
     _fa.launches = 0
-    for counts in (_qmm.launches, _qmm.body_launches, _gconv.launches,
-                   *_gconv.staging_launches.values()):
+    for counts in (_qmm.launches, _qmm.body_launches, _conv.conv_operand_launches,
+                   _gconv.launches, *_gconv.staging_launches.values()):
         for k in counts:
             counts[k] = 0

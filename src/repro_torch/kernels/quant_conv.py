@@ -10,26 +10,50 @@ integer weight-carrier kernels.
     block-diagonal over the groups for ``group > 1`` (the dense fallback
     of the grouped rule; ``quant_grouped_conv`` holds the dedicated
     kernels).
-  * **run time** (``extract_patches``): the activation is unfolded into a
-    contiguous (N·OH·OW, C·kH·kW) patch matrix, feature axis ordered
-    (c, kh, kw) with c slowest, the order ``im2col_weights`` emits.
-    ONNX pads are [top, left, bottom, right] and may be asymmetric, so the
-    input is zero-padded first and unfolded without padding.
-  * the patch matrix then rides ``quant_matmul`` / ``quant_matmul_int4``
-    unchanged; the per-output-channel scale applies after the K loop.
+  * **the operand**: row m = (n, oh, ow) and column k = (c, kh, kw) of the
+    (N·OH·OW, C·kH·kW) patch matrix, c slowest, the order
+    ``im2col_weights`` emits.  ONNX pads are [top, left, bottom, right]
+    and may be asymmetric; a padding tap is an exact 0.
+  * **on the card** (``conv_operand`` "implicit": every conv with
+    kH·kW > 1 or any padding) no patch matrix is built: B1 and B2 read
+    the operand straight from the NCHW activation by address (implicit
+    GEMM; ``csrc/conv_taps.cuh``, geometry ``ConvGather``) and write the
+    (N, O, OH, OW) output directly.  The bits are those of the
+    materialised path: the same float32 values are staged, the float32
+    body sums in the same K order under the same launch plan.
+  * **materialised** (``extract_patches``): the activation is unfolded
+    into a contiguous patch matrix (the input zero-padded first and
+    unfolded without padding), which rides ``quant_matmul`` /
+    ``quant_matmul_int4`` unchanged; the output is permuted to NCHW.  The
+    plain twins on the CPU take this path, and so does the unpadded 1×1
+    pointwise conv on the card (its "patches" are the NHWC permute of
+    the strided input).  ``gather_patches`` is the host half of the
+    implicit path: the kernel's row bases, tap offsets and bounds applied
+    by a torch gather, which the CPU tests hold against
+    ``extract_patches``.
 
-``quant_conv2d`` takes NCHW and returns a contiguous NCHW tensor, so the
-segment slots into the graph where the Conv node was.
+``conv_operand_launches`` counts the card's conv launches per path, at
+the call (so at a warm-up and a capture, never at a replay), as
+``quant_matmul.body_launches`` counts B2's bodies.  ``quant_conv2d``
+takes NCHW and returns a contiguous NCHW tensor, so the segment slots
+into the graph where the Conv node was.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .quant_matmul import quant_matmul, quant_matmul_int4
+from .quant_matmul import _launch, quant_matmul, quant_matmul_int4
+
+# the card's conv launches per path of the A operand: gathered by address
+# in the kernel, or unfolded into a patch matrix first
+conv_operand_launches = {"implicit": 0, "materialised": 0}
 
 
 def im2col_weights(w, groups: int = 1) -> np.ndarray:
@@ -115,13 +139,130 @@ def extract_patches(x: torch.Tensor, kernel_shape, strides=(1, 1),
             .contiguous(), (oh, ow))
 
 
+# the kernels' conv geometry (csrc/conv_taps.cuh · taps::Conv), in order
+CONV_GEO_FIELDS = ("N", "C", "H", "W", "OH", "OW", "kh", "kw", "sh", "sw",
+                   "dh", "dw", "pt", "pl")
+
+
+@dataclass(frozen=True)
+class ConvGather:
+    """The implicit GEMM's geometry of one conv (``CONV_GEO_FIELDS``): an
+    (N, C, H, W) input, (OH, OW) outputs, a kh x kw kernel, strides
+    (sh, sw), dilations (dh, dw) and the top / left pads (pt, pl); the
+    bottom and right pads only set OH and OW."""
+    N: int
+    C: int
+    H: int
+    W: int
+    OH: int
+    OW: int
+    kh: int
+    kw: int
+    sh: int
+    sw: int
+    dh: int
+    dw: int
+    pt: int
+    pl: int
+
+    @property
+    def M(self) -> int:
+        return self.N * self.OH * self.OW
+
+    @property
+    def K(self) -> int:
+        return self.C * self.kh * self.kw
+
+    @property
+    def in_shape(self) -> tuple:
+        return (self.N, self.C, self.H, self.W)
+
+    def out_shape(self, o: int) -> tuple:
+        return (self.N, o, self.OH, self.OW)
+
+    @functools.cached_property
+    def ints(self):
+        """The C interface's geometry array (built once per geometry)."""
+        return (ctypes.c_int * len(CONV_GEO_FIELDS))(
+            *(getattr(self, f) for f in CONV_GEO_FIELDS))
+
+
+@functools.lru_cache(maxsize=256)
+def conv_gather(shape: tuple, kernel_shape, strides, pads,
+                dilations) -> ConvGather:
+    """The ``ConvGather`` of a conv over an NCHW input of ``shape``.  Raises
+    ``ValueError`` where the kernels' 32-bit column offsets cannot address
+    it (an input of 2^31 elements or more)."""
+    n, c, h, w = (int(v) for v in shape)
+    oh, ow = conv_out_hw(h, w, kernel_shape, strides, pads, dilations)
+    pt, pl, _, _ = _ints(pads)
+    if n * c * h * w >= 2 ** 31:
+        raise ValueError(f"quant_conv2d: an input of {n * c * h * w} elements "
+                         "is beyond the gather's 32-bit offsets")
+    return ConvGather(n, c, h, w, oh, ow, *_ints(kernel_shape), *_ints(strides),
+                      *_ints(dilations), pt, pl)
+
+
+def gather_taps(g: ConvGather):
+    """Every column's offset and tap, ``(off, dy, dx)``, int64, as the
+    kernels walk them (``taps::next``: kw, then kh, then c, by carries
+    from column 0)."""
+    off, dy, dx = [], [], []
+    o = y = x = 0
+    for _ in range(g.K):
+        off.append(o)
+        dy.append(y)
+        dx.append(x)
+        x += g.dw
+        o += g.dw
+        if x == g.kw * g.dw:
+            x, y, o = 0, y + g.dh, o + g.dh * g.W - g.kw * g.dw
+            if y == g.kh * g.dh:
+                y, o = 0, o + g.H * g.W - g.kh * g.dh * g.W
+    return tuple(torch.tensor(v, dtype=torch.int64) for v in (off, dy, dx))
+
+
+def gather_patches(x: torch.Tensor, g: ConvGather) -> torch.Tensor:
+    """The host half of ``csrc/conv_taps.cuh``: the (M, K) operand the
+    kernels gather from NCHW ``x``.  Row m's base is n·C·H·W + ih·W + iw,
+    (ih, iw) tap (0, 0)'s input position (either may lie outside the map);
+    column k's offset and tap come from ``gather_taps``; the element is
+    base + off where 0 <= ih + dy < H and 0 <= iw + dx < W, else an exact
+    0."""
+    m = torch.arange(g.M, dtype=torch.int64)
+    n, p = m // (g.OH * g.OW), m % (g.OH * g.OW)
+    ih = p // g.OW * g.sh - g.pt
+    iw = p % g.OW * g.sw - g.pl
+    base = n * g.C * g.H * g.W + ih * g.W + iw
+    off, dy, dx = gather_taps(g)
+    inside = ((ih[:, None] + dy >= 0) & (ih[:, None] + dy < g.H) &
+              (iw[:, None] + dx >= 0) & (iw[:, None] + dx < g.W))
+    idx = torch.where(inside, base[:, None] + off, 0)
+    flat = x.reshape(-1)
+    return torch.where(inside, flat[idx], torch.zeros((), dtype=x.dtype))
+
+
+def conv_operand(kernel_shape, pads, device) -> str:
+    """How ``quant_conv2d`` takes the conv's A operand on ``device``:
+    ``"implicit"`` (gathered by address inside B1 / B2) on the card for
+    every conv with kH·kW > 1 or any padding, else ``"materialised"`` (the
+    patch matrix of ``extract_patches``: the CPU's twins, and the unpadded
+    pointwise conv's NHWC permute)."""
+    kh, kw = _ints(kernel_shape)
+    if torch.device(device).type == "cuda" and \
+            (kh * kw > 1 or any(_ints(pads))):
+        return "implicit"
+    return "materialised"
+
+
 def quant_conv2d(x: torch.Tensor, w2: torch.Tensor, w_scale,
                  bias: Optional[torch.Tensor] = None, *, kernel_shape,
                  strides=(1, 1), pads=(0, 0, 0, 0), dilations=(1, 1),
                  packed: bool = False, acc_dtype=torch.float32, requant=None,
                  in_scale=None, int8_codes: bool = False,
                  blocks=None) -> torch.Tensor:
-    """Fused quantized conv: im2col patches through B1 / B2.
+    """Fused quantized conv through B1 / B2 (the operand as
+    ``conv_operand`` says).
 
     x        — (N, C, H, W) activations (cast to float32)
     w2       — im2col'd integer weights (C·kH·kW, O) int8, or their int4
@@ -135,6 +276,21 @@ def quant_conv2d(x: torch.Tensor, w2: torch.Tensor, w_scale,
     blocks   — the matmul's launch-plan override (``quant_matmul``)
     Returns (N, O, OH, OW) float32, contiguous."""
     x = x.to(torch.float32)
+    operand = conv_operand(kernel_shape, pads, x.device)
+    if x.device.type == "cuda":
+        conv_operand_launches[operand] += 1
+    if operand == "implicit":
+        k = 2 * w2.shape[0] if packed else w2.shape[0]
+        if packed and int8_codes and acc_dtype != torch.int32:
+            raise ValueError("quant_conv2d: int8_codes=True needs "
+                             "acc_dtype=torch.int32")
+        return _launch("quant_matmul_int4" if packed else "quant_matmul",
+                       x.contiguous(), w2, w_scale, bias, k, packed, acc_dtype,
+                       requant, in_scale, int8_codes=packed and int8_codes,
+                       blocks=blocks,
+                       conv=conv_gather(tuple(x.shape), _ints(kernel_shape),
+                                        _ints(strides), _ints(pads),
+                                        _ints(dilations)))
     patches, (oh, ow) = extract_patches(x, kernel_shape, strides, pads,
                                         dilations)
     mm = quant_matmul_int4 if packed else quant_matmul

@@ -25,10 +25,13 @@ scale, whose quotients it proved to be the integers ``q - z``.
 
 Bound on the card: at the TFC shapes (M <= 256, (K, N) in {(784, 64),
 (64, 64), (64, 10)}) a few hundred nanoseconds of FMA, IMAD or bytes; at
-the first convs of CNV and MobileNet (K = 27) the bytes of x and the
-output.  What a launch pays at TFC is the chain of latencies of too few
-blocks, so the design (in the source) fills the card and shortens each
-block's chain.  Its geometry is a host plan, ``qmm_launch_plan``: the
+the convs of CNV and MobileNet the bytes of the conv's input and output.
+A conv reaches the kernels as an implicit GEMM (``quant_conv``): with
+``conv=`` (``_launch``) x is its NCHW input, whose patches the kernels
+gather by address (``csrc/conv_taps.cuh``; the plan's ``gather`` x
+staging), and the output is its NCHW tensor.  What a launch pays at TFC
+is the chain of latencies of too few blocks, so the design (in the
+source) fills the card and shortens each block's chain.  Its geometry is a host plan, ``qmm_launch_plan``: the
 output tile (16x64 at small M; 64x64, or 128x32 where N <= 32, where those
 give half a wave of blocks) and, where the tiles do not fill the 132 SMs,
 a split of K over a thread-block cluster of up to 8 CTAs, whose partial
@@ -308,7 +311,7 @@ QMM_CLUSTER_MAX = 8            # the portable cluster size
 # tiles by id (the kernel's Tile): (BM, BN, TM, TN), 256 threads of TM x TN
 QMM_TILES = {0: (16, 64, 1, 4), 1: (64, 64, 4, 4), 2: (128, 32, 4, 4)}
 QMM_TILE_NAMES = ("small", "wide", "tall")
-QMM_XMODES = ("scalar", "vec", "flat")      # x staging (the kernel's XMode)
+QMM_XMODES = ("scalar", "vec", "flat", "gather")   # x staging (the kernel's XMode)
 QMM_GEO_FIELDS = ("M", "K", "N", "tile", "tiles_m", "tiles_n", "split", "kc",
                   "stages", "bufs", "xmode", "wvec", "ovec", "smem")
 
@@ -406,10 +409,15 @@ def qmm_min_stages(tile: int, packed: bool, epi: int, K: int, split: int) -> int
 @functools.lru_cache(maxsize=1024)
 def qmm_launch_plan(M: int, K: int, N: int, packed: bool, epi: int,
                     x_vec: bool = True, w_vec: bool = True,
-                    o_vec: bool = True, override=None) -> QmmPlan:
+                    o_vec: bool = True, override=None,
+                    gather: bool = False) -> QmmPlan:
     """The CUDA-core body's geometry for (M, K) @ (K, N); ``epi`` the body
     (0 float32, 1 int32, 2 int32 + B3); ``x_vec`` / ``w_vec`` / ``o_vec``:
-    x / the weights / the output lie on 16 bytes.
+    x / the weights / the output lie on 16 bytes.  ``gather``: the (M, K)
+    operand is a conv's patches, read by address from its NCHW input
+    (``quant_conv.quant_conv2d``); x is then staged by that gather, in
+    place of the alignment rule of x, and the NCHW output goes through
+    shared memory, so ``x_vec`` and ``o_vec`` do not apply.
 
     The tile: 64x64 (128x32 where N <= 32) where that gives at least half a
     wave of blocks (SMS / 2), else 16x64, the smallest, so small M gets the
@@ -462,7 +470,9 @@ def qmm_launch_plan(M: int, K: int, N: int, packed: bool, epi: int,
     tiles_m, tiles_n = -(-M // bm), -(-N // bn)
     kc = _qmm_kc(K, split)
     bufs = min(2, stages)
-    if x_vec and 0 < K < QMM_BK:
+    if gather:
+        xmode, o_vec = 3, False
+    elif x_vec and 0 < K < QMM_BK:
         xmode = 2
     elif x_vec and K % 4 == 0:
         xmode = 1
@@ -474,6 +484,9 @@ def qmm_launch_plan(M: int, K: int, N: int, packed: bool, epi: int,
     if plan.smem > SMEM_MAX:
         raise ValueError(f"qmm_launch_plan: {plan.smem} bytes of shared memory "
                          f"(at most {SMEM_MAX})")
+    if gather and 4 * (bm + 1) * bn > plan.smem:
+        raise ValueError(f"qmm_launch_plan: the gathered path's {bm}x{bn} output "
+                         f"tile does not fit {plan.smem} bytes of shared memory")
     if plan.grid[0] >= 2 ** 31 or plan.grid[1] > 65535:
         raise ValueError(f"qmm_launch_plan: grid {plan.grid} beyond the launch limits")
     return plan
@@ -497,14 +510,22 @@ def qmm_i8_blocks(K: int) -> tuple[int, int, int]:
 
 
 def _launch(name, x, w, w_scale, bias, k, packed, acc_dtype, requant,
-            in_scale, int8_codes=False, blocks=None) -> torch.Tensor:
+            in_scale, int8_codes=False, blocks=None, conv=None) -> torch.Tensor:
+    """One launch of B1 / B2.  ``conv`` (``quant_conv.ConvGather``): x is
+    that conv's NCHW input, the (M, K) operand its patches, gathered by
+    address in the kernel, and the output its (N, O, OH, OW) tensor."""
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
-    if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():
-        raise ValueError(f"{name}: x must be a contiguous 2-D float32 tensor")
+    if x.dtype != torch.float32 or x.ndim != (2 if conv is None else 4) or \
+            not x.is_contiguous():
+        raise ValueError(f"{name}: x must be a contiguous "
+                         f"{'2-D' if conv is None else 'NCHW'} float32 tensor")
     if w.dtype != torch.int8 or w.ndim != 2 or not w.is_contiguous():
         raise ValueError(f"{name}: weights must be a contiguous 2-D int8 tensor")
-    m, n = x.shape[0], w.shape[1]
+    m, n = (x.shape[0] if conv is None else conv.M), w.shape[1]
+    if conv is not None and (tuple(x.shape) != conv.in_shape or k != conv.K):
+        raise ValueError(f"{name}: x {tuple(x.shape)} and K={k} are not the "
+                         f"conv's {conv.in_shape} and K={conv.K}")
     epi, s, in_div, rq, out_mul = epilogue_args(
         name, acc_dtype, requant, in_scale, w_scale, n, x.device)
     b = None
@@ -515,11 +536,13 @@ def _launch(name, x, w, w_scale, bias, k, packed, acc_dtype, requant,
     for t in (w, s) + (() if b is None else (b,)):
         if t.device != x.device:
             raise ValueError(f"{name}: every operand must lie on {x.device}")
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n) if conv is None else conv.out_shape(n),
+                      dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out
     stream = torch.cuda.current_stream(x.device).cuda_stream
     bias_ptr = None if b is None else b.data_ptr()
+    geo = None if conv is None else conv.ints
     if int8_codes:
         if blocks is not None and tuple(blocks) != qmm_i8_blocks(k):
             raise ValueError(f"{name}: the int8 body has one geometry, "
@@ -527,17 +550,18 @@ def _launch(name, x, w, w_scale, bias, k, packed, acc_dtype, requant,
         err = load().qmm_i8_launch(
             x.data_ptr(), w.data_ptr(), s.data_ptr(), bias_ptr, out.data_ptr(),
             m, k, n, int(s.numel() > 1), epi, in_div, staging(in_scale)[2], rq,
-            out_mul, stream)
+            out_mul, geo, stream)
         check(err, "qmm_i8_launch")
     else:
         plan = qmm_launch_plan(m, k, n, bool(packed), epi, x.data_ptr() % 16 == 0,
                                w.data_ptr() % 16 == 0, out.data_ptr() % 16 == 0,
-                               None if blocks is None else tuple(blocks))
+                               None if blocks is None else tuple(blocks),
+                               gather=conv is not None)
         mode, div, mul = staging(in_scale)
         err = load().qmm_launch(
             x.data_ptr(), w.data_ptr(), s.data_ptr(), bias_ptr, out.data_ptr(),
             plan.ints, int(s.numel() > 1), int(packed), epi, div, mul, mode, rq,
-            out_mul, stream)
+            out_mul, geo, stream)
         check(err, "qmm_launch")
     launches[name] += 1
     if packed:

@@ -130,11 +130,38 @@ def test_quant_conv2d_bit_exact_on_dyadic(ks, st, pads, dil, int4):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("ks,st,pads,dil", GEOMETRIES, ids=GEOM_IDS)
+def test_gather_geometry_reproduces_extract_patches(ks, st, pads, dil):
+    """The implicit GEMM's host geometry (row bases, tap offsets, bounds),
+    applied by a torch gather, is the patch matrix bit for bit, padding
+    taps exact zeros; the kernels' walk of the columns by carries is the
+    direct (c, kh, kw) decomposition."""
+    x = torch.from_numpy(np.random.RandomState(2).randn(2, 3, 9, 8)
+                         .astype(np.float32))
+    want, hw = tconv.extract_patches(x, ks, st, pads, dil)
+    geo = tconv.conv_gather(tuple(x.shape), ks, st, pads, dil)
+    assert (geo.OH, geo.OW) == hw and (geo.M, geo.K) == tuple(want.shape)
+    got = tconv.gather_patches(x, geo)
+    assert torch.equal(got, want)
+    assert not torch.signbit(got[got == 0]).any()
+    off, dy, dx = tconv.gather_taps(geo)
+    k = torch.arange(geo.K)
+    c, t = k // (geo.kh * geo.kw), k % (geo.kh * geo.kw)
+    assert torch.equal(dy, t // geo.kw * geo.dh)
+    assert torch.equal(dx, t % geo.kw * geo.dw)
+    assert torch.equal(off, c * geo.H * geo.W + dy * geo.W + dx)
+    implicit = ks[0] * ks[1] > 1 or any(pads)
+    assert tconv.conv_operand(ks, pads, "cuda") == \
+        ("implicit" if implicit else "materialised")
+    assert tconv.conv_operand(ks, pads, "cpu") == "materialised"
+
+
 def test_quant_conv2d_twin_makes_no_launch():
     tops.reset_launch_counts()
     w2 = torch.ones(9, 2, dtype=torch.int8)
     tconv.quant_conv2d(torch.ones(1, 1, 5, 5), w2, 0.5, kernel_shape=(3, 3))
     assert set(tops.launch_counts().values()) == {0}
+    assert set(tops.conv_operand_counts().values()) == {0}
 
 
 def test_conv_rules_in_priority_order():
@@ -172,6 +199,8 @@ def test_cnv_plan_bit_exact_against_reference(cnv_reference, key, int4):
     assert plan.grouped_conv_stats() == {
         "grouped_segments": 0, "block_diagonal_grouped": 0,
         "reclaimed_macs": 0, "carrier_bytes_saved": 0}
+    assert {s.meta["conv_operand"] for s in plan.segments
+            if s.kind.startswith("quant_conv")} == {"materialised"}
     got = _out(plan({"x": x}), g)
     assert got.shape == (2, 10)
     np.testing.assert_array_equal(got, r_out)

@@ -653,8 +653,8 @@ def test_qmm_x_off_16_bytes(cuda, m, k, n, off):
 
 def test_qmm_launch_refuses_a_plan_it_cannot_run(cuda):
     """A geometry the kernel does not take (a cluster of 9, a shared size
-    off the kernel's) comes back as a CUDA error, which the wrapper's
-    check raises."""
+    off the kernel's, the gather's x staging without a conv's geometry)
+    comes back as a CUDA error, which the wrapper's check raises."""
     import dataclasses
     from repro_torch.kernels import _build
     from repro_torch.kernels import quant_matmul as qm
@@ -664,10 +664,11 @@ def test_qmm_launch_refuses_a_plan_it_cannot_run(cuda):
     out = torch.empty(16, 33, device=cuda)
     plan = qm.qmm_launch_plan(16, 576, 33, False, 0)
     for bad in (dataclasses.replace(plan, split=9, kc=64),
-                dataclasses.replace(plan, smem=plan.smem + 16)):
+                dataclasses.replace(plan, smem=plan.smem + 16),
+                dataclasses.replace(plan, xmode=qm.QMM_XMODES.index("gather"))):
         err = _build.load().qmm_launch(
             x.data_ptr(), w.data_ptr(), s.data_ptr(), None, out.data_ptr(), bad.ints, 0,
-            0, 0, 1.0, 1.0, 0, None, 0.0, torch.cuda.current_stream().cuda_stream)
+            0, 0, 1.0, 1.0, 0, None, 0.0, None, torch.cuda.current_stream().cuda_stream)
         assert err != 0
         with pytest.raises(RuntimeError):
             _build.check(err, "qmm_launch")

@@ -301,6 +301,35 @@ def test_qmm_plan_staging_only_where_alignment_holds(m, k, n, x_vec, w_vec, o_ve
     assert p.ovec == int(o_vec and n % 4 == 0)
 
 
+# the convs the gather serves: (rows an image, K, N) of CNV's six and of
+# MobileNet-224's first (stride 2, pad 1)
+CONVS = [(900, 27, 64), (784, 576, 64), (144, 576, 128), (100, 1152, 128),
+         (9, 1152, 256), (1, 2304, 256), (12544, 27, 32)]
+
+
+@pytest.mark.parametrize("epi", [0, 1, 2])
+@pytest.mark.parametrize("m,k,n,packed", [
+    (rows * b, k, n, packed) for rows, k, n in CONVS for b in (1, 8, 256)
+    for packed in (False, True) if k % 2 == 0 or not packed])
+def test_qmm_plan_gather_keeps_the_patch_paths_plan(m, k, n, packed, epi):
+    """A gathered conv runs the materialised path's tile, K split, ring and
+    shared memory (so the float32 body sums in the same order), with x
+    staged by the gather, and its NCHW tile fits the shared memory."""
+    a = qm.qmm_launch_plan(m, k, n, packed, epi)
+    p = qm.qmm_launch_plan(m, k, n, packed, epi, gather=True)
+    same = ("M", "K", "N", "tile", "tiles_m", "tiles_n", "split", "kc",
+            "stages", "bufs", "wvec", "smem")
+    assert [getattr(p, f) for f in same] == [getattr(a, f) for f in same]
+    assert qm.QMM_XMODES[p.xmode] == "gather" and p.ovec == 0
+    bm, bn = p.block
+    assert 4 * (bm + 1) * bn <= p.smem
+    for tile in qm.QMM_TILES:
+        ov = (tile, 1, qm.qmm_min_stages(tile, packed, epi, k, 1))
+        assert qm.qmm_launch_plan(m, k, n, packed, epi, override=ov,
+                                  gather=True).smem == \
+            qm.qmm_launch_plan(m, k, n, packed, epi, override=ov).smem
+
+
 def test_qmm_plan_rejects_bad_problems():
     for args in ((4, 7, 3, True, 0), (4, 8, 3, False, 3), (-1, 8, 3, False, 0)):
         with pytest.raises(ValueError):
