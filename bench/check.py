@@ -8,18 +8,34 @@ products is exact; its control computes in bfloat16 (``dtype``).
 """
 from __future__ import annotations
 
+import importlib
+from pathlib import PurePosixPath
+
 import numpy as np
 import torch
 
-from bench.reference.forward import forward
-
 BLOCK = 16          # images a reference block holds
+REFERENCE_DIR = PurePosixPath("bench/reference")
+
+
+def reference(cfg: dict):
+    """The module of the configuration's own reference: the file its
+    ``"reference"`` key names, under ``bench/reference/``, with
+    ``forward`` and ``last_codes`` as ``bench/reference/forward.py`` has
+    them."""
+    path = PurePosixPath(cfg["reference"])
+    if path.parent != REFERENCE_DIR or path.suffix != ".py" \
+            or not path.stem.isidentifier():
+        raise ValueError(f"reference {cfg['reference']!r} is not a module "
+                         f"file under {REFERENCE_DIR}/")
+    return importlib.import_module(f"bench.reference.{path.stem}")
 
 
 def reference_rows(cfg: dict, params: list, pool: torch.Tensor, index,
                    *, device, dtype=torch.float64) -> np.ndarray:
     """The reference's logits for pool images ``index`` (with repeats),
     computed once per distinct image, ``BLOCK`` images at a time."""
+    forward = reference(cfg).forward
     uniq, inverse = np.unique(np.asarray(index), return_inverse=True)
     out = []
     for i in range(0, len(uniq), BLOCK):

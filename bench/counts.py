@@ -1,7 +1,8 @@
 """The benchmark's own count of a configuration's work, and the card's peaks.
 
 Counted from the configuration's layer table alone, so it is the model's
-work whatever kernels the program picks for it.  ``macs`` counts every
+work whatever kernels the program picks for it; a branch is counted at the
+shape of the tensor it reads, an ``add`` as no MACs.  ``macs`` counts every
 conv and matmul (the first conv too); QONNX's Table III leaves the first
 conv out, which ``macs(cfg, skip_first_conv=True)`` reproduces.
 """
@@ -9,49 +10,25 @@ from __future__ import annotations
 
 import math
 
+from bench import table
+
 # NVIDIA H100 SXM data sheet, dense, at its 700 W limit
 PEAK_INT8_OPS = 1979e12          # int8 tensor-core operations per second
 HBM_BYTES_PER_S = 3.35e12
 
 
-def _out_shape(layer: dict, shape: tuple) -> tuple:
-    op = layer["op"]
-    if op in ("conv", "maxpool"):
-        c, h, w = shape
-        k, s = layer["k"], layer["stride"]
-        p = layer.get("pad", 0)
-        c = layer["cout"] if op == "conv" else c
-        return (c, (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1)
-    if op == "gap":
-        return (shape[0], 1, 1)
-    if op == "flatten":
-        return (math.prod(shape),)
-    if op == "matmul":
-        return (layer["cout"],)
-    return shape
-
-
-def _walk(cfg: dict):
-    """(layer, its input shape, its output shape) for every layer in
-    order; shapes of one image, (C, H, W) or (K,)."""
-    shape = tuple(cfg["image_shape"])
-    for layer in cfg["layers"]:
-        out = _out_shape(layer, shape)
-        yield layer, shape, out
-        shape = out
-
-
 def output_shape(cfg: dict) -> tuple:
-    *_, (_, _, out) = _walk(cfg)
-    return out
+    return table.walk(cfg["layers"], cfg["image_shape"])[-1].shape_out
 
 
 def layer_macs(cfg: dict) -> list:
     """MACs an image, one entry per conv / matmul."""
     out = []
-    for layer, _, shape in _walk(cfg):
+    for step in table.walk(cfg["layers"], cfg["image_shape"]):
+        layer = step.layer
         if layer["op"] == "conv":
-            out.append(math.prod(shape) * (layer["cin"] // layer["group"])
+            out.append(math.prod(step.shape_out)
+                       * (layer["cin"] // layer["group"])
                        * layer["k"] ** 2)
         elif layer["op"] == "matmul":
             out.append(layer["cin"] * layer["cout"])

@@ -3,7 +3,19 @@
 A cell names a configuration (``bench/configs/<name>.json``) and a traffic
 mix (``bench/traffic/<name>.json``); a metric ``<family>[.<split>]`` is read
 by ``bench/metrics/<family>.py`` (its ``read(run)``).  A later change adds a
-configuration, a mix, a cell or a metric by adding files and entries.
+configuration, a mix, a cell or a metric by adding files and entries:
+
+- a configuration is its file: sizes, ``max_batch``, the ``check`` rows
+  and limit, ``cpu_image_shape`` (the size the CPU tests run it at) and
+  its layer table, a chain or a graph in ``bench/table.py``'s grammar
+  (named tensors, ``add``, padded ``maxpool``).  Its ``"reference"`` key
+  names its plain reference, a file under ``bench/reference/`` with
+  ``forward`` and ``last_codes`` as ``bench/reference/forward.py`` has
+  them (``check.reference``): the existing file, or a copy of its own;
+- the CPU tests (``bench/test_bench_reference.py``) take every
+  configuration ``BENCHMARK.json`` lists, so a new one is checked against
+  the port's oracle, for live codes, against its bfloat16 control and
+  against the port's cost report without an edit.
 """
 from __future__ import annotations
 

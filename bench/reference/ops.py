@@ -51,9 +51,16 @@ def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0.0)
 
 
-def max_pool(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
-    """ONNX ``MaxPool``, no padding."""
-    return F.max_pool2d(x, k, stride)
+def max_pool(x: torch.Tensor, k: int, stride: int, pad: int = 0
+             ) -> torch.Tensor:
+    """ONNX ``MaxPool`` with symmetric ``pad``: padded positions read -inf,
+    so they never win a window."""
+    return F.max_pool2d(x, k, stride, padding=pad)
+
+
+def add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """ONNX ``Add`` of two tensors of one shape."""
+    return x + y
 
 
 def global_average_pool(x: torch.Tensor) -> torch.Tensor:

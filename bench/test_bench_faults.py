@@ -9,6 +9,7 @@ Q4 = {"op": "quant", "bits": 4, "scale": 0.125, "signed": False}
 TINY = {
     "name": "tiny", "image_shape": [3, 8, 8], "image_std": 0.5,
     "max_batch": 4, "pool_images": 16, "conv_gain": True,
+    "reference": "bench/reference/forward.py",
     "check": {"rows": 12, "logit_rel_err_limit": 1e-3},
     "layers": [
         {"op": "quant", "bits": 8, "scale": 0.0078125, "signed": True},

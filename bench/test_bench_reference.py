@@ -1,28 +1,23 @@
 """The benchmark's plain reference and its counts, against the port's CPU
-oracle and QONNX's Table III (CPU).  This test may import the port; the
-reference itself may not."""
-import json
-from pathlib import Path
-
+oracle and QONNX's Table III (CPU).  Every configuration ``BENCHMARK.json``
+lists is checked, each against the reference file it names, at its
+``cpu_image_shape``.  This test may import the port; the reference itself
+may not."""
 import numpy as np
 import pytest
 import torch
 
-from bench import counts, model, seeded
-from bench.reference import forward as ref
+from bench import check, counts, manifest, model, seeded
 
-ROOT = Path(__file__).resolve().parent.parent
-CONFIGS = {n: json.loads((ROOT / f"bench/configs/{n}.json").read_text())
-           for n in ("mobilenet-w4a4", "cnv-w2a2")}
-# the image size the CPU tests run each configuration at: MobileNet's
-# strides leave 1 x 1 at 32; CNV's unpadded convs need its 32 x 32
-SMALL = {"mobilenet-w4a4": 32, "cnv-w2a2": 32}
+BM = manifest.load()
+CONFIGS = {c["name"]: manifest.load_config(BM, c["name"])
+           for c in BM["configs"]}
 SEEDS = (0, 7, 2**31 + 11)
 
 
 def small(name):
-    img = SMALL[name]
-    return dict(CONFIGS[name], image_shape=[3, img, img])
+    """The configuration at the image size its CPU tests run it at."""
+    return dict(CONFIGS[name], image_shape=CONFIGS[name]["cpu_image_shape"])
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -34,7 +29,8 @@ def test_reference_equals_the_port_oracle(name, seed):
     x = seeded.draw_images(cfg, seed, 3)
     g = model.build_graph(cfg, params)
     oracle = execute(g, {"x": x}, device="cpu")[g.output_names[0]]
-    got = ref.forward(cfg["layers"], params, torch.from_numpy(x))
+    got = check.reference(cfg).forward(cfg["layers"], params,
+                                       torch.from_numpy(x))
     np.testing.assert_array_equal(np.asarray(oracle, np.float64),
                                   got.numpy())
 
@@ -45,7 +41,7 @@ def test_last_quantized_activation_is_live(name, seed):
     cfg = small(name)
     params = seeded.draw_params(cfg, seed)
     x = torch.from_numpy(seeded.draw_images(cfg, seed, 4))
-    codes = ref.last_codes(cfg["layers"], params, x)
+    codes = check.reference(cfg).last_codes(cfg["layers"], params, x)
     assert torch.equal(codes, torch.round(codes))
     # nonzero codes in every image, so no comparison is of zeros
     assert bool((codes.reshape(4, -1) != 0).any(dim=1).all())
@@ -60,10 +56,10 @@ def test_bfloat16_control_fails_the_limit(name, seed):
     cfg = small(name)
     params = seeded.draw_params(cfg, seed)
     x = torch.from_numpy(seeded.draw_images(cfg, seed, 8))
-    exact = ref.forward(cfg["layers"], params, x).numpy()
-    low = ref.forward(cfg["layers"], params, x, dtype=torch.bfloat16)
-    from bench.check import logit_rel_err
-    err = logit_rel_err(low.to(torch.float64).numpy(), exact)
+    forward = check.reference(cfg).forward
+    exact = forward(cfg["layers"], params, x).numpy()
+    low = forward(cfg["layers"], params, x, dtype=torch.bfloat16)
+    err = check.logit_rel_err(low.to(torch.float64).numpy(), exact)
     assert err > 10 * cfg["check"]["logit_rel_err_limit"]
 
 
